@@ -12,18 +12,27 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 2. build: every kernel library built from ``mxnet_tpu_torch/csrc`` by
    concurrent ``nvcc`` processes, with ``-Xptxas -v`` output;
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
-   version at the main path's shapes and a ragged one;
-4. slice: the 2x1024 LSTM language model (V=10000, T=128, random weights
-   from a seed) behind ``PredictorBackend(dev_type=2)`` answers 8 requests
-   of 1 and 16 rows; launch counts are reset just before and read just
-   after, and one request is answered again on the CPU for comparison;
-5. timing: each kernel, its plain version and the nearest PyTorch library
-   call with CUDA events; Predictor forward time and tokens/s; peak memory;
-6. profile: device time by kernel over one forward per bucket, and the
-   device's idle share of it.
+   version at its path's shapes and ragged ones, fp32 and bf16;
+4. LSTM slice: the 2x1024 LSTM language model (V=10000, T=128, random
+   weights from a seed) behind ``PredictorBackend(dev_type=2)`` answers 8
+   requests of 1 and 16 rows; one request is answered again on the CPU;
+5. transformer slice: the transformer LM at ``TransformerConfig()``'s
+   width (32000 vocab, 4 x 512, 8 heads, bf16, weights from seed 0)
+   behind ``CallableBackend`` answers 8 requests of 1 and 4 rows at
+   S=2048 and one of 1 row at S=1000; held against the port's CPU path in
+   fp32 and against an fp32 forward on the card;
+6. masked attention: packed and length-masked batches through the public
+   ``flash_attention(lengths=..., segment_ids=...)`` entry point;
+7. timing: each kernel, its plain version and the nearest PyTorch library
+   call with CUDA events; Predictor and transformer forward times; peak
+   memory;
+8. profile: device time by kernel over one forward per bucket of each
+   model, and the device's idle share of it.
 
-Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+Each path (4, 5, 6) sets its kernels' launch counts to 0 just before it
+runs and reads them just after, and fails if a kernel of the path was not
+launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
 import statistics
@@ -39,12 +48,30 @@ FP32_TOL = 2e-5
 BF16_TOL = 1.6e-2
 # card against the port's CPU path on the LM's probabilities
 PROB_TOL = 1e-4
+# bf16 attention output against its plain version, compared in fp32: two
+# bf16 ulps at the reference's magnitude (at least 1.0)
+BF16_REL_TOL = 2.0 ** -6
+# transformer logits, card against the port's CPU path, both fp32 with
+# TF32 off: only summation order differs, through 4 layers
+LOGIT_TOL = 1e-4
+# bf16 transformer logits against an fp32 forward of the same weights on
+# the card: bf16 activations round at ~2**-9 relative through 4 layers,
+# and the logits of these random weights reach |2.4|; 0.1 is 4% of that
+BF16_LOGIT_TOL = 0.1
 # published H100 SXM peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989.4e12
 
 V, H, LAYERS, T = 10000, 1024, 2, 128
 BUCKETS = (1, 16)
+
+# the transformer LM: TransformerConfig() defaults, requests of 1 and 4 rows
+TF_S = 2048
+TF_BUCKETS = (1, 4)
+# (B, H, S, D) of the transformer's attention at its largest bucket
+ATT_SHAPE = (4, 8, 2048, 64)
+ATT_LENGTHS = [2048, 1500, 700, 0]
 
 
 def log(*args):
@@ -276,38 +303,361 @@ def phase_timing(backend, requests):
 
 
 def phase_profile(backend, requests):
-    """Device time by kernel over one forward per bucket, and the device's
-    idle share of that forward's wall time (torch.profiler, CUPTI). Only
-    device-side events (kernels, copies) are summed: a CPU op's device time
-    repeats its kernels'."""
-    from torch.profiler import ProfilerActivity, profile
-    cuda = torch.autograd.DeviceType.CUDA
     out = {}
     for rows in BUCKETS:
         batch = next(r for r in requests if r.shape[0] == rows)
         pred = backend.bind_bucket(rows)
         pred.set_input("data", memoryview(batch.reshape(-1)), batch.shape)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        out[str(rows)] = profile_device(
+            f"one {rows}-row Predictor forward", pred.forward)
+    return out
+
+
+def attention_inputs(b, h, sq, sk, d, dtype, seed, offset=0):
+    """q, k, v; with ``offset``, views that start ``offset`` elements into
+    wider rows, so that no row is 16-byte aligned."""
+    rng = np.random.RandomState(seed)
+    return [torch.tensor(rng.normal(0, 1, (b, h, s, d + offset)), dtype=dtype,
+                         device="cuda")[..., offset:]
+            for s in (sq, sk, sk)]
+
+
+def packed_segments(b, s):
+    """Three packed segments and a pad tail in every row, cut at other
+    places in each row."""
+    seg = np.zeros((b, s), np.int32)
+    for i in range(b):
+        cuts = [s // 4 + 37 * i, s // 2 + 11 * i, (7 * s) // 8 - 5 * i]
+        seg[i, :cuts[0]] = 1
+        seg[i, cuts[0]:cuts[1]] = 2
+        seg[i, cuts[1]:cuts[2]] = 3
+    return torch.tensor(seg, device="cuda")
+
+
+def attention_cases():
+    """(label, (B, H, Sq, Sk, D), causal, lengths, segments, offset) held
+    against the plain versions: the transformer's shapes at both buckets,
+    ragged ones, unaligned views (the CUDA-core variant in bf16), and the
+    masked variants at the transformer's largest bucket."""
+    b, h, s, d = ATT_SHAPE
+    dense = [(f"dense causal={c}", shape, c, None, False, 0)
+             for shape in ((b, h, s, s, d), (1, h, s, s, d))
+             for c in (True, False)]
+    ragged = [("ragged causal", (2, 3, 1000, 1000, 64), True, None, False, 0),
+              ("ragged", (2, 3, 1000, 1000, 64), False, None, False, 0),
+              ("causal Sq<Sk", (2, 2, 77, 200, 128), True, None, False, 0),
+              ("tiny", (1, 4, 33, 33, 8), False, None, False, 0),
+              ("unaligned causal", (1, 8, 300, 300, 64), True, None, False, 1)]
+    masked = [("masked lengths", (b, h, s, s, d), False, ATT_LENGTHS, False,
+               0),
+              ("masked segments", (b, h, s, s, d), False, None, True, 0),
+              ("masked causal+lengths", (b, h, s, s, d), True, ATT_LENGTHS,
+               False, 0),
+              ("masked unaligned segments", (2, 4, 300, 300, 64), True, None,
+               True, 1)]
+    return dense + ragged + masked
+
+
+def phase_attention_kernels():
+    from mxnet_tpu_torch.ops.cuda.attention import (attention_plain,
+                                                    flash_attention,
+                                                    masked_attention_plain)
+    errs = {name: {"fp32": 0.0, "bf16": 0.0}
+            for name in ("flash_attention", "flash_attention_masked")}
+    for i, (label, shape, causal, lengths, segments, offset) in enumerate(
+            attention_cases()):
+        b, h, sq, sk, d = shape
+        lens = (None if lengths is None else
+                torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+        seg = packed_segments(b, sk) if segments else None
+        masked = lens is not None or seg is not None
+        name = "flash_attention_masked" if masked else "flash_attention"
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = attention_inputs(b, h, sq, sk, d, dtype, seed=i,
+                                       offset=offset)
+            before = (flash_attention.launches,
+                      flash_attention.masked_launches)
+            out = flash_attention(q, k, v, causal=causal, lengths=lens,
+                                  segment_ids=seg)
+            torch.cuda.synchronize()
+            after = (flash_attention.launches,
+                     flash_attention.masked_launches)
+            if after != (before[0] + (not masked), before[1] + masked):
+                raise RuntimeError(f"{name}: the launch counter did not move")
+            want = (masked_attention_plain(q, k, v, lens, seg, causal=causal)
+                    if masked else attention_plain(q, k, v, causal=causal))
+            if out.dtype != dtype or out.shape != want.shape:
+                raise RuntimeError(f"{name} {label}: output {out.dtype} "
+                                   f"{tuple(out.shape)}")
+            diff = (out.float() - want.float()).abs()
+            err = diff.max().item()
+            if tag == "fp32":
+                ok, tol = err <= FP32_TOL, f"{FP32_TOL}"
+            else:
+                bound = BF16_REL_TOL * want.float().abs().clamp(min=1.0)
+                ok = bool((diff <= bound).all())
+                tol = f"{BF16_REL_TOL} x max(1, |ref|)"
+            log(f"[kernels] {name} {label} {shape} {tag}: max|d| {err:.3e} "
+                f"(tol {tol})")
+            if not ok:
+                raise RuntimeError(f"{name} {label} {tag} disagrees with its "
+                                   f"plain version: {err}")
+            if masked:
+                dead = want == 0
+                if not torch.equal(out[dead], want[dead]):
+                    raise RuntimeError(f"{name} {label} {tag}: fully masked "
+                                       "rows are not exact 0")
+                log(f"[kernels]   {int(dead.all(-1).sum())} fully masked "
+                    "rows, exact 0")
+            errs[name][tag] = max(errs[name][tag], err)
+    return errs
+
+
+def transformer_requests():
+    reqs = np.random.RandomState(2)
+    out = [reqs.randint(0, 32000, (rows, TF_S)).astype(np.float32)
+           for rows in TF_BUCKETS * 4]
+    return out + [reqs.randint(0, 32000, (1, 1000)).astype(np.float32)]
+
+
+def phase_transformer():
+    """The transformer's main path: TransformerLM on gpu(0) behind
+    CallableBackend, as one would serve the JAX package's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM, forward)
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention
+    from mxnet_tpu_torch.serving import CallableBackend
+
+    cfg = TransformerConfig()
+    t0 = time.perf_counter()
+    lm = TransformerLM(cfg, seed=0, ctx=mx.gpu(0))
+    n_params = sum(p.numel() for p in lm.params["blocks"].values()) + sum(
+        lm.params[k].numel() for k in ("embed", "ln_f", "head"))
+    log(f"[transformer] vocab {cfg.vocab_size}, {cfg.num_layers} layers, "
+        f"{cfg.num_heads} heads, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"{cfg.dtype}: {n_params} parameters, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    backend = CallableBackend(
+        lambda arrays: lm.logits(arrays["data"]).cpu().numpy(),
+        input_specs={"data": (TF_S,)})
+    requests = transformer_requests()
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0  # the main path's run starts here
+    flash_attention.masked_launches = 0
+    backend.load()
+    per_forward, served_ms, kept = [], [], None
+    for batch in requests:
+        before = (flash_attention.launches, flash_attention.masked_launches)
+        t0 = time.perf_counter()
+        (out,) = backend.infer({"data": batch})
+        served_ms.append((time.perf_counter() - t0) * 1e3)
+        per_forward.append((flash_attention.launches - before[0],
+                            flash_attention.masked_launches - before[1]))
+        rows, s = batch.shape
+        if out.shape != (rows, s, cfg.vocab_size) or out.dtype != np.float32:
+            raise RuntimeError(f"logits {out.shape} {out.dtype} for a "
+                               f"{batch.shape} request")
+        if not np.isfinite(out).all():
+            raise RuntimeError("non-finite logits")
+        if kept is None:
+            kept = out
+    launches = flash_attention.launches  # the main path's run ends here
+    masked = flash_attention.masked_launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[transformer] {len(requests)} requests answered "
+        f"(rows x S: {[r.shape for r in requests]}); flash_attention "
+        f"launches per forward (dense, masked) {per_forward}; total "
+        f"{launches} dense, {masked} masked; peak device memory {peak} bytes")
+    log(f"[transformer] served ms per request {served_ms}")
+    if any(n != (cfg.num_layers, 0) for n in per_forward):
+        raise RuntimeError(f"flash_attention launched {per_forward} times "
+                           f"per forward, expected ({cfg.num_layers}, 0)")
+
+    # the bf16 answer against an fp32 forward of the same weights
+    cfg32 = TransformerConfig(dtype="float32")
+    toks = torch.tensor(requests[0], device="cuda")
+    with torch.inference_mode():
+        ref32 = forward(lm.params, toks, cfg32).cpu().numpy()
+    bf16_err = float(np.abs(kept - ref32).max())
+    log(f"[transformer] bf16 logits against fp32 on the card, 1 x {TF_S}: "
+        f"max|d| {bf16_err:.3e} (tol {BF16_LOGIT_TOL}); largest |logit| "
+        f"{float(np.abs(ref32).max()):.3e}; argmax agreement "
+        f"{float((kept.argmax(-1) == ref32.argmax(-1)).mean()):.4f}")
+    if not bf16_err <= BF16_LOGIT_TOL:
+        raise RuntimeError(f"bf16 and fp32 logits disagree: {bf16_err}")
+
+    # the card against the port's CPU path on the same weights, fp32
+    toks = requests[0][:, :256]
+    cpu_params = {k: ({n: t.cpu() for n, t in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in lm.params.items()}
+    with torch.inference_mode():
+        card = forward(lm.params, torch.tensor(toks, device="cuda"),
+                       cfg32).cpu().numpy()
+        cpu = forward(cpu_params, torch.tensor(toks), cfg32).numpy()
+    cpu_err = float(np.abs(card - cpu).max())
+    log(f"[transformer] card against CPU, fp32, 1 x 256: max|d| "
+        f"{cpu_err:.3e} (tol {LOGIT_TOL})")
+    if not cpu_err <= LOGIT_TOL:
+        raise RuntimeError(f"card and CPU disagree: {cpu_err} > {LOGIT_TOL}")
+    return {"lm": lm, "backend": backend, "requests": requests,
+            "launches": launches, "masked_launches_on_path": masked,
+            "per_forward": per_forward, "served_ms": served_ms,
+            "peak_device_bytes": peak, "bf16_vs_fp32_max_abs": bf16_err,
+            "card_vs_cpu_max_abs": cpu_err, "parameters": n_params}
+
+
+def phase_masked_path():
+    """The masked core's path: a packed batch (three segments and a pad
+    tail per row) and a length-masked causal batch at the transformer's
+    attention shape, through the public flash_attention entry point, as a
+    caller serving packed rows calls it."""
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention
+    b, h, s, d = ATT_SHAPE
+    q, k, v = attention_inputs(b, h, s, s, d, torch.bfloat16, seed=99)
+    seg = packed_segments(b, s)
+    lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device="cuda")
+    flash_attention.launches = 0  # the masked path's run starts here
+    flash_attention.masked_launches = 0
+    packed = flash_attention(q, k, v, causal=True, segment_ids=seg)
+    ragged = flash_attention(q, k, v, causal=True, lengths=lens)
+    torch.cuda.synchronize()
+    launches = flash_attention.masked_launches  # and ends here
+    for out in (packed, ragged):
+        if not torch.isfinite(out).all():
+            raise RuntimeError("non-finite masked attention output")
+    if not (bool((packed[seg[:, None, :].expand(b, h, s) == 0] == 0).all())
+            and bool((ragged[3] == 0).all())):
+        raise RuntimeError("masked rows are not exact 0")
+    log(f"[masked] packed and length-masked batches {ATT_SHAPE} bf16: "
+        f"{launches} masked launches, {flash_attention.launches} dense")
+    if launches != 2 or flash_attention.launches != 0:
+        raise RuntimeError("the masked path did not run the masked kernel")
+    return launches
+
+
+def attention_bound_ms(live_pairs, b, h, sq, sk, d, elem_bytes):
+    """Least time on an H100: q, k, v read once and o written once from
+    device memory, against 4*D operations per live (query, key) pair at
+    the bf16 tensor-core peak."""
+    nbytes = elem_bytes * b * h * d * (2 * sq + 2 * sk)
+    flops = 4 * d * live_pairs
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def phase_attention_timing():
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda.attention import (_combined_mask,
+                                                    attention_plain,
+                                                    flash_attention,
+                                                    masked_attention_plain)
+    b, h, s, d = ATT_SHAPE
+    q, k, v = attention_inputs(b, h, s, s, d, torch.bfloat16, seed=7)
+    lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device="cuda")
+    mask = _combined_mask(s, s, True, lens, None, q.device)  # (B,1,S,S)
+    rows = {}
+    for name, fn, plain, library, live in (
+            ("flash_attention",
+             lambda: flash_attention(q, k, v, causal=True),
+             lambda: attention_plain(q, k, v, causal=True),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+             b * h * s * (s + 1) // 2),
+            ("flash_attention_masked",
+             lambda: flash_attention(q, k, v, causal=True, lengths=lens),
+             lambda: masked_attention_plain(q, k, v, lens, causal=True),
+             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+             h * int(mask.sum().item()))):
+        row = {"kernel_ms": time_on_stream(fn, iters=20),
+               "plain_ms": time_on_stream(plain, iters=10),
+               "library_ms": time_on_stream(library, iters=20),
+               "live_pairs": live}
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            live, b, h, s, s, d, 2)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        row["tflops"] = 4 * d * live / row["kernel_ms"] / 1e9
+        rows[name] = row
+        log(f"[timing] {name} {ATT_SHAPE} bf16 causal: kernel "
+            f"{row['kernel_ms'] * 1e3:.3f} us ({row['tflops']:.2f} TFLOP/s), "
+            f"plain {row['plain_ms'] * 1e3:.3f} us, scaled_dot_product_"
+            f"attention (library) {row['library_ms'] * 1e3:.3f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}, share of "
+            f"bound {row['share_of_bound']:.4f}")
+    return rows
+
+
+def phase_transformer_timing(tf):
+    """Device time of one forward, logits left on the card (CUDA events),
+    and the served request time (host clock, includes the logits' copy
+    to host memory), per bucket."""
+    from mxnet_tpu_torch.models.transformer import forward
+    lm, backend = tf["lm"], tf["backend"]
+    out = {}
+    for rows in TF_BUCKETS:
+        batch = next(r for r in tf["requests"] if r.shape[0] == rows)
+        toks = torch.tensor(batch, device="cuda").long()
+        with torch.inference_mode():
+            device_ms = time_on_stream(lambda: forward(lm.params, toks,
+                                                       lm.cfg), iters=10)
+        served = []
+        for _ in range(3):
             t0 = time.perf_counter()
-            pred.forward()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = [(e.key, e.self_device_time_total, e.count)
-                  for e in prof.key_averages()
-                  if e.device_type == cuda and e.self_device_time_total > 0]
-        events.sort(key=lambda k: -k[1])
-        busy_us = sum(k[1] for k in events)
-        if not busy_us:
-            raise RuntimeError("the profiler recorded no device time")
-        log(f"[profile] one {rows}-row forward under the profiler: wall "
-            f"{wall_us:.1f} us, device busy {busy_us:.1f} us, idle share "
-            f"{1 - busy_us / wall_us:.4f}")
-        for key, us, count in events[:8]:
-            log(f"[profile]   {us:12.1f} us  x{count:<5d} {key[:90]}")
-        out[str(rows)] = {"wall_us": wall_us, "device_busy_us": busy_us,
-                          "idle_share": 1 - busy_us / wall_us,
-                          "top": [[k[:90], us, n] for k, us, n in events[:8]]}
+            backend.infer({"data": batch})
+            served.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(served)
+        out[str(rows)] = {"forward_device_ms": device_ms,
+                          "served_ms": ms, "served_runs_ms": served,
+                          "tokens_per_s_device": rows * TF_S / device_ms * 1e3,
+                          "tokens_per_s_served": rows * TF_S / ms * 1e3}
+        log(f"[timing] transformer forward {rows} x {TF_S}: device "
+            f"{device_ms:.3f} ms ({out[str(rows)]['tokens_per_s_device']:.1f}"
+            f" tokens/s); served median {ms:.3f} ms of {served} "
+            f"({out[str(rows)]['tokens_per_s_served']:.1f} tokens/s)")
+    return out
+
+
+def profile_device(label, fn):
+    """Device time by kernel over one call of ``fn`` and the device's idle
+    share of its wall time (torch.profiler, CUPTI). Only device-side events
+    (kernels, copies) are summed: a CPU op's device time repeats its
+    kernels'."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if e.device_type == cuda and e.self_device_time_total > 0]
+    events.sort(key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in events)
+    if not busy_us:
+        raise RuntimeError("the profiler recorded no device time")
+    log(f"[profile] {label} under the profiler: wall {wall_us:.1f} us, "
+        f"device busy {busy_us:.1f} us, idle share "
+        f"{1 - busy_us / wall_us:.4f}")
+    for key, us, count in events[:8]:
+        log(f"[profile]   {us:12.1f} us  x{count:<5d} {key[:90]}")
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
+            "idle_share": 1 - busy_us / wall_us,
+            "top": [[k[:90], us, n] for k, us, n in events[:8]]}
+
+
+def phase_transformer_profile(tf):
+    lm = tf["lm"]
+    out = {}
+    for rows in TF_BUCKETS:
+        batch = next(r for r in tf["requests"] if r.shape[0] == rows)
+        out[str(rows)] = profile_device(
+            f"one {rows} x {TF_S} transformer forward (logits on the card)",
+            lambda: lm.logits(batch))
     return out
 
 
@@ -315,12 +665,18 @@ def main():
     phase_device()
     phase_build()
     errs = phase_kernels()
+    att_errs = phase_attention_kernels()
     backend, requests, launches, peak, prob_err = phase_slice()
+    tf = phase_transformer()
+    masked_launches = phase_masked_path()
     cells, forward = phase_timing(backend, requests)
+    att = phase_attention_timing()
+    tf_timing = phase_transformer_timing(tf)
     profiled = phase_profile(backend, requests)
+    tf_profiled = phase_transformer_profile(tf)
     main_n = max(BUCKETS)
     cell = cells[main_n]
-    record = {
+    lstm = {
         "name": "lstm_cell",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
@@ -345,7 +701,41 @@ def main():
         "peak_device_bytes": peak,
         "profile": profiled,
     }
-    print(json.dumps({"kernels": [record]}), flush=True)
+    records = [lstm]
+    for name, line, n in (("flash_attention", 32, tf["launches"]),
+                          ("flash_attention_masked", 277, masked_launches)):
+        t = att[name]
+        record = {
+            "name": name,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"mxnet_tpu/ops/pallas/attention.py:{line}",
+            "launches": n,
+            "max_abs_err": max(att_errs[name].values()),
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"(B,H,S,D)={ATT_SHAPE} bf16 causal" + (
+                f" lengths={ATT_LENGTHS}" if name.endswith("masked") else ""),
+            "max_err_fp32": att_errs[name]["fp32"],
+            "max_err_bf16": att_errs[name]["bf16"],
+            "share_of_bound": t["share_of_bound"],
+            "tflops": t["tflops"],
+            "live_pairs": t["live_pairs"],
+        }
+        if name == "flash_attention":
+            record["transformer"] = {
+                k: tf[k] for k in ("per_forward", "served_ms",
+                                   "peak_device_bytes",
+                                   "bf16_vs_fp32_max_abs",
+                                   "card_vs_cpu_max_abs", "parameters",
+                                   "masked_launches_on_path")}
+            record["transformer"]["timing"] = tf_timing
+            record["transformer"]["profile"] = tf_profiled
+        records.append(record)
+    print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,11 @@ Pallas kernel of the JAX package becomes a hand-written Hopper kernel
 (``csrc/``) built at first use. Entry points run on the card unless the
 caller asks for the CPU: the default context is ``gpu(0)``.
 
-This slice serves the LSTM language model through the C predict
-``Predictor`` and ``serving.PredictorBackend``.
+It serves the LSTM language model through the C predict ``Predictor``
+and ``serving.PredictorBackend``, and the transformer LM
+(``models.transformer``) through ``serving.CallableBackend``.
 """
-from . import c_predict, convert, ndarray, rnn, serving, symbol  # noqa: F401
+from . import c_predict, convert, models, ndarray, rnn, serving, symbol  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
 from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from .ops import OP_TABLE  # noqa: F401

@@ -27,7 +27,8 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mxnet_tpu_torch"
 
 # library name -> source file under csrc/
-SOURCES = {"lstm_cell": "lstm_cell.cu"}
+SOURCES = {"lstm_cell": "lstm_cell.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

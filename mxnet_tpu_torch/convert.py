@@ -4,7 +4,8 @@ Both packages hold parameters as named arrays and write them as the same
 ``.params`` container: an npz file whose keys are ``arg:<name>`` and
 ``aux:<name>``. These helpers move numpy arrays (as either package's
 ``asnumpy()`` returns them) into the port and write the container bytes
-that both ``Predictor``s read.
+that both ``Predictor``s read; the transformer's nested parameter dict
+moves the same way.
 """
 from __future__ import annotations
 
@@ -12,11 +13,13 @@ import io as _io
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
-from .context import Context
+from .context import Context, current_context
 from .ndarray import NDArray, array
 
-__all__ = ["params_from_numpy", "params_to_bytes"]
+__all__ = ["params_from_numpy", "params_to_bytes",
+           "transformer_params_from_numpy"]
 
 
 def params_from_numpy(arg_params: Mapping[str, np.ndarray],
@@ -42,3 +45,17 @@ def params_to_bytes(arg_params: Mapping[str, object],
     buf = _io.BytesIO()
     np.savez(buf, **arrays)
     return buf.getvalue()
+
+
+def transformer_params_from_numpy(tree: Mapping[str, object],
+                                  ctx: Optional[Context] = None) -> Dict:
+    """The JAX package's transformer parameter pytree, after
+    ``jax.tree.map(np.asarray, params)``, -> the port's dict of tensors on
+    ``ctx`` (default: the current context), same keys, shapes and dtypes."""
+    device = (ctx or current_context()).torch_device()
+
+    def convert(node):
+        if isinstance(node, Mapping):
+            return {k: convert(v) for k, v in node.items()}
+        return torch.tensor(np.asarray(node), device=device)
+    return convert(tree)

@@ -1,0 +1,79 @@
+"""Attention operators: multi-head attention and the flash-attention op.
+
+Counterpart of ``mxnet_tpu/ops/attention_ops.py`` and of the
+``_contrib_flash_attention`` registration in
+``mxnet_tpu/ops/pallas/attention.py``. ``MultiHeadAttention`` is plain
+torch, as the JAX op is plain jnp (``parallel/sequence.py:_full_attn``),
+and runs on one device: the port has no mesh yet, so a nonempty
+``seq_axis`` runs the local attention, as the JAX op does when no ambient
+mesh carries that axis. Sequence-parallel attention comes with the mesh.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import AttrSpec, MXNetError
+from .cuda.attention import flash_attention
+from .registry import register
+
+_NEG = -1e30
+
+
+def _split_heads(x, num_heads):
+    b, s, e = x.shape
+    if e % num_heads:
+        raise MXNetError(
+            f"MultiHeadAttention: embed dim {e} not divisible by "
+            f"num_heads {num_heads}")
+    return x.reshape(b, s, num_heads, e // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _full_attn(q, k, v, causal, scale):
+    """``parallel/sequence.py:_full_attn``. Its causal mask is
+    ``kpos <= qpos``, aligned to the top left with no (Sk - Sq) offset,
+    unlike the flash kernels' diagonal."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = s.shape[-2:]
+        mask = (torch.arange(sk, device=s.device)[None, :]
+                <= torch.arange(sq, device=s.device)[:, None])
+        s = torch.where(mask, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+@register("MultiHeadAttention",
+          attrs=AttrSpec(num_heads=("int",), causal=("bool", False),
+                         seq_axis=("str", ""), seq_mode=("str", "auto"),
+                         batch_axis=("str", "data"),
+                         head_axis=("str", "model")),
+          num_inputs=3, input_names=["query", "key", "value"],
+          output_names=["output"])
+def _multi_head_attention(query, key, value, num_heads, causal=False,
+                          seq_axis="", seq_mode="auto", batch_axis="data",
+                          head_axis="model"):
+    """Scaled-dot-product multi-head attention over (B, S, E) inputs.
+    ``seq_axis``, ``seq_mode``, ``batch_axis`` and ``head_axis`` name mesh
+    axes; with no mesh the attention is local, with identical numerics."""
+    q = _split_heads(query, num_heads)
+    k = _split_heads(key, num_heads)
+    v = _split_heads(value, num_heads)
+    out = _full_attn(q, k, v, causal, None)
+    return _merge_heads(out).to(query.dtype)
+
+
+@register("_contrib_flash_attention", aliases=["flash_attention_op"],
+          num_inputs=3, input_names=["query", "key", "value"],
+          attrs=AttrSpec(causal=("bool", False), scale=("any", None)))
+def _flash_attention_op(q, k, v, causal=False, scale=None):
+    """Memory-efficient exact attention over (B, H, S, D) inputs."""
+    return flash_attention(q, k, v, causal,
+                           None if scale is None else float(scale))
