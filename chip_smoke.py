@@ -27,16 +27,35 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    call with CUDA events; Predictor and transformer forward times; peak
    memory;
 8. profile: device time by kernel over one forward per bucket of each
-   model, and the device's idle share of it.
+   model, and the device's idle share of it;
+9. rtc kernels: Rtc bodies compiled by NVRTC (``csrc/rtc_runtime.cu``,
+   ``ops/cuda/rtc_codegen.py``) against the plain version on the card's
+   tensors: axpy at 8 and 2**24+3 elements, a two-output split, a
+   transcendental body, a (4096,1024)+(1024,) broadcast, bf16 with
+   ``.astype``, int32 floor ``//`` and ``%``, an aliased push, and one
+   body under the default launch and under grid (4,1,1)/block (128,1,1);
+   arithmetic bodies bit for bit, transcendental ones within 2 fp32 ulps,
+   bf16 within one bf16 ulp; NVRTC compile seconds and cache hits;
+10. imperative path: the transformer LM's 12 parameter tensors
+   (``init_params(0, TransformerConfig())``, 49,549,824 fp32 elements) as
+   NDArrays on the card; three SGD-momentum steps through
+   ``optimizer.get_updater(create('sgd', ...))`` and the same three steps
+   as one Rtc body per parameter shape, held bit for bit equal; the same
+   for a bf16 mixed-precision body against ``nd.mp_sgd_mom_update``; the
+   updated weights through ``nd.save``/``nd.load`` bit for bit; ms per
+   step of both, the kernel on the largest tensor against its bound, its
+   plain version, and peak memory.
 
-Each path (4, 5, 6) sets its kernels' launch counts to 0 just before it
+Each path (4, 5, 6, 10) sets its kernels' launch counts to 0 just before it
 runs and reads them just after, and fails if a kernel of the path was not
 launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -100,6 +119,7 @@ def phase_device():
 
 def phase_build():
     from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops.cuda.rtc import nvrtc_version
     t0 = time.perf_counter()
     results = _build.build()
     log(f"[build] {len(results)} libraries in "
@@ -108,6 +128,7 @@ def phase_build():
         log(f"[build] {name}: {res.path} nvcc {res.seconds:.3f} s")
         for line in res.log.strip().splitlines():
             log(f"[build]   {line}")
+    log(f"[build] NVRTC {nvrtc_version()}")
 
 
 def cell_inputs(n, hdim, dtype, seed):
@@ -626,18 +647,25 @@ def profile_device(label, fn):
     kernels'."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [(e.key, e.self_device_time_total, e.count)
-              for e in prof.key_averages()
-              if e.device_type == cuda and e.self_device_time_total > 0]
-    events.sort(key=lambda k: -k[1])
-    busy_us = sum(k[1] for k in events)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [(e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == cuda and e.self_device_time_total > 0]
+        events.sort(key=lambda k: -k[1])
+        busy_us = sum(k[1] for k in events)
+        if busy_us:
+            break
+        # CUPTI now and then hands back no device records for a window;
+        # the measurement is taken again, and fails after three windows
+        log(f"[profile] {label}: no device time recorded (window "
+            f"{attempt + 1} of 3)")
     if not busy_us:
         raise RuntimeError("the profiler recorded no device time")
     log(f"[profile] {label} under the profiler: wall {wall_us:.1f} us, "
@@ -660,6 +688,391 @@ def phase_transformer_profile(tf):
             lambda: lm.logits(batch))
     return out
 
+# -- rtc: runtime-compiled kernels (B4) -------------------------------------
+
+# Rtc bodies against their plain version: "bits" bit for bit (NaN payloads
+# aside), "ulp2" within 2 fp32 ulps (the plain version's torch exp/tanh and
+# NVRTC's may differ by an ulp), "bf16" within one bf16 ulp
+AXPY = "out[:] = x[:] * 2.0 + y[:]"
+SGD_BODY = ("mom[:] = 0.9 * m[:] - 0.01 * (g[:] * 0.125 + 0.0001 * w[:])\n"
+            "wout[:] = w[:] + mom[:]")
+MP_SGD_BODY = ("mom[:] = 0.9 * m[:] - 0.01 * (g[:].astype(jnp.float32) * 0.125"
+               " + 0.0001 * w32[:])\n"
+               "w32out[:] = w32[:] + mom[:]\n"
+               "wout[:] = w32out[:].astype(jnp.bfloat16)")
+SGD_KW = dict(learning_rate=0.01, momentum=0.9, wd=1e-4, rescale_grad=0.125)
+SGD_STEPS = 3
+# the transformer's config for the imperative path (full width)
+TF_CFG_KW = {}
+RTC_BIG = 2 ** 24 + 3
+RTC_ROWS = 4096
+
+
+def rtc_cases():
+    """(label, inputs [(name, shape, dtype, kind)], outputs [(name,
+    dtype)], body, tolerance, push kwargs, aliased)."""
+    f32, big, mat = "float32", (RTC_BIG,), (RTC_ROWS, 1024)
+    return [
+        ("axpy 8", [("x", (8,), f32, "n"), ("y", (8,), f32, "n")],
+         [("out", f32)], AXPY, "bits", {}, False),
+        ("axpy 2^24+3", [("x", big, f32, "n"), ("y", big, f32, "n")],
+         [("out", f32)], AXPY, "bits", {}, False),
+        ("split", [("x", mat, f32, "n")], [("a", f32), ("b", f32)],
+         "a[:] = x[:] + 1.0\nb[:] = x[:] * x[:]", "bits", {}, False),
+        ("transcendental", [("x", mat, f32, "n"), ("y", mat, f32, "n")],
+         [("o", f32)],
+         "t = jnp.exp(x[:]) - jnp.tanh(y[:])\n"
+         "o[:] = jnp.where(t > 1.0, jax.nn.sigmoid(t), jnp.maximum(x[:], y[:]))",
+         "ulp2", {}, False),
+        ("broadcast", [("m", mat, f32, "n"), ("v", (1024,), f32, "n")],
+         [("o", f32)], "o[:] = m[:] + v[:]", "bits", {}, False),
+        ("bf16", [("x", mat, "bfloat16", "n"), ("y", mat, f32, "n")],
+         [("o", "bfloat16")],
+         "o[:] = (x[:] * 0.1 + y[:].astype(jnp.bfloat16)) ** 2 - x[:] / 3.0",
+         "bf16", {}, False),
+        ("int32 floor", [("x", mat, "int32", "i")], [("o", "int32")],
+         "o[:] = x[:] // 7 + x[:] % -3 + x[:] // -2 * 100 + x[:] % 0",
+         "bits", {}, False),
+        ("aliased", [("x", mat, f32, "n")], [("a", f32), ("b", f32)],
+         "a[:] = x[:] + 1.0\nb[:] = x[:] * 2.0", "bits", {}, True),
+        ("launch (4,1,1)/(128,1,1)", [("x", big, f32, "n"),
+                                      ("y", big, f32, "n")],
+         [("out", f32)], AXPY, "bits",
+         {"grid_dims": (4, 1, 1), "block_dims": (128, 1, 1)}, False),
+    ]
+
+
+def bits_equal(a, b):
+    """Bit for bit, any NaN equal to any NaN."""
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    same = a.view(view) == b.view(view)
+    if a.is_floating_point():
+        same |= torch.isnan(a) & torch.isnan(b)
+    return bool(same.all())
+
+
+def max_ulp(a, b):
+    """Largest distance in fp32 ulps (same-sign finite values)."""
+    ia = a.float().view(torch.int32).long()
+    ib = b.float().view(torch.int32).long()
+    return int((ia - ib).abs().max().item())
+
+
+def compare(kernel, plain, tol):
+    if kernel.dtype != plain.dtype or kernel.shape != plain.shape:
+        return False, (f"{kernel.dtype}{tuple(kernel.shape)} against "
+                       f"{plain.dtype}{tuple(plain.shape)}")
+    err = (kernel.double() - plain.double()).abs().nan_to_num(0.0).max().item()
+    if tol == "bits":
+        return bits_equal(kernel, plain), err
+    if tol == "ulp2":
+        return max_ulp(kernel, plain) <= 2, err
+    bound = 2.0 ** -8 * plain.float().abs()
+    return bool(((kernel.float() - plain.float()).abs() <= bound).all()), err
+
+
+def case_arrays(mx, ins, outs, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    arrays = []
+    for name, shape, dtype, kind in ins:
+        if kind == "i":
+            t = torch.randint(-1000, 1000, shape, generator=gen, device="cuda",
+                              dtype=torch.int32)
+        else:
+            t = torch.randn(shape, generator=gen, device="cuda") * 2.0
+        arrays.append((name, mx.nd.NDArray(t.to(getattr(torch, dtype)))))
+    shape = ins[0][1]
+    outputs = [(n, mx.nd.zeros(shape, ctx=mx.gpu(0), dtype=dt))
+               for n, dt in outs]
+    return arrays, outputs
+
+
+def phase_rtc_kernels():
+    """Each body's NVRTC kernel (Rtc.push on CUDA tensors) against the plain
+    version (the body over torch ops) on the same tensors on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda.rtc import STATS, rtc_launch
+    rows, worst = [], {"bits": 0.0, "ulp2": 0.0, "bf16": 0.0}
+    for i, (label, ins, outs, body, tol, kw, aliased) in enumerate(rtc_cases()):
+        arrays, outputs = case_arrays(mx, ins, outs, seed=100 + i)
+        k = mx.rtc.Rtc(label.split()[0], arrays, outputs, body)
+        tensors = [a._data for _, a in arrays]
+        plain = k._run_plain(tensors, tensors[0].device)
+        compiles, before = STATS["compiles"], rtc_launch.launches
+        targets = ([arrays[0][1]] + [o for _, o in outputs[1:]]) if aliased \
+            else [o for _, o in outputs]
+        t0 = time.perf_counter()
+        k.push([a for _, a in arrays], targets, **kw)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if rtc_launch.launches != before + 1:
+            raise RuntimeError(f"rtc {label}: the launch counter did not move")
+        for (name, _), got, want in zip(outputs, targets, plain):
+            ok, err = compare(got._data, want, tol)
+            log(f"[rtc] {label} {name} {tuple(got.shape)} {got.dtype}: "
+                f"max|d| {err} ({tol})")
+            if not ok:
+                raise RuntimeError(f"rtc {label} output {name} disagrees with "
+                                   f"its plain version: {err} ({tol})")
+            worst[tol] = max(worst[tol], err)
+        if aliased and not bits_equal(targets[1]._data, tensors[0] * 2.0):
+            raise RuntimeError("rtc aliased push read x after writing it")
+        compiled = STATS["compiles"] > compiles
+        rows.append({"label": label, "tolerance": tol, "compiled": compiled,
+                     "first_push_ms": first_ms})
+        log(f"[rtc] {label}: first push {first_ms:.3f} ms "
+            f"({'compiled' if compiled else 'cache hit'})")
+    log(f"[rtc] NVRTC modules compiled {STATS['compiles']}, cache hits "
+        f"{STATS['cache_hits']}, compile seconds {STATS['compile_seconds']}")
+    return {"cases": rows, "max_abs_err": worst,
+            "compiles": STATS["compiles"], "cache_hits": STATS["cache_hits"],
+            "compile_seconds": list(STATS["compile_seconds"])}
+
+
+def sgd_bound_ms(n, elem_bytes=4):
+    """Least time on an H100 for one SGD-momentum update of n elements:
+    w, g, m read once and w, m written once (5 x n x 4 bytes) at 3.35 TB/s,
+    against its 7 fp32 operations an element at the fp32 peak."""
+    by_bytes = 5 * elem_bytes * n / HBM_BYTES_PER_S
+    by_ops = 7 * n / FP32_FLOPS
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def step_ms(fn):
+    """One step's time: CUDA events and the host clock, both ending in a
+    synchronize."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def phase_imperative():
+    """The imperative path at the transformer LM's width: SGD-momentum steps
+    through the optimizer's updater and through Rtc bodies compiled by
+    NVRTC, held bit for bit equal; then the mixed-precision body, save/load
+    and the timings."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.transformer import TransformerConfig, init_params
+    from mxnet_tpu_torch.ops.cuda.rtc import STATS, rtc_launch
+    nd = mx.nd
+    params = init_params(0, TransformerConfig(**TF_CFG_KW), ctx=mx.gpu(0))
+    flat = [(k, v) for k, v in params.items() if not isinstance(v, dict)]
+    flat += [(f"blocks.{k}", v) for k, v in params["blocks"].items()]
+    names = [n for n, _ in flat]
+    n_elems = sum(t.numel() for _, t in flat)
+    shapes = sorted({tuple(t.shape) for _, t in flat})
+    log(f"[imperative] {len(flat)} parameter tensors, {n_elems} fp32 "
+        f"elements, {len(shapes)} shapes {shapes}")
+    wa = [nd.NDArray(t.clone()) for _, t in flat]
+    wb = [nd.NDArray(t.clone()) for _, t in flat]
+    mb = [nd.zeros(t.shape, ctx=mx.gpu(0)) for _, t in flat]
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    grads = [[nd.NDArray(torch.randn(t.shape, generator=gen, device="cuda"))
+              for _, t in flat] for _ in range(SGD_STEPS)]
+    upd = mx.optimizer.get_updater(mx.optimizer.create("sgd", **SGD_KW))
+
+    def updater_step(step):
+        for i, (w, g) in enumerate(zip(wa, grads[step])):
+            upd(i, g, w)
+
+    def rtc_step(step):
+        for w, g, m in zip(wb, grads[step], mb):
+            kernels[w.shape].push([w, g, m], [w, m])
+
+    torch.cuda.reset_peak_memory_stats()
+    first = {"updater_ms": [], "rtc_ms": []}
+    for step in range(SGD_STEPS):  # (a) the optimizer's updater
+        first["updater_ms"].append(step_ms(lambda: updater_step(step))[0])
+    compiles0, hits0 = STATS["compiles"], STATS["cache_hits"]
+    rtc_launch.launches = 0  # the rtc path's run starts here
+    kernels = {}
+    for w, m in zip(wb, mb):  # one Rtc per parameter shape
+        if w.shape not in kernels:
+            kernels[w.shape] = mx.rtc.Rtc(
+                "sgd_mom", [("w", w), ("g", w), ("m", m)],
+                [("wout", w), ("mom", m)], SGD_BODY)
+    for step in range(SGD_STEPS):  # (b) the same steps as Rtc bodies
+        first["rtc_ms"].append(step_ms(lambda: rtc_step(step))[0])
+    launches = rtc_launch.launches  # and ends here
+    peak = torch.cuda.max_memory_allocated()
+    modules = STATS["compiles"] - compiles0
+    hits = STATS["cache_hits"] - hits0
+    log(f"[imperative] rtc launches {launches} ({launches // SGD_STEPS} per "
+        f"step), NVRTC modules {modules}, cache hits {hits}; peak device "
+        f"memory {peak} bytes")
+    log(f"[imperative] first steps ms (CUDA events): updater "
+        f"{first['updater_ms']}, rtc {first['rtc_ms']}")
+    if launches != SGD_STEPS * len(flat):
+        raise RuntimeError(f"rtc launched {launches} times, expected "
+                           f"{SGD_STEPS * len(flat)}")
+    for i, name in enumerate(names):
+        if not (bits_equal(wa[i]._data, wb[i]._data)
+                and bits_equal(upd.states[i]._data, mb[i]._data)):
+            err = (wa[i]._data - wb[i]._data).abs().max().item()
+            raise RuntimeError(f"updater and rtc disagree on {name}: {err}")
+    log(f"[imperative] updater and rtc bodies bit for bit equal over "
+        f"{n_elems} weights and momenta after {SGD_STEPS} steps")
+
+    # mixed precision: bf16 weight and grad, fp32 master and mom
+    mp_launches = rtc_launch.launches
+    mp = {}
+    wbf = [nd.NDArray(t.to(torch.bfloat16)) for _, t in flat]
+    w32 = [nd.NDArray(t.clone()) for _, t in flat]
+    mom = [nd.zeros(t.shape, ctx=mx.gpu(0)) for _, t in flat]
+    rb = [nd.NDArray(t.to(torch.bfloat16)) for _, t in flat]
+    r32 = [nd.NDArray(t.clone()) for _, t in flat]
+    rmom = [nd.zeros(t.shape, ctx=mx.gpu(0)) for _, t in flat]
+    for step in range(SGD_STEPS):
+        for i in range(len(flat)):
+            g = nd.NDArray(grads[step][i]._data.to(torch.bfloat16))
+            nd.mp_sgd_mom_update(wbf[i], g, mom[i], w32[i], lr=0.01,
+                                 momentum=0.9, wd=1e-4, rescale_grad=0.125,
+                                 out=[wbf[i], mom[i], w32[i]])
+            if rb[i].shape not in mp:
+                mp[rb[i].shape] = mx.rtc.Rtc(
+                    "mp_sgd_mom", [("w", rb[i]), ("g", g), ("m", rmom[i]),
+                                   ("w32", r32[i])],
+                    [("wout", rb[i]), ("mom", rmom[i]), ("w32out", r32[i])],
+                    MP_SGD_BODY)
+            mp[rb[i].shape].push([rb[i], g, rmom[i], r32[i]],
+                                 [rb[i], rmom[i], r32[i]])
+    torch.cuda.synchronize()
+    for i, name in enumerate(names):
+        for a, b in ((wbf[i], rb[i]), (mom[i], rmom[i]), (w32[i], r32[i])):
+            if a.dtype != b.dtype or not bits_equal(a._data, b._data):
+                raise RuntimeError(f"mp_sgd_mom_update and the rtc body "
+                                   f"disagree on {name}")
+    log(f"[imperative] bf16 mixed precision: nd.mp_sgd_mom_update and the rtc "
+        f"body bit for bit equal after {SGD_STEPS} steps "
+        f"({rtc_launch.launches - mp_launches} launches)")
+    del wbf, w32, mom, rb, r32, rmom
+
+    # save / load round trip of the updated weights
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sgd.params")
+        t0 = time.perf_counter()
+        nd.save(path, dict(zip(names, wb)))
+        back = nd.load(path, ctx=mx.gpu(0))
+        io_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    for name, w in zip(names, wb):
+        if back[name].dtype != w.dtype or not bits_equal(back[name]._data,
+                                                         w._data):
+            raise RuntimeError(f"nd.save/nd.load changed {name}")
+    log(f"[imperative] nd.save + nd.load of {len(names)} arrays ({size} bytes)"
+        f" bit for bit in {io_s:.3f} s")
+
+    # timing: whole steps in turns (updater, rtc, rtc, updater), then the
+    # kernel on the largest tensor against its bound and its plain version
+    turns = {"updater": [], "rtc": []}
+    for path_name in ("updater", "rtc", "rtc", "updater"):
+        fn = updater_step if path_name == "updater" else rtc_step
+        for step in range(SGD_STEPS):
+            turns[path_name].append(step_ms(lambda: fn(step)))
+    profiles = {"updater": profile_device("one updater SGD step",
+                                          lambda: updater_step(0)),
+                "rtc": profile_device("one rtc SGD step", lambda: rtc_step(0))}
+    big = max(range(len(flat)), key=lambda i: flat[i][1].numel())
+    w, g, m = wb[big], grads[0][big], mb[big]
+    k = kernels[w.shape]
+    kernel_ms = time_on_stream(lambda: k.push([w, g, m], [w, m]), iters=50)
+    plain_ms = time_on_stream(
+        lambda: k._run_plain([w._data, g._data, m._data], w._data.device),
+        iters=20)
+    bound_ms, bound_by = sgd_bound_ms(w.size)
+    # axpy beside torch.add(y, x, alpha=2.0), the one library call that
+    # computes the same function
+    xg = torch.Generator(device="cuda").manual_seed(7)
+    x = nd.NDArray(torch.randn(RTC_BIG, generator=xg, device="cuda"))
+    y = nd.NDArray(torch.randn(RTC_BIG, generator=xg, device="cuda"))
+    out = nd.zeros((RTC_BIG,), ctx=mx.gpu(0))
+    ka = mx.rtc.Rtc("axpy", [("x", x), ("y", y)], [("out", out)], AXPY)
+    axpy = {
+        "n": RTC_BIG,
+        "ms": time_on_stream(lambda: ka.push([x, y], [out]), iters=50),
+        "plain_ms": time_on_stream(
+            lambda: ka._run_plain([x._data, y._data], x._data.device),
+            iters=20),
+        "library_ms": time_on_stream(
+            lambda: torch.add(y._data, x._data, alpha=2.0), iters=50),
+        "bound_ms": 3 * 4 * RTC_BIG / HBM_BYTES_PER_S * 1e3,
+    }
+    timing = {
+        "updater_step_ms": [t[0] for t in turns["updater"]],
+        "rtc_step_ms": [t[0] for t in turns["rtc"]],
+        "updater_step_host_ms": [t[1] for t in turns["updater"]],
+        "rtc_step_host_ms": [t[1] for t in turns["rtc"]],
+        "step_bound_ms": sgd_bound_ms(n_elems)[0],
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "largest": names[big], "largest_n": w.size,
+        "axpy": axpy, "profiles": profiles,
+    }
+    med = {p: statistics.median(timing[f"{p}_step_ms"])
+           for p in ("updater", "rtc")}
+    log(f"[timing] SGD-momentum step over {n_elems} parameters (median of "
+        f"{2 * SGD_STEPS}, CUDA events): updater {med['updater']:.3f} ms, rtc "
+        f"{med['rtc']:.3f} ms, bound {timing['step_bound_ms']:.3f} ms (bytes);"
+        f" host clock updater "
+        f"{statistics.median(timing['updater_step_host_ms']):.3f} ms, rtc "
+        f"{statistics.median(timing['rtc_step_host_ms']):.3f} ms")
+    log(f"[timing] rtc SGD body on {names[big]} ({w.size} elements): kernel "
+        f"{kernel_ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
+        f"{bound_ms * 1e3:.3f} us by {bound_by}, share of bound "
+        f"{bound_ms / kernel_ms:.3f}; no single torch call computes it")
+    log(f"[timing] rtc axpy n={RTC_BIG}: kernel {axpy['ms'] * 1e3:.3f} us, "
+        f"plain {axpy['plain_ms'] * 1e3:.3f} us, torch.add(alpha=2) (library)"
+        f" {axpy['library_ms'] * 1e3:.3f} us, bound "
+        f"{axpy['bound_ms'] * 1e3:.3f} us by bytes")
+    return {"launches": launches, "launches_per_step": launches // SGD_STEPS,
+            "parameters": n_elems, "tensors": len(flat), "shapes": len(shapes),
+            "modules": modules, "cache_hits": hits, "peak_device_bytes": peak,
+            "first_steps_ms": first, "timing": timing,
+            "save_load_bytes": size, "save_load_s": io_s}
+
+
+def rtc_record(rtc_k, imp):
+    t = imp["timing"]
+    return {
+        "name": "rtc",
+        "route": "cuda",
+        "compiler": "nvrtc",
+        "source": "mxnet_tpu_torch/csrc/rtc_runtime.cu + "
+                  "mxnet_tpu_torch/ops/cuda/rtc_codegen.py",
+        "replaces": "mxnet_tpu/rtc.py:65",
+        "launches": imp["launches"],
+        "max_abs_err": max(rtc_k["max_abs_err"].values()),
+        "ms": t["kernel_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "library_note": "no single torch call computes the SGD-momentum "
+                        "body; axpy's is torch.add(y, x, alpha=2.0), below",
+        "shape": f"SGD-momentum body on {t['largest']} "
+                 f"({t['largest_n']} fp32 elements)",
+        "max_err_by_tolerance": rtc_k["max_abs_err"],
+        "kernel_cases": rtc_k["cases"],
+        "nvrtc": {k: rtc_k[k] for k in ("compiles", "cache_hits",
+                                         "compile_seconds")},
+        "imperative": {k: imp[k] for k in (
+            "launches_per_step", "parameters", "tensors", "shapes",
+            "modules", "cache_hits", "peak_device_bytes", "first_steps_ms",
+            "save_load_bytes", "save_load_s")},
+        "step_ms": {"updater": t["updater_step_ms"], "rtc": t["rtc_step_ms"],
+                    "bound": t["step_bound_ms"],
+                    "updater_host": t["updater_step_host_ms"],
+                    "rtc_host": t["rtc_step_host_ms"]},
+        "axpy": t["axpy"],
+        "step_profiles": t["profiles"],
+    }
+
 
 def main():
     phase_device()
@@ -674,6 +1087,8 @@ def main():
     tf_timing = phase_transformer_timing(tf)
     profiled = phase_profile(backend, requests)
     tf_profiled = phase_transformer_profile(tf)
+    rtc_k = phase_rtc_kernels()
+    imp = phase_imperative()
     main_n = max(BUCKETS)
     cell = cells[main_n]
     lstm = {
@@ -735,6 +1150,7 @@ def main():
             record["transformer"]["timing"] = tf_timing
             record["transformer"]["profile"] = tf_profiled
         records.append(record)
+    records.append(rtc_record(rtc_k, imp))
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

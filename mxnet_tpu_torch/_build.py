@@ -4,8 +4,11 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``. No source includes
 PyTorch's headers, so a build takes seconds. Libraries go under
 ``build/mxnet_tpu_torch/`` beside the package, and each file name carries a
-hash of its source and flags, so a changed source builds anew. The sources
-of one call are compiled by concurrent ``nvcc`` processes.
+hash of its source and its flags, so a changed source or flag builds anew.
+The sources of one call are compiled by concurrent ``nvcc`` processes.
+Flags are per library: ``rtc_runtime`` links NVRTC and the driver API
+(``-lnvrtc -lcuda``, the driver through the toolkit's ``lib64/stubs`` at
+link time and the installed driver at run time).
 """
 from __future__ import annotations
 
@@ -28,10 +31,22 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "mxnet_tpu_torch"
 
 # library name -> source file under csrc/
 SOURCES = {"lstm_cell": "lstm_cell.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "rtc_runtime": "rtc_runtime.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def link_flags(name: str) -> tuple:
+    """The flags library ``name`` adds after its source on nvcc's line:
+    ``rtc_runtime`` links NVRTC and the CUDA driver API."""
+    if name != "rtc_runtime":
+        return ()
+    lib = os.path.join(os.path.dirname(os.path.dirname(_nvcc())), "lib64")
+    return ("-L" + lib, "-L" + os.path.join(lib, "stubs"),
+            "-Xlinker", "-rpath", "-Xlinker", lib, "-lnvrtc", "-lcuda")
+
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -55,7 +70,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + link_flags(name)
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -72,7 +88,8 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
             results[name] = BuildResult(out, 0.0, log)
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name]),
+               *link_flags(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())

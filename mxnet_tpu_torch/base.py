@@ -7,9 +7,10 @@ packages.
 from __future__ import annotations
 
 import ast
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
-__all__ = ["MXNetError", "AttrSpec", "numeric_types", "__version__"]
+__all__ = ["MXNetError", "AttrSpec", "Registry", "numeric_types",
+           "__version__"]
 
 # written into symbol JSON as "mxnet_tpu_version", as the JAX package does
 __version__ = "0.11.0"
@@ -91,3 +92,40 @@ class AttrSpec:
         """Stringify parsed attrs for symbol JSON (all attrs are strings in
         the graph JSON)."""
         return {k: str(v) for k, v in attrs.items() if v is not None}
+
+
+class Registry:
+    """Generic name->object registry with alias support.
+
+    Reference: dmlc registry pattern (python/mxnet/registry.py:158) used for
+    optimizers, metrics, initializers, io iterators.
+    """
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._map: Dict[str, Any] = {}
+
+    def register(self, obj=None, name: Optional[str] = None):
+        def do(o):
+            key = (name or getattr(o, "__name__", None) or str(o)).lower()
+            self._map[key] = o
+            return o
+
+        if obj is None:
+            return do
+        return do(obj)
+
+    def alias(self, name, target):
+        self._map[name.lower()] = self._map[target.lower()]
+
+    def get(self, name: str):
+        key = name.lower()
+        if key not in self._map:
+            raise MXNetError(f"Unknown {self.kind}: {name}. Known: {sorted(self._map)}")
+        return self._map[key]
+
+    def find(self, name: str):
+        return self._map.get(name.lower())
+
+    def keys(self):
+        return list(self._map)

@@ -12,7 +12,6 @@ import io as _io
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from . import symbol as _sym_mod
 from .base import MXNetError
@@ -79,10 +78,9 @@ class Predictor:
                  input_shapes: Dict[str, Sequence[int]],
                  output_keys: Optional[List[str]] = None):
         ctx = _context(dev_type, dev_id)
-        ctx.torch_device()  # raises before any work where the card is missing
-        # fp32 products stay fp32 on the card (no TF32), as on the CPU
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        # raises before any work where the card is missing; on the card it
+        # also turns TF32 off (context.py), so fp32 products stay fp32
+        ctx.torch_device()
         sym = _sym_mod.load_json(symbol_json)
         if output_keys:
             internals = sym.get_internals()

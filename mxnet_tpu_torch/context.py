@@ -4,7 +4,10 @@ Counterpart of ``mxnet_tpu/context.py``. ``gpu`` names a CUDA card; ``tpu``
 is kept as an alias of the accelerator so scripts written for the JAX
 package run unchanged. The default context is ``gpu(0)``. Asking for the
 accelerator where there is none raises :class:`MXNetError`: nothing falls
-back to the CPU.
+back to the CPU. The first time a context hands out a CUDA device, TF32 is
+turned off for matmuls and cuDNN, so every fp32 product on the card
+(``nd.dot``, the Predictor, ``TransformerLM.logits``) computes in fp32, as
+on the CPU.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ class Context:
                 raise MXNetError(
                     f"{self} asked for, but this machine has {n} CUDA "
                     "device(s); pass ctx=cpu() to run on the CPU")
+            _fp32_products()
             return torch.device("cuda", self.device_id)
         return torch.device("cpu")
 
@@ -75,6 +79,19 @@ class Context:
     def default_ctx() -> "Context":
         ctx = getattr(Context._default, "ctx", None)
         return ctx if ctx is not None else gpu(0)
+
+
+_TF32_OFF = False
+
+
+def _fp32_products():
+    """Turn TF32 off once, before the first CUDA device is handed out
+    (cuDNN convolutions default to TF32)."""
+    global _TF32_OFF
+    if not _TF32_OFF:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _TF32_OFF = True
 
 
 def cpu(device_id: int = 0) -> Context:

@@ -1,0 +1,209 @@
+"""Runtime-compiled Rtc kernels on the card: the compile cache and the launch.
+
+The port's counterpart of ``mxnet_tpu/rtc.py:Rtc._build`` (the Pallas call
+at :65). :func:`rtc_launch` takes a checked body
+(:class:`~.rtc_codegen.Program`) and the input tensors on one CUDA card,
+lays out the index space (:func:`~.rtc_codegen.layout`: dims of size 1
+dropped, dims every operand steps through as one merged), has
+:mod:`.rtc_codegen` write the kernel, compiles it with NVRTC through
+``csrc/rtc_runtime.cu`` at its first use, and launches it on torch's
+current stream into fresh output tensors. Inputs that are not contiguous
+(views, broadcast ``expand``s) are read in place through their strides,
+which are launch arguments; so are the sizes. The compiled module is keyed
+by the generated source, which holds the body, the dtypes, the rank of the
+collapsed index space and each operand's access kind, so two bodies that
+differ only in a dtype compile twice, and the SGD body over the
+transformer's 7 parameter shapes (all contiguous, so all of rank 1)
+compiles once. There is no fallback: a compile or launch that fails raises
+:class:`MXNetError` with NVRTC's log or the driver's error.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import time
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from ... import _build
+from ...base import MXNetError
+from ...dtypes import torch_dtype
+from .rtc_codegen import Program, emit, layout
+
+__all__ = ["rtc_launch", "compile_source", "check_launch_dims", "STATS",
+           "ARCH"]
+
+ARCH = "sm_90a"
+THREADS = 256
+# blocks per SM of the default launch: 8 x 256 threads fill an SM
+BLOCKS_PER_SM = 8
+_LOG_BYTES = 1 << 16
+
+
+class CompiledKernel(NamedTuple):
+    module: int
+    function: int
+    name: str
+    seconds: float  # NVRTC compile plus module load
+    log: str
+
+
+# (source, device index) -> CompiledKernel
+_CACHE: Dict[Tuple[str, int], CompiledKernel] = {}
+# counts since import: modules compiled, compiled kernels reused (a
+# source already compiled, or a layout already planned), compile seconds
+STATS = {"compiles": 0, "cache_hits": 0, "compile_seconds": []}
+
+
+def _lib():
+    lib = _build.load("rtc_runtime")
+    if lib.rtc_compile.argtypes is None:
+        lib.rtc_compile.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_char_p, ctypes.c_size_t]
+        lib.rtc_compile.restype = ctypes.c_int
+        lib.rtc_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_uint] * 6 + [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+        lib.rtc_launch.restype = ctypes.c_int
+        lib.rtc_error_string.argtypes = [ctypes.c_int]
+        lib.rtc_error_string.restype = ctypes.c_char_p
+        lib.rtc_nvrtc_version.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.rtc_nvrtc_version.restype = ctypes.c_int
+    return lib
+
+
+def nvrtc_version() -> Tuple[int, int]:
+    major, minor = ctypes.c_int(), ctypes.c_int()
+    _lib().rtc_nvrtc_version(ctypes.byref(major), ctypes.byref(minor))
+    return major.value, minor.value
+
+
+def compile_source(source: str, kernel_name: str,
+                   device_index: int) -> CompiledKernel:
+    """The kernel ``kernel_name`` of ``source`` loaded on card
+    ``device_index``, compiled by NVRTC for sm_90a at its first use."""
+    key = (source, device_index)
+    hit = _CACHE.get(key)
+    if hit is not None:
+        STATS["cache_hits"] += 1
+        return hit
+    lib = _lib()
+    module, function = ctypes.c_void_p(), ctypes.c_void_p()
+    log = ctypes.create_string_buffer(_LOG_BYTES)
+    t0 = time.perf_counter()
+    with torch.cuda.device(device_index):  # makes torch's context current
+        err = lib.rtc_compile(source.encode(), kernel_name.encode(),
+                              ARCH.encode(), device_index,
+                              ctypes.byref(module), ctypes.byref(function),
+                              log, _LOG_BYTES)
+    seconds = time.perf_counter() - t0
+    text = log.value.decode(errors="replace")
+    if err != 0:
+        raise MXNetError(
+            f"Rtc: NVRTC compile of {kernel_name} for {ARCH} failed: "
+            f"{lib.rtc_error_string(err).decode()} ({err})\n{text}\n"
+            f"-- source --\n{source}")
+    compiled = CompiledKernel(module.value, function.value, kernel_name,
+                              seconds, text)
+    _CACHE[key] = compiled
+    STATS["compiles"] += 1
+    STATS["compile_seconds"].append(seconds)
+    return compiled
+
+
+def check_launch_dims(grid_dims, block_dims):
+    """(grid, block) as 3-tuples, or None for each left to the port.
+    Raises MXNetError for a zero or negative dim, more than 1024 threads a
+    block, or dims past CUDA's limits."""
+    def three(dims, what):
+        if dims is None:
+            return None
+        dims = tuple(int(d) for d in (dims if isinstance(dims, (tuple, list))
+                                      else (dims,)))
+        if not 1 <= len(dims) <= 3 or any(d <= 0 for d in dims):
+            raise MXNetError(f"Rtc {what}_dims {dims}: one to three "
+                             "positive sizes")
+        return dims + (1,) * (3 - len(dims))
+    grid, block = three(grid_dims, "grid"), three(block_dims, "block")
+    if block is not None and (math.prod(block) > 1024 or block[2] > 64):
+        raise MXNetError(f"Rtc block_dims {block}: a block holds at most 1024 "
+                         "threads (z at most 64)")
+    if grid is not None and (grid[0] >= 2 ** 31 or max(grid[1:]) > 65535):
+        raise MXNetError(f"Rtc grid_dims {grid}: past CUDA's grid limits")
+    return grid, block
+
+
+def _span(t: torch.Tensor) -> int:
+    return 1 + sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+
+
+class _Plan(NamedTuple):
+    kernel: CompiledKernel
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    params: ctypes.Array  # RtcArgs: n, the dims, the read Refs' strides
+
+
+def _plan(prog: Program, reads, device, grid, block) -> _Plan:
+    """The kernel and launch arguments for this layout of the inputs: the
+    translation and the compile happen once per layout, not per push."""
+    n = math.prod(prog.shape)
+    dims, strides, kinds = layout(prog.shape,
+                                  [(t.shape, t.stride()) for t in reads])
+    wide = n >= 2 ** 31 or any(_span(t) >= 2 ** 31 for t in reads)
+    source, kname = emit(prog, len(dims), kinds, wide)
+    kernel = compile_source(source, kname, device.index)
+    if block is None:
+        block = (THREADS, 1, 1)
+    if grid is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        grid = (min(-(-n // math.prod(block)), sms * BLOCKS_PER_SM), 1, 1)
+    packed = [n, *dims, *(s for st in strides for s in st)]
+    return _Plan(kernel, grid, block,
+                 (ctypes.c_longlong * len(packed))(*packed))
+
+
+def rtc_launch(prog: Program, inputs: Sequence[torch.Tensor],
+               grid_dims=None, block_dims=None) -> List[torch.Tensor]:
+    """Run ``prog`` on ``inputs`` (CUDA tensors on one card, in the Rtc's
+    input order) and return its outputs as new tensors. Counts the launch
+    in ``rtc_launch.launches``."""
+    device = inputs[0].device if inputs else torch.device(
+        "cuda", torch.cuda.current_device())
+    if device.type != "cuda" or any(t.device != device for t in inputs):
+        raise MXNetError(f"Rtc kernel: inputs on {[str(t.device) for t in inputs]}"
+                         "; the kernel takes tensors on one CUDA card")
+    grid, block = check_launch_dims(grid_dims, block_dims)
+    by_name = {n: t for (n, _, _), t in zip(prog.inputs, inputs)}
+    reads = [by_name[n] for n in prog.reads]
+    outputs = [torch.empty(s, dtype=torch_dtype(dt), device=device)
+               for _, s, dt in prog.outputs]
+    if math.prod(prog.shape) == 0:
+        return outputs
+    key = (device.index, grid, block,
+           tuple((tuple(t.shape), t.stride()) for t in reads))
+    plan = prog.plans.get(key)
+    if plan is None:
+        plan = prog.plans[key] = _plan(prog, reads, device, grid, block)
+    else:
+        STATS["cache_hits"] += 1
+    pointers = [ctypes.c_void_p(t.data_ptr()) for t in list(inputs) + outputs]
+    argv = (ctypes.c_void_p * (1 + len(pointers)))(
+        ctypes.addressof(plan.params), *(ctypes.addressof(p) for p in pointers))
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rtc_launch(plan.kernel.function, *plan.grid, *plan.block,
+                             stream, argv)
+    if err != 0:
+        raise MXNetError(f"Rtc kernel {plan.kernel.name} launch (grid "
+                         f"{plan.grid}, block {plan.block}) failed: "
+                         f"{lib.rtc_error_string(err).decode()} ({err})")
+    rtc_launch.launches += 1
+    return outputs
+
+
+rtc_launch.launches = 0
+

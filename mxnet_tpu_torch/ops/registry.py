@@ -12,7 +12,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 
 from ..base import AttrSpec, MXNetError
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "OP_TABLE",
+__all__ = ["OpDef", "register", "alias", "get_op", "list_ops", "OP_TABLE",
            "resolve_inputs"]
 
 OP_TABLE: Dict[str, "OpDef"] = {}
@@ -24,7 +24,9 @@ class OpDef:
     fn(*inputs, **attrs) -> tensor or tuple of tensors. Ops whose signature
     takes a leading ``rng`` argument set ``needs_rng``; ops whose semantics
     differ between train and eval read the ``_is_train`` attr injected by
-    the caller and set ``needs_is_train``.
+    the caller and set ``needs_is_train``. ``aux_update`` maps an output
+    index to the input it is written back into on the imperative path in
+    training (BatchNorm's moving statistics).
     """
 
     def __init__(
@@ -39,6 +41,7 @@ class OpDef:
         needs_rng: bool = False,
         needs_is_train: bool = False,
         key_var_num_args: Optional[str] = None,
+        aux_update: Optional[Dict[int, int]] = None,
         aux_inputs: Sequence[int] = (),
         param_shapes: Optional[Callable] = None,
     ):
@@ -51,6 +54,7 @@ class OpDef:
         self.output_names = list(output_names) if output_names else ["output"]
         self.needs_rng = needs_rng
         self.needs_is_train = needs_is_train
+        self.aux_update = aux_update or {}
         # name of the attr holding the variadic input count (Concat)
         self.key_var_num_args = key_var_num_args
         # input indices that are auxiliary states, not gradient-bearing args
@@ -84,6 +88,10 @@ def register(name: str, aliases: Sequence[str] = (), **kwargs):
         return fn
 
     return deco
+
+
+def alias(new_name: str, existing: str):
+    OP_TABLE[new_name] = OP_TABLE[existing]
 
 
 def resolve_inputs(opdef: OpDef, args, kwargs, name: str, is_input=None):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..base import AttrSpec, MXNetError
-from ..ndarray.ndarray import torch_dtype
+from ..dtypes import torch_dtype
 from .cuda.lstm import lstm_cell_fused
 from .registry import register
 
