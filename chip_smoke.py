@@ -10,9 +10,14 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 
 1. device: the card's name, capability, name and power limit; TF32 off;
 2. build: every kernel library built from ``mxnet_tpu_torch/csrc`` by
-   concurrent ``nvcc`` processes, with ``-Xptxas -v`` output;
+   concurrent ``nvcc`` processes, with ``-Xptxas -v`` output, and the
+   wgmma attention kernel's registers, spills, wgmma serialization and
+   shared memory a block;
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
-   version at its path's shapes and ragged ones, fp32 and bf16;
+   version at its path's shapes and ragged ones, fp32 and bf16; the
+   dense bf16 attention cases (D = 64 and 128, ragged, Sq < Sk, the
+   transformer's (B, S, H, D) views) through the wgmma/TMA variant, by
+   its launch counter;
 4. LSTM slice: the 2x1024 LSTM language model (V=10000, T=128, random
    weights from a seed) behind ``PredictorBackend(dev_type=2)`` answers 8
    requests of 1 and 16 rows; one request is answered again on the CPU;
@@ -20,11 +25,14 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    width (32000 vocab, 4 x 512, 8 heads, bf16, weights from seed 0)
    behind ``CallableBackend`` answers 8 requests of 1 and 4 rows at
    S=2048 and one of 1 row at S=1000; held against the port's CPU path in
-   fp32 and against an fp32 forward on the card;
+   fp32 and against an fp32 forward on the card; each forward launches
+   the wgmma/TMA attention variant 4 times;
 6. masked attention: packed and length-masked batches through the public
    ``flash_attention(lengths=..., segment_ids=...)`` entry point;
 7. timing: each kernel, its plain version and the nearest PyTorch library
-   call with CUDA events; Predictor and transformer forward times; peak
+   call with CUDA events; B2's wgmma/TMA variant, its earlier mma.sync
+   variant and ``scaled_dot_product_attention`` in turns, each with
+   TFLOP/s and share of bound; Predictor and transformer forward times; peak
    memory;
 8. profile: device time by kernel over one forward per bucket of each
    model, and the device's idle share of it;
@@ -33,18 +41,21 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    tensors: axpy at 8 and 2**24+3 elements, a two-output split, a
    transcendental body, a (4096,1024)+(1024,) broadcast, bf16 with
    ``.astype``, int32 floor ``//`` and ``%``, an aliased push, and one
-   body under the default launch and under grid (4,1,1)/block (128,1,1);
+   body under the default launch and under grid (4,1,1)/block (128,1,1),
+   a misaligned view, a broadcast scalar and a bf16 body with n % 8 = 5;
    arithmetic bodies bit for bit, transcendental ones within 2 fp32 ulps,
-   bf16 within one bf16 ulp; NVRTC compile seconds and cache hits;
+   bf16 within one bf16 ulp; each push held to the kernel it must take
+   (vector or scalar); NVRTC compile seconds and cache hits;
 10. imperative path: the transformer LM's 12 parameter tensors
    (``init_params(0, TransformerConfig())``, 49,549,824 fp32 elements) as
    NDArrays on the card; three SGD-momentum steps through
    ``optimizer.get_updater(create('sgd', ...))`` and the same three steps
    as one Rtc body per parameter shape, held bit for bit equal; the same
    for a bf16 mixed-precision body against ``nd.mp_sgd_mom_update``; the
-   updated weights through ``nd.save``/``nd.load`` bit for bit; ms per
-   step of both, the kernel on the largest tensor against its bound, its
-   plain version, and peak memory.
+   updated weights through ``nd.save``/``nd.load`` bit for bit; every push
+   of the path the vector kernel; ms per step of both, the vector and the
+   scalar kernel on the largest tensor (in turns) against its bound, its
+   plain version, axpy's against ``torch.add``, and peak memory.
 
 Each path (4, 5, 6, 10) sets its kernels' launch counts to 0 just before it
 runs and reads them just after, and fails if a kernel of the path was not
@@ -52,6 +63,7 @@ launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -129,6 +141,34 @@ def phase_build():
         for line in res.log.strip().splitlines():
             log(f"[build]   {line}")
     log(f"[build] NVRTC {nvrtc_version()}")
+    return wgmma_build_summary(results["flash_attention"].log)
+
+
+def wgmma_build_summary(log_text):
+    """ptxas's registers and spills for each instantiation of the Hopper
+    attention kernel, any wgmma serialization it reports, and the shared
+    memory a block of it takes."""
+    from mxnet_tpu_torch.ops.cuda.attention import wgmma_shared_bytes
+    out, current = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "flash_fwd_wgmma_kernel" in line \
+                else None
+        elif current and "spill stores" in line:
+            out.setdefault(current, {})["spills"] = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            out.setdefault(current, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+    serialized = [line.strip() for line in log_text.splitlines()
+                  if "wgmma" in line and "serialized" in line]
+    smem = {d: wgmma_shared_bytes(d) for d in (64, 128)}
+    for name, info in out.items():
+        log(f"[build] wgmma kernel {name}: {info}")
+    log(f"[build] wgmma kernel shared memory a block: {smem} bytes (D: "
+        f"bytes); wgmma serialized: {serialized or 'none reported'}")
+    if not out:
+        raise RuntimeError("no wgmma kernel in the flash_attention build log")
+    return {"ptxas": out, "serialized": serialized, "smem_bytes": smem}
 
 
 def cell_inputs(n, hdim, dtype, seed):
@@ -334,10 +374,16 @@ def phase_profile(backend, requests):
     return out
 
 
-def attention_inputs(b, h, sq, sk, d, dtype, seed, offset=0):
+def attention_inputs(b, h, sq, sk, d, dtype, seed, offset=0, layout="bhsd"):
     """q, k, v; with ``offset``, views that start ``offset`` elements into
-    wider rows, so that no row is 16-byte aligned."""
+    wider rows, so that no row is 16-byte aligned; with layout "bshd",
+    (B, H, S, D) views of (B, S, H, D) memory, as the transformer makes
+    them."""
     rng = np.random.RandomState(seed)
+    if layout == "bshd":
+        return [torch.tensor(rng.normal(0, 1, (b, s, h, d)), dtype=dtype,
+                             device="cuda").transpose(1, 2)
+                for s in (sq, sk, sk)]
     return [torch.tensor(rng.normal(0, 1, (b, h, s, d + offset)), dtype=dtype,
                          device="cuda")[..., offset:]
             for s in (sq, sk, sk)]
@@ -356,26 +402,39 @@ def packed_segments(b, s):
 
 
 def attention_cases():
-    """(label, (B, H, Sq, Sk, D), causal, lengths, segments, offset) held
-    against the plain versions: the transformer's shapes at both buckets,
-    ragged ones, unaligned views (the CUDA-core variant in bf16), and the
-    masked variants at the transformer's largest bucket."""
+    """(label, (B, H, Sq, Sk, D), causal, lengths, segments, offset,
+    layout) held against the plain versions: the transformer's shapes at
+    both buckets, ragged ones, the transformer's (B, S, H, D) view layout,
+    unaligned views (the CUDA-core variant in bf16), and the masked
+    variants at the transformer's largest bucket. The dense bf16 cases at
+    D = 64 and 128 with aligned views run the wgmma/TMA variant."""
     b, h, s, d = ATT_SHAPE
-    dense = [(f"dense causal={c}", shape, c, None, False, 0)
+    dense = [(f"dense causal={c}", shape, c, None, False, 0, "bhsd")
              for shape in ((b, h, s, s, d), (1, h, s, s, d))
              for c in (True, False)]
-    ragged = [("ragged causal", (2, 3, 1000, 1000, 64), True, None, False, 0),
-              ("ragged", (2, 3, 1000, 1000, 64), False, None, False, 0),
-              ("causal Sq<Sk", (2, 2, 77, 200, 128), True, None, False, 0),
-              ("tiny", (1, 4, 33, 33, 8), False, None, False, 0),
-              ("unaligned causal", (1, 8, 300, 300, 64), True, None, False, 1)]
+    ragged = [("ragged causal", (2, 3, 1000, 1000, 64), True, None, False, 0,
+               "bhsd"),
+              ("ragged", (2, 3, 1000, 1000, 64), False, None, False, 0,
+               "bhsd"),
+              ("causal Sq<Sk", (2, 2, 77, 200, 128), True, None, False, 0,
+               "bhsd"),
+              ("D=128 ragged", (2, 2, 300, 300, 128), False, None, False, 0,
+               "bhsd"),
+              ("transformer views (B,S,H,D) causal", (b, h, s, s, d), True,
+               None, False, 0, "bshd"),
+              ("transformer views D=128 ragged", (2, 4, 1000, 1000, 128),
+               True, None, False, 0, "bshd"),
+              ("tiny", (1, 4, 33, 33, 8), False, None, False, 0, "bhsd"),
+              ("unaligned causal", (1, 8, 300, 300, 64), True, None, False, 1,
+               "bhsd")]
     masked = [("masked lengths", (b, h, s, s, d), False, ATT_LENGTHS, False,
-               0),
-              ("masked segments", (b, h, s, s, d), False, None, True, 0),
+               0, "bhsd"),
+              ("masked segments", (b, h, s, s, d), False, None, True, 0,
+               "bhsd"),
               ("masked causal+lengths", (b, h, s, s, d), True, ATT_LENGTHS,
-               False, 0),
+               False, 0, "bhsd"),
               ("masked unaligned segments", (2, 4, 300, 300, 64), True, None,
-               True, 1)]
+               True, 1, "bhsd")]
     return dense + ragged + masked
 
 
@@ -385,8 +444,9 @@ def phase_attention_kernels():
                                                     masked_attention_plain)
     errs = {name: {"fp32": 0.0, "bf16": 0.0}
             for name in ("flash_attention", "flash_attention_masked")}
-    for i, (label, shape, causal, lengths, segments, offset) in enumerate(
-            attention_cases()):
+    wgmma_cases = 0
+    for i, (label, shape, causal, lengths, segments, offset, layout) in \
+            enumerate(attention_cases()):
         b, h, sq, sk, d = shape
         lens = (None if lengths is None else
                 torch.tensor(lengths, dtype=torch.int32, device="cuda"))
@@ -395,16 +455,25 @@ def phase_attention_kernels():
         name = "flash_attention_masked" if masked else "flash_attention"
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = attention_inputs(b, h, sq, sk, d, dtype, seed=i,
-                                       offset=offset)
+                                       offset=offset, layout=layout)
             before = (flash_attention.launches,
-                      flash_attention.masked_launches)
+                      flash_attention.masked_launches,
+                      flash_attention.wgmma_launches)
             out = flash_attention(q, k, v, causal=causal, lengths=lens,
                                   segment_ids=seg)
             torch.cuda.synchronize()
+            # the dense bf16 core at D = 64 or 128 over aligned views is
+            # the wgmma/TMA variant's; everything else keeps its route
+            wgmma = (not masked and tag == "bf16" and d in (64, 128)
+                     and offset == 0)
             after = (flash_attention.launches,
-                     flash_attention.masked_launches)
-            if after != (before[0] + (not masked), before[1] + masked):
-                raise RuntimeError(f"{name}: the launch counter did not move")
+                     flash_attention.masked_launches,
+                     flash_attention.wgmma_launches)
+            if after != (before[0] + (not masked), before[1] + masked,
+                         before[2] + wgmma):
+                raise RuntimeError(f"{name} {label} {tag}: the launch "
+                                   f"counters moved {before} -> {after}")
+            wgmma_cases += wgmma
             want = (masked_attention_plain(q, k, v, lens, seg, causal=causal)
                     if masked else attention_plain(q, k, v, causal=causal))
             if out.dtype != dtype or out.shape != want.shape:
@@ -418,8 +487,8 @@ def phase_attention_kernels():
                 bound = BF16_REL_TOL * want.float().abs().clamp(min=1.0)
                 ok = bool((diff <= bound).all())
                 tol = f"{BF16_REL_TOL} x max(1, |ref|)"
-            log(f"[kernels] {name} {label} {shape} {tag}: max|d| {err:.3e} "
-                f"(tol {tol})")
+            log(f"[kernels] {name} {label} {shape} {tag}"
+                f"{' (wgmma)' if wgmma else ''}: max|d| {err:.3e} (tol {tol})")
             if not ok:
                 raise RuntimeError(f"{name} {label} {tag} disagrees with its "
                                    f"plain version: {err}")
@@ -431,6 +500,8 @@ def phase_attention_kernels():
                 log(f"[kernels]   {int(dead.all(-1).sum())} fully masked "
                     "rows, exact 0")
             errs[name][tag] = max(errs[name][tag], err)
+    log(f"[kernels] flash_attention: {wgmma_cases} dense bf16 cases through "
+        "the wgmma/TMA variant")
     return errs
 
 
@@ -467,15 +538,18 @@ def phase_transformer():
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0  # the main path's run starts here
     flash_attention.masked_launches = 0
+    flash_attention.wgmma_launches = 0
     backend.load()
     per_forward, served_ms, kept = [], [], None
     for batch in requests:
-        before = (flash_attention.launches, flash_attention.masked_launches)
+        before = (flash_attention.launches, flash_attention.masked_launches,
+                  flash_attention.wgmma_launches)
         t0 = time.perf_counter()
         (out,) = backend.infer({"data": batch})
         served_ms.append((time.perf_counter() - t0) * 1e3)
         per_forward.append((flash_attention.launches - before[0],
-                            flash_attention.masked_launches - before[1]))
+                            flash_attention.masked_launches - before[1],
+                            flash_attention.wgmma_launches - before[2]))
         rows, s = batch.shape
         if out.shape != (rows, s, cfg.vocab_size) or out.dtype != np.float32:
             raise RuntimeError(f"logits {out.shape} {out.dtype} for a "
@@ -486,15 +560,18 @@ def phase_transformer():
             kept = out
     launches = flash_attention.launches  # the main path's run ends here
     masked = flash_attention.masked_launches
+    wgmma = flash_attention.wgmma_launches
     peak = torch.cuda.max_memory_allocated()
     log(f"[transformer] {len(requests)} requests answered "
         f"(rows x S: {[r.shape for r in requests]}); flash_attention "
-        f"launches per forward (dense, masked) {per_forward}; total "
-        f"{launches} dense, {masked} masked; peak device memory {peak} bytes")
+        f"launches per forward (dense, masked, of the dense the wgmma "
+        f"variant's) {per_forward}; total {launches} dense ({wgmma} wgmma), "
+        f"{masked} masked; peak device memory {peak} bytes")
     log(f"[transformer] served ms per request {served_ms}")
-    if any(n != (cfg.num_layers, 0) for n in per_forward):
+    want = (cfg.num_layers, 0, cfg.num_layers)
+    if any(n != want for n in per_forward):
         raise RuntimeError(f"flash_attention launched {per_forward} times "
-                           f"per forward, expected ({cfg.num_layers}, 0)")
+                           f"per forward, expected {want}")
 
     # the bf16 answer against an fp32 forward of the same weights
     cfg32 = TransformerConfig(dtype="float32")
@@ -525,6 +602,7 @@ def phase_transformer():
         raise RuntimeError(f"card and CPU disagree: {cpu_err} > {LOGIT_TOL}")
     return {"lm": lm, "backend": backend, "requests": requests,
             "launches": launches, "masked_launches_on_path": masked,
+            "wgmma_launches": wgmma,
             "per_forward": per_forward, "served_ms": served_ms,
             "peak_device_bytes": peak, "bf16_vs_fp32_max_abs": bf16_err,
             "card_vs_cpu_max_abs": cpu_err, "parameters": n_params}
@@ -542,6 +620,7 @@ def phase_masked_path():
     lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device="cuda")
     flash_attention.launches = 0  # the masked path's run starts here
     flash_attention.masked_launches = 0
+    flash_attention.wgmma_launches = 0
     packed = flash_attention(q, k, v, causal=True, segment_ids=seg)
     ragged = flash_attention(q, k, v, causal=True, lengths=lens)
     torch.cuda.synchronize()
@@ -554,7 +633,8 @@ def phase_masked_path():
         raise RuntimeError("masked rows are not exact 0")
     log(f"[masked] packed and length-masked batches {ATT_SHAPE} bf16: "
         f"{launches} masked launches, {flash_attention.launches} dense")
-    if launches != 2 or flash_attention.launches != 0:
+    if (launches != 2 or flash_attention.launches != 0
+            or flash_attention.wgmma_launches != 0):
         raise RuntimeError("the masked path did not run the masked kernel")
     return launches
 
@@ -570,6 +650,38 @@ def attention_bound_ms(live_pairs, b, h, sq, sk, d, elem_bytes):
                                          else "operations")
 
 
+def dense_variants_timing(q, k, v, live):
+    """B2 at the transformer's shape: the wgmma/TMA variant (the main
+    path's), the earlier mma.sync variant (forced through the library's
+    internal route) and scaled_dot_product_attention, in turns (wgmma,
+    mma.sync, library, library, mma.sync, wgmma); each one's mean of its
+    two turns, its TFLOP/s on the live pairs and its share of the bound."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda.attention import (_dense_mma_sync,
+                                                    flash_attention)
+    b, h, s, d = q.shape
+    fns = {"wgmma": lambda: flash_attention(q, k, v, causal=True),
+           "mma_sync": lambda: _dense_mma_sync(q, k, v, causal=True),
+           "library": lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True)}
+    runs = {name: [] for name in fns}
+    for name in ("wgmma", "mma_sync", "library", "library", "mma_sync",
+                 "wgmma"):
+        runs[name].append(time_on_stream(fns[name], iters=20))
+    bound_ms, _ = attention_bound_ms(live, b, h, s, s, d, 2)
+    out = {}
+    for name, ms in runs.items():
+        mean = statistics.mean(ms)
+        out[name] = {"ms": mean, "runs_ms": ms,
+                     "tflops": 4 * d * live / mean / 1e9,
+                     "share_of_bound": bound_ms / mean}
+        log(f"[timing] B2 {name}: {mean * 1e3:.3f} us (turns "
+            f"{[round(t * 1e3, 3) for t in ms]}), "
+            f"{out[name]['tflops']:.2f} TFLOP/s, share of bound "
+            f"{out[name]['share_of_bound']:.4f}")
+    return out
+
+
 def phase_attention_timing():
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.cuda.attention import (_combined_mask,
@@ -580,6 +692,7 @@ def phase_attention_timing():
     q, k, v = attention_inputs(b, h, s, s, d, torch.bfloat16, seed=7)
     lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device="cuda")
     mask = _combined_mask(s, s, True, lens, None, q.device)  # (B,1,S,S)
+    variants = dense_variants_timing(q, k, v, b * h * s * (s + 1) // 2)
     rows = {}
     for name, fn, plain, library, live in (
             ("flash_attention",
@@ -607,6 +720,7 @@ def phase_attention_timing():
             f"attention (library) {row['library_ms'] * 1e3:.3f} us, bound "
             f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}, share of "
             f"bound {row['share_of_bound']:.4f}")
+    rows["flash_attention"]["variants"] = variants
     return rows
 
 
@@ -710,35 +824,49 @@ RTC_ROWS = 4096
 
 def rtc_cases():
     """(label, inputs [(name, shape, dtype, kind)], outputs [(name,
-    dtype)], body, tolerance, push kwargs, aliased)."""
+    dtype)], body, tolerance, push kwargs, aliased, vector kernel). Kind
+    "n" is a normal draw, "i" int32, "n1" a view one element into a
+    normal draw (not 16-byte aligned), "s" a (1,) scalar broadcast. The
+    last field says which kernel the push must take: the vector one
+    where every read is contiguous or one broadcast element and every
+    vector pointer is aligned, else the scalar one."""
     f32, big, mat = "float32", (RTC_BIG,), (RTC_ROWS, 1024)
     return [
         ("axpy 8", [("x", (8,), f32, "n"), ("y", (8,), f32, "n")],
-         [("out", f32)], AXPY, "bits", {}, False),
+         [("out", f32)], AXPY, "bits", {}, False, True),
         ("axpy 2^24+3", [("x", big, f32, "n"), ("y", big, f32, "n")],
-         [("out", f32)], AXPY, "bits", {}, False),
+         [("out", f32)], AXPY, "bits", {}, False, True),
+        ("axpy 2^24+3 misaligned x", [("x", big, f32, "n1"),
+                                      ("y", big, f32, "n")],
+         [("out", f32)], AXPY, "bits", {}, False, False),
+        ("scalar broadcast", [("x", big, f32, "n"), ("a", (1,), f32, "s")],
+         [("out", f32)], "out[:] = x[:] * a[:] + 1.0", "bits", {}, False,
+         True),
         ("split", [("x", mat, f32, "n")], [("a", f32), ("b", f32)],
-         "a[:] = x[:] + 1.0\nb[:] = x[:] * x[:]", "bits", {}, False),
+         "a[:] = x[:] + 1.0\nb[:] = x[:] * x[:]", "bits", {}, False, True),
         ("transcendental", [("x", mat, f32, "n"), ("y", mat, f32, "n")],
          [("o", f32)],
          "t = jnp.exp(x[:]) - jnp.tanh(y[:])\n"
          "o[:] = jnp.where(t > 1.0, jax.nn.sigmoid(t), jnp.maximum(x[:], y[:]))",
-         "ulp2", {}, False),
+         "ulp2", {}, False, True),
         ("broadcast", [("m", mat, f32, "n"), ("v", (1024,), f32, "n")],
-         [("o", f32)], "o[:] = m[:] + v[:]", "bits", {}, False),
+         [("o", f32)], "o[:] = m[:] + v[:]", "bits", {}, False, False),
         ("bf16", [("x", mat, "bfloat16", "n"), ("y", mat, f32, "n")],
          [("o", "bfloat16")],
          "o[:] = (x[:] * 0.1 + y[:].astype(jnp.bfloat16)) ** 2 - x[:] / 3.0",
-         "bf16", {}, False),
+         "bf16", {}, False, True),
+        ("bf16 only, n % 8 = 5", [("x", (RTC_ROWS * 1024 + 5,), "bfloat16",
+                                   "n")], [("o", "bfloat16")],
+         "o[:] = x[:] * 0.1 - x[:] / 3.0", "bits", {}, False, True),
         ("int32 floor", [("x", mat, "int32", "i")], [("o", "int32")],
          "o[:] = x[:] // 7 + x[:] % -3 + x[:] // -2 * 100 + x[:] % 0",
-         "bits", {}, False),
+         "bits", {}, False, True),
         ("aliased", [("x", mat, f32, "n")], [("a", f32), ("b", f32)],
-         "a[:] = x[:] + 1.0\nb[:] = x[:] * 2.0", "bits", {}, True),
+         "a[:] = x[:] + 1.0\nb[:] = x[:] * 2.0", "bits", {}, True, True),
         ("launch (4,1,1)/(128,1,1)", [("x", big, f32, "n"),
                                       ("y", big, f32, "n")],
          [("out", f32)], AXPY, "bits",
-         {"grid_dims": (4, 1, 1), "block_dims": (128, 1, 1)}, False),
+         {"grid_dims": (4, 1, 1), "block_dims": (128, 1, 1)}, False, True),
     ]
 
 
@@ -778,9 +906,16 @@ def case_arrays(mx, ins, outs, seed):
         if kind == "i":
             t = torch.randint(-1000, 1000, shape, generator=gen, device="cuda",
                               dtype=torch.int32)
+        elif kind == "n1":  # one element into a wider draw
+            t = (torch.randn(math.prod(shape) + 1, generator=gen,
+                             device="cuda") * 2.0).to(getattr(torch, dtype))
+            t = t[1:].view(shape)
+            if t.data_ptr() % 16 == 0:
+                raise RuntimeError("the misaligned view is aligned")
         else:
             t = torch.randn(shape, generator=gen, device="cuda") * 2.0
-        arrays.append((name, mx.nd.NDArray(t.to(getattr(torch, dtype)))))
+        t = t.to(getattr(torch, dtype))
+        arrays.append((name, mx.nd.NDArray(t)))
     shape = ins[0][1]
     outputs = [(n, mx.nd.zeros(shape, ctx=mx.gpu(0), dtype=dt))
                for n, dt in outs]
@@ -793,12 +928,14 @@ def phase_rtc_kernels():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops.cuda.rtc import STATS, rtc_launch
     rows, worst = [], {"bits": 0.0, "ulp2": 0.0, "bf16": 0.0}
-    for i, (label, ins, outs, body, tol, kw, aliased) in enumerate(rtc_cases()):
+    for i, (label, ins, outs, body, tol, kw, aliased, vector) in enumerate(
+            rtc_cases()):
         arrays, outputs = case_arrays(mx, ins, outs, seed=100 + i)
         k = mx.rtc.Rtc(label.split()[0], arrays, outputs, body)
         tensors = [a._data for _, a in arrays]
         plain = k._run_plain(tensors, tensors[0].device)
         compiles, before = STATS["compiles"], rtc_launch.launches
+        vec_before = rtc_launch.vector_launches
         targets = ([arrays[0][1]] + [o for _, o in outputs[1:]]) if aliased \
             else [o for _, o in outputs]
         t0 = time.perf_counter()
@@ -807,6 +944,11 @@ def phase_rtc_kernels():
         first_ms = (time.perf_counter() - t0) * 1e3
         if rtc_launch.launches != before + 1:
             raise RuntimeError(f"rtc {label}: the launch counter did not move")
+        took_vector = rtc_launch.vector_launches == vec_before + 1
+        if took_vector != vector:
+            raise RuntimeError(f"rtc {label}: took the "
+                               f"{'vector' if took_vector else 'scalar'} "
+                               "kernel")
         for (name, _), got, want in zip(outputs, targets, plain):
             ok, err = compare(got._data, want, tol)
             log(f"[rtc] {label} {name} {tuple(got.shape)} {got.dtype}: "
@@ -819,9 +961,10 @@ def phase_rtc_kernels():
             raise RuntimeError("rtc aliased push read x after writing it")
         compiled = STATS["compiles"] > compiles
         rows.append({"label": label, "tolerance": tol, "compiled": compiled,
-                     "first_push_ms": first_ms})
+                     "first_push_ms": first_ms, "vector": took_vector})
         log(f"[rtc] {label}: first push {first_ms:.3f} ms "
-            f"({'compiled' if compiled else 'cache hit'})")
+            f"({'compiled' if compiled else 'cache hit'}), "
+            f"{'vector' if took_vector else 'scalar'} kernel")
     log(f"[rtc] NVRTC modules compiled {STATS['compiles']}, cache hits "
         f"{STATS['cache_hits']}, compile seconds {STATS['compile_seconds']}")
     return {"cases": rows, "max_abs_err": worst,
@@ -892,6 +1035,7 @@ def phase_imperative():
         first["updater_ms"].append(step_ms(lambda: updater_step(step))[0])
     compiles0, hits0 = STATS["compiles"], STATS["cache_hits"]
     rtc_launch.launches = 0  # the rtc path's run starts here
+    rtc_launch.vector_launches = 0
     kernels = {}
     for w, m in zip(wb, mb):  # one Rtc per parameter shape
         if w.shape not in kernels:
@@ -901,12 +1045,16 @@ def phase_imperative():
     for step in range(SGD_STEPS):  # (b) the same steps as Rtc bodies
         first["rtc_ms"].append(step_ms(lambda: rtc_step(step))[0])
     launches = rtc_launch.launches  # and ends here
+    vector_launches = rtc_launch.vector_launches
     peak = torch.cuda.max_memory_allocated()
     modules = STATS["compiles"] - compiles0
     hits = STATS["cache_hits"] - hits0
     log(f"[imperative] rtc launches {launches} ({launches // SGD_STEPS} per "
-        f"step), NVRTC modules {modules}, cache hits {hits}; peak device "
-        f"memory {peak} bytes")
+        f"step, {vector_launches} of them the vector kernel), NVRTC modules "
+        f"{modules}, cache hits {hits}; peak device memory {peak} bytes")
+    if vector_launches != launches:
+        raise RuntimeError(f"the default push took the vector kernel "
+                           f"{vector_launches} of {launches} times")
     log(f"[imperative] first steps ms (CUDA events): updater "
         f"{first['updater_ms']}, rtc {first['rtc_ms']}")
     if launches != SGD_STEPS * len(flat):
@@ -982,10 +1130,25 @@ def phase_imperative():
     big = max(range(len(flat)), key=lambda i: flat[i][1].numel())
     w, g, m = wb[big], grads[0][big], mb[big]
     k = kernels[w.shape]
-    kernel_ms = time_on_stream(lambda: k.push([w, g, m], [w, m]), iters=50)
+    wgm = [w._data, g._data, m._data]
+    # the default push (the vector kernel) and the scalar kernel on the
+    # same tensors, in turns (vector, scalar, scalar, vector)
+    turns_us = {"vector": [], "scalar": []}
+    for kind in ("vector", "scalar", "scalar", "vector"):
+        fn = (lambda: k.push([w, g, m], [w, m])) if kind == "vector" else (
+            lambda: rtc_launch(k._program, wgm, force_scalar=True))
+        turns_us[kind].append(time_on_stream(fn, iters=50))
+    kernel_ms = statistics.mean(turns_us["vector"])
+    scalar_ms = statistics.mean(turns_us["scalar"])
+    # the vector kernel under the scalar kernel's launch shape (8 blocks of
+    # 256 threads an SM, a grid-stride loop) beside its default one-pass
+    # grid
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    capped_ms = time_on_stream(
+        lambda: k.push([w, g, m], [w, m], grid_dims=(sms * 8, 1, 1),
+                       block_dims=(256, 1, 1)), iters=50)
     plain_ms = time_on_stream(
-        lambda: k._run_plain([w._data, g._data, m._data], w._data.device),
-        iters=20)
+        lambda: k._run_plain(wgm, w._data.device), iters=20)
     bound_ms, bound_by = sgd_bound_ms(w.size)
     # axpy beside torch.add(y, x, alpha=2.0), the one library call that
     # computes the same function
@@ -997,6 +1160,9 @@ def phase_imperative():
     axpy = {
         "n": RTC_BIG,
         "ms": time_on_stream(lambda: ka.push([x, y], [out]), iters=50),
+        "scalar_ms": time_on_stream(
+            lambda: rtc_launch(ka._program, [x._data, y._data],
+                               force_scalar=True), iters=50),
         "plain_ms": time_on_stream(
             lambda: ka._run_plain([x._data, y._data], x._data.device),
             iters=20),
@@ -1010,7 +1176,10 @@ def phase_imperative():
         "updater_step_host_ms": [t[1] for t in turns["updater"]],
         "rtc_step_host_ms": [t[1] for t in turns["rtc"]],
         "step_bound_ms": sgd_bound_ms(n_elems)[0],
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "kernel_ms": kernel_ms, "scalar_ms": scalar_ms,
+        "vector_capped_grid_ms": capped_ms,
+        "kernel_turns_ms": turns_us, "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
         "bound_by": bound_by, "largest": names[big], "largest_n": w.size,
         "axpy": axpy, "profiles": profiles,
     }
@@ -1022,15 +1191,21 @@ def phase_imperative():
         f" host clock updater "
         f"{statistics.median(timing['updater_step_host_ms']):.3f} ms, rtc "
         f"{statistics.median(timing['rtc_step_host_ms']):.3f} ms")
-    log(f"[timing] rtc SGD body on {names[big]} ({w.size} elements): kernel "
-        f"{kernel_ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, bound "
-        f"{bound_ms * 1e3:.3f} us by {bound_by}, share of bound "
-        f"{bound_ms / kernel_ms:.3f}; no single torch call computes it")
-    log(f"[timing] rtc axpy n={RTC_BIG}: kernel {axpy['ms'] * 1e3:.3f} us, "
-        f"plain {axpy['plain_ms'] * 1e3:.3f} us, torch.add(alpha=2) (library)"
+    log(f"[timing] rtc SGD body on {names[big]} ({w.size} elements): vector "
+        f"kernel (default push) {kernel_ms * 1e3:.3f} us, scalar kernel "
+        f"{scalar_ms * 1e3:.3f} us (turns {turns_us}), vector kernel on "
+        f"{sms * 8} blocks of 256 with a grid-stride loop "
+        f"{capped_ms * 1e3:.3f} us, plain "
+        f"{plain_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us by "
+        f"{bound_by}, share of bound {bound_ms / kernel_ms:.3f} (scalar "
+        f"{bound_ms / scalar_ms:.3f}); no single torch call computes it")
+    log(f"[timing] rtc axpy n={RTC_BIG}: vector kernel {axpy['ms'] * 1e3:.3f}"
+        f" us, scalar kernel {axpy['scalar_ms'] * 1e3:.3f} us, plain "
+        f"{axpy['plain_ms'] * 1e3:.3f} us, torch.add(alpha=2) (library)"
         f" {axpy['library_ms'] * 1e3:.3f} us, bound "
         f"{axpy['bound_ms'] * 1e3:.3f} us by bytes")
     return {"launches": launches, "launches_per_step": launches // SGD_STEPS,
+            "vector_launches": vector_launches,
             "parameters": n_elems, "tensors": len(flat), "shapes": len(shapes),
             "modules": modules, "cache_hits": hits, "peak_device_bytes": peak,
             "first_steps_ms": first, "timing": timing,
@@ -1057,6 +1232,10 @@ def rtc_record(rtc_k, imp):
                         "body; axpy's is torch.add(y, x, alpha=2.0), below",
         "shape": f"SGD-momentum body on {t['largest']} "
                  f"({t['largest_n']} fp32 elements)",
+        "scalar_ms": t["scalar_ms"],
+        "vector_capped_grid_ms": t["vector_capped_grid_ms"],
+        "kernel_turns_ms": t["kernel_turns_ms"],
+        "vector_launches": imp["vector_launches"],
         "max_err_by_tolerance": rtc_k["max_abs_err"],
         "kernel_cases": rtc_k["cases"],
         "nvrtc": {k: rtc_k[k] for k in ("compiles", "cache_hits",
@@ -1076,7 +1255,7 @@ def rtc_record(rtc_k, imp):
 
 def main():
     phase_device()
-    phase_build()
+    wgmma_build = phase_build()
     errs = phase_kernels()
     att_errs = phase_attention_kernels()
     backend, requests, launches, peak, prob_err = phase_slice()
@@ -1141,6 +1320,9 @@ def main():
             "live_pairs": t["live_pairs"],
         }
         if name == "flash_attention":
+            record["wgmma_launches"] = tf["wgmma_launches"]
+            record["variants"] = t["variants"]
+            record["wgmma_build"] = wgmma_build
             record["transformer"] = {
                 k: tf[k] for k in ("per_forward", "served_ms",
                                    "peak_device_bytes",

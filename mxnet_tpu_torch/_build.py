@@ -7,8 +7,9 @@ PyTorch's headers, so a build takes seconds. Libraries go under
 hash of its source and its flags, so a changed source or flag builds anew.
 The sources of one call are compiled by concurrent ``nvcc`` processes.
 Flags are per library: ``rtc_runtime`` links NVRTC and the driver API
-(``-lnvrtc -lcuda``, the driver through the toolkit's ``lib64/stubs`` at
-link time and the installed driver at run time).
+(``-lnvrtc -lcuda``), ``flash_attention`` the driver API (``-lcuda``), the
+driver through the toolkit's ``lib64/stubs`` at link time and the
+installed driver at run time.
 """
 from __future__ import annotations
 
@@ -38,14 +39,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+# library name -> libraries it links beyond the CUDA runtime
+LINKS = {"rtc_runtime": ("-lnvrtc", "-lcuda"),
+         "flash_attention": ("-lcuda",)}
+
+
 def link_flags(name: str) -> tuple:
     """The flags library ``name`` adds after its source on nvcc's line:
-    ``rtc_runtime`` links NVRTC and the CUDA driver API."""
-    if name != "rtc_runtime":
+    ``rtc_runtime`` links NVRTC and the CUDA driver API, ``flash_attention``
+    the driver API (``cuTensorMapEncodeTiled``)."""
+    if name not in LINKS:
         return ()
     lib = os.path.join(os.path.dirname(os.path.dirname(_nvcc())), "lib64")
     return ("-L" + lib, "-L" + os.path.join(lib, "stubs"),
-            "-Xlinker", "-rpath", "-Xlinker", lib, "-lnvrtc", "-lcuda")
+            "-Xlinker", "-rpath", "-Xlinker", lib, *LINKS[name])
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -18,10 +18,20 @@
 // kNvrtcBase a CUresult, kNvrtcBase + r an nvrtcResult r.
 //
 // Bound: the kernels are elementwise, so device-memory bytes bound them:
-// each input read once and each output written once. The generated loop
-// reads each element of each input once and writes each output once, with
-// neighbouring threads on neighbouring elements (coalesced); broadcast
-// operands are re-read from L1/L2.
+// each input read once and each output written once (the SGD-momentum
+// body on the transformer's 16,384,000-element embedding moves 327.7 MB:
+// 97.8 us at 3.35 TB/s). To come near that rate an SM needs tens of KB of
+// loads in flight. The scalar kernel (one 4-byte element per thread per
+// iteration, the only one for bodies with a strided operand) keeps ~8 KB
+// an operand in flight and measured 0.77 of the bound. So where every
+// operand is contiguous or a single broadcast element, the generator also
+// writes a vector kernel: each thread loads a 16-byte vector of every
+// contiguous operand before it computes or stores any (4x the bytes an
+// instruction), with the scalar loop as its tail, and its default launch
+// covers n in one pass, so that an SM holds as many loads in flight as it
+// holds threads (ops/cuda/rtc.py). The launcher takes it when every vector
+// pointer of the push is aligned to its vector's width. Broadcast operands
+// are re-read from L1/L2.
 
 #include <cuda.h>
 #include <nvrtc.h>
@@ -106,6 +116,18 @@ int rtc_compile(const char* source, const char* kernel_name, const char* arch,
     return r;
   }
   *module_out = module;
+  *function_out = function;
+  return 0;
+}
+
+// Another kernel of a module rtc_compile loaded (the vector kernel the
+// generator writes beside the scalar one).
+int rtc_module_function(void* module, const char* kernel_name,
+                        void** function_out) {
+  CUfunction function;
+  const CUresult r = cuModuleGetFunction(
+      &function, static_cast<CUmodule>(module), kernel_name);
+  if (r != CUDA_SUCCESS) return r;
   *function_out = function;
   return 0;
 }

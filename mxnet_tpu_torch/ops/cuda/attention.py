@@ -7,7 +7,12 @@ dispatch: with neither ``lengths`` nor ``segment_ids`` it is the dense core
 ``_masked_attention``). On CUDA tensors both launch the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (counted in
 ``flash_attention.launches`` and ``flash_attention.masked_launches``) or
-raise; on CPU and ``meta`` tensors they run :func:`attention_plain` and
+raise. The library picks the variant by dtype, head dim, masks and
+alignment: the dense core in bf16 at D = 64 or 128 over views TMA can
+describe takes the wgmma/TMA variant (also counted in
+``flash_attention.wgmma_launches``), the masked core the mma.sync one,
+fp32 and unaligned views the CUDA-core one. On CPU and ``meta`` tensors
+they run :func:`attention_plain` and
 :func:`masked_attention_plain`, the torch transcriptions of
 ``_attn_reference`` and ``_masked_reference``. The backward
 (``_blockwise_bwd`` there) comes with the training slice.
@@ -122,7 +127,14 @@ def _check(q, k, v, causal, lengths, segment_ids):
                          f"{devices}")
 
 
-def _launch(q, k, v, causal, scale, lengths, segment_ids):
+# the variant number the library reports for the wgmma/TMA kernel (0 is
+# the CUDA-core one, 1 mma.sync)
+_WGMMA = 2
+
+
+def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
+    """``route`` 0 lets the library pick the variant; 1 takes the mma.sync
+    variant (see :func:`_dense_mma_sync`)."""
     tensors = (q, k, v)
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or q.dtype not in _KERNEL_DTYPES:
@@ -154,6 +166,7 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids):
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _lib()
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_forward(
@@ -161,7 +174,7 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids):
             lengths.data_ptr() if lengths is not None else None,
             segment_ids.data_ptr() if segment_ids is not None else None,
             strides, b, h, sq, sk, d, ctypes.c_float(scale), int(causal),
-            _KERNEL_DTYPES[q.dtype], stream)
+            _KERNEL_DTYPES[q.dtype], route, ctypes.byref(variant), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise MXNetError(f"flash_attention kernel launch failed: {msg} "
@@ -170,7 +183,21 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids):
         flash_attention.masked_launches += 1
     else:
         flash_attention.launches += 1
+    if variant.value == _WGMMA:
+        flash_attention.wgmma_launches += 1
     return out
+
+
+def _dense_mma_sync(q, k, v, causal=False, scale=None):
+    """The dense core through the mma.sync variant, which the dense bf16
+    path no longer takes where TMA applies: for timing the two side by
+    side, never on a model's path. Raises where that variant does not
+    apply (not bf16, D not 64 or 128, unaligned rows)."""
+    _check(q, k, v, causal, None, None)
+    if q.device.type != "cuda":
+        raise MXNetError("_dense_mma_sync takes CUDA tensors")
+    return _launch(q, k, v, causal, _default_scale(q.shape[-1], scale),
+                   None, None, route=1)
 
 
 def _lib():
@@ -179,11 +206,22 @@ def _lib():
         lib.flash_attention_forward.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_void_p])
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int),
+                                    ctypes.c_void_p])
         lib.flash_attention_forward.restype = ctypes.c_int
+        lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+        lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_size_t
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def wgmma_shared_bytes(d):
+    """Dynamic shared memory of a wgmma/TMA variant block at head dim ``d``
+    (64 or 128): the Q tile, 3 K/V stages, the mbarriers and the slack
+    that aligns the tiles to 1024 bytes."""
+    return int(_lib().flash_attention_wgmma_smem_bytes(d))
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
@@ -217,3 +255,4 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
 
 flash_attention.launches = 0         # dense core (B2) launches
 flash_attention.masked_launches = 0  # masked core (B3) launches
+flash_attention.wgmma_launches = 0   # of those, the wgmma/TMA variant's

@@ -14,8 +14,16 @@ by the generated source, which holds the body, the dtypes, the rank of the
 collapsed index space and each operand's access kind, so two bodies that
 differ only in a dtype compile twice, and the SGD body over the
 transformer's 7 parameter shapes (all contiguous, so all of rank 1)
-compiles once. There is no fallback: a compile or launch that fails raises
-:class:`MXNetError` with NVRTC's log or the driver's error.
+compiles once. Where every read is contiguous or one broadcast element,
+the module also holds a vector kernel (16-byte accesses, the scalar loop
+as its tail, a default grid that covers n in one pass); each push takes it
+when its pointers are aligned for it (:func:`~.rtc_codegen.vector_aligned`,
+checked per push since the plan is kept per layout, not per pointer) and
+the scalar kernel otherwise, with the same bits either way. Launches are
+counted in ``rtc_launch.launches``, the vector kernel's also in
+``rtc_launch.vector_launches``. There is no fallback: a compile or launch
+that fails raises :class:`MXNetError` with NVRTC's log or the driver's
+error.
 """
 from __future__ import annotations
 
@@ -29,14 +37,16 @@ import torch
 from ... import _build
 from ...base import MXNetError
 from ...dtypes import torch_dtype
-from .rtc_codegen import Program, emit, layout
+from .rtc_codegen import (Program, emit, layout, vector_aligned,
+                          vector_kernel_name, vector_width)
 
 __all__ = ["rtc_launch", "compile_source", "check_launch_dims", "STATS",
            "ARCH"]
 
 ARCH = "sm_90a"
 THREADS = 256
-# blocks per SM of the default launch: 8 x 256 threads fill an SM
+# blocks per SM of the scalar kernel's default launch: 8 x 256 threads fill
+# an SM, and a grid-stride loop covers the rest
 BLOCKS_PER_SM = 8
 _LOG_BYTES = 1 << 16
 
@@ -67,6 +77,9 @@ def _lib():
         lib.rtc_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_uint] * 6 + [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
         lib.rtc_launch.restype = ctypes.c_int
+        lib.rtc_module_function.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
+        lib.rtc_module_function.restype = ctypes.c_int
         lib.rtc_error_string.argtypes = [ctypes.c_int]
         lib.rtc_error_string.restype = ctypes.c_char_p
         lib.rtc_nvrtc_version.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -139,15 +152,32 @@ def _span(t: torch.Tensor) -> int:
     return 1 + sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
 
 
+def module_function(kernel: CompiledKernel, name: str) -> int:
+    """Kernel ``name`` of ``kernel``'s module."""
+    function = ctypes.c_void_p()
+    lib = _lib()
+    err = lib.rtc_module_function(kernel.module, name.encode(),
+                                  ctypes.byref(function))
+    if err != 0:
+        raise MXNetError(f"Rtc: no kernel {name} in the module of "
+                         f"{kernel.name}: {lib.rtc_error_string(err).decode()}"
+                         f" ({err})")
+    return function.value
+
+
 class _Plan(NamedTuple):
     kernel: CompiledKernel
     grid: Tuple[int, int, int]
     block: Tuple[int, int, int]
     params: ctypes.Array  # RtcArgs: n, the dims, the read Refs' strides
+    vector: int  # the vector kernel, or 0 where the layout has none
+    vector_grid: Tuple[int, int, int]
+    flat: Tuple[int, ...]  # the reads the vector kernel loads in vectors
+    access: Tuple[int, ...]  # bytes of a vector of each, then each output
 
 
 def _plan(prog: Program, reads, device, grid, block) -> _Plan:
-    """The kernel and launch arguments for this layout of the inputs: the
+    """The kernels and launch arguments for this layout of the inputs: the
     translation and the compile happen once per layout, not per push."""
     n = math.prod(prog.shape)
     dims, strides, kinds = layout(prog.shape,
@@ -155,21 +185,42 @@ def _plan(prog: Program, reads, device, grid, block) -> _Plan:
     wide = n >= 2 ** 31 or any(_span(t) >= 2 ** 31 for t in reads)
     source, kname = emit(prog, len(dims), kinds, wide)
     kernel = compile_source(source, kname, device.index)
-    if block is None:
-        block = (THREADS, 1, 1)
-    if grid is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        grid = (min(-(-n // math.prod(block)), sms * BLOCKS_PER_SM), 1, 1)
+    vec = vector_width(prog, kinds)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    block = block or (THREADS, 1, 1)
+    threads = math.prod(block)
+    # the scalar kernel: one element a thread per iteration, at most
+    # BLOCKS_PER_SM blocks an SM
+    scalar_grid = grid or (min(-(-n // threads), sms * BLOCKS_PER_SM), 1, 1)
+    vector, vector_grid, flat, access = 0, scalar_grid, (), ()
+    if vec is not None:
+        vector = module_function(kernel, vector_kernel_name(kname))
+        # the vector kernel: a vector of vec elements a thread, over a grid
+        # that covers n in one pass. Each SM holds as many blocks as its
+        # registers allow (up to 2048 threads: 32 KB of each contiguous
+        # operand in flight), a block that ends makes room for the next,
+        # and no thread loops. On an H100 this ran the SGD body faster
+        # than BLOCKS_PER_SM blocks an SM with a grid-stride loop
+        # (chip_smoke.py phase 10; PERF.md)
+        nvec = max(n // vec, 1)
+        vector_grid = grid or (-(-nvec // threads), 1, 1)
+        flat = tuple(k for k, kind in enumerate(kinds) if kind == "flat")
+        access = tuple(vec * reads[k].element_size() for k in flat) + tuple(
+            vec * torch_dtype(dt).itemsize
+            for _, _, dt in prog.outputs)
     packed = [n, *dims, *(s for st in strides for s in st)]
-    return _Plan(kernel, grid, block,
-                 (ctypes.c_longlong * len(packed))(*packed))
+    return _Plan(kernel, scalar_grid, block,
+                 (ctypes.c_longlong * len(packed))(*packed), vector,
+                 vector_grid, flat, access)
 
 
 def rtc_launch(prog: Program, inputs: Sequence[torch.Tensor],
-               grid_dims=None, block_dims=None) -> List[torch.Tensor]:
+               grid_dims=None, block_dims=None,
+               force_scalar: bool = False) -> List[torch.Tensor]:
     """Run ``prog`` on ``inputs`` (CUDA tensors on one card, in the Rtc's
     input order) and return its outputs as new tensors. Counts the launch
-    in ``rtc_launch.launches``."""
+    in ``rtc_launch.launches``. ``force_scalar`` takes the scalar kernel
+    where the vector one would run, to time the two side by side."""
     device = inputs[0].device if inputs else torch.device(
         "cuda", torch.cuda.current_device())
     if device.type != "cuda" or any(t.device != device for t in inputs):
@@ -192,18 +243,25 @@ def rtc_launch(prog: Program, inputs: Sequence[torch.Tensor],
     pointers = [ctypes.c_void_p(t.data_ptr()) for t in list(inputs) + outputs]
     argv = (ctypes.c_void_p * (1 + len(pointers)))(
         ctypes.addressof(plan.params), *(ctypes.addressof(p) for p in pointers))
+    vector = plan.vector != 0 and not force_scalar and vector_aligned(
+        [reads[k].data_ptr() for k in plan.flat]
+        + [t.data_ptr() for t in outputs], plan.access)
+    function, grid = ((plan.vector, plan.vector_grid) if vector
+                      else (plan.kernel.function, plan.grid))
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.rtc_launch(plan.kernel.function, *plan.grid, *plan.block,
-                             stream, argv)
+        err = lib.rtc_launch(function, *grid, *plan.block, stream, argv)
     if err != 0:
-        raise MXNetError(f"Rtc kernel {plan.kernel.name} launch (grid "
-                         f"{plan.grid}, block {plan.block}) failed: "
+        raise MXNetError(f"Rtc kernel {plan.kernel.name}"
+                         f"{' (vector)' if vector else ''} launch (grid "
+                         f"{grid}, block {plan.block}) failed: "
                          f"{lib.rtc_error_string(err).decode()} ({err})")
     rtc_launch.launches += 1
+    rtc_launch.vector_launches += int(vector)
     return outputs
 
 
 rtc_launch.launches = 0
+rtc_launch.vector_launches = 0  # of those, the vector kernel's
 

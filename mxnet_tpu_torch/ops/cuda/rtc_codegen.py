@@ -20,7 +20,10 @@ it by numpy's rules. Anything else raises :class:`MXNetError` naming the
 construct and the queue entry that holds the rest of the body language.
 
 The kernel (``emit``) gives each thread one output index at a time in a
-grid-stride loop, so its result does not depend on the launch shape. It
+grid-stride loop, so its result does not depend on the launch shape.
+Where every operand is contiguous or one broadcast element, the module
+also holds a vector kernel with 16-byte loads and stores and the same
+per-element text (see ``emit``). It
 loads every Ref the body reads once, at the top, before any store (so an
 output that is also an input reads as it was, as in JAX), keeps each
 output's value in a register from a NaN (float) or INT_MIN (int32) fill,
@@ -49,10 +52,11 @@ import numpy as np
 from ...base import MXNetError
 
 __all__ = ["Program", "analyze", "emit", "layout", "promote", "QUEUE_ENTRY",
-           "DTYPES", "JNP_FUNCS", "NN_FUNCS", "CASTS", "nan_fill"]
+           "DTYPES", "JNP_FUNCS", "NN_FUNCS", "CASTS", "nan_fill",
+           "vector_width", "vector_kernel_name", "vector_aligned"]
 
 # where the rest of the body language is queued
-QUEUE_ENTRY = "ROADMAP.md:375"
+QUEUE_ENTRY = "ROADMAP.md:406"
 
 DTYPES = ("float32", "bfloat16", "float16", "int32")
 FLOATS = ("float32", "bfloat16", "float16")
@@ -655,6 +659,64 @@ def _store(dtype: str, v: str) -> str:
             "float16": f"f32_to_f16({v})"}[dtype]
 
 
+_SIZE = {"float32": 4, "int32": 4, "bfloat16": 2, "float16": 2}
+_WORDS = {16: "uint4", 8: "uint2"}
+
+
+def vector_width(prog: Program, kinds: Sequence[str]):
+    """Elements a thread of the vector kernel loads per operand per vector:
+    16 bytes of the widest type among the ``flat`` reads and the outputs
+    (4 fp32/int32, 8 bf16/fp16). None when a read is ``strided``, where
+    only the scalar kernel exists."""
+    if any(k == "strided" for k in kinds):
+        return None
+    dtypes = {n: dt for n, _, dt in prog.inputs}
+    sizes = [_SIZE[dtypes[n]] for n, k in zip(prog.reads, kinds) if k == "flat"]
+    sizes += [_SIZE[dt] for _, _, dt in prog.outputs]
+    return 16 // max(sizes)
+
+
+def vector_kernel_name(kname: str) -> str:
+    """The vector kernel's name in the module of scalar kernel ``kname``."""
+    return "rtcv_" + kname[len("rtc_"):]
+
+
+def vector_aligned(addresses: Sequence[int], access_bytes: Sequence[int]):
+    """Whether every operand the vector kernel accesses in vectors (the
+    ``flat`` reads and the outputs) starts on its vector's width: an
+    address and the bytes of one vector of it, in pairs. A view that starts
+    one element into a tensor fails, and takes the scalar kernel."""
+    return all(a % b == 0 for a, b in zip(addresses, access_bytes))
+
+
+def _lane(dtype: str, word: str, j: int, vec: int) -> str:
+    """Element ``j`` of a vector of ``vec`` elements of ``dtype`` loaded
+    as the words of ``word`` (a uint4 or uint2)."""
+    size = _SIZE[dtype]
+    comp = "xyzw"[j * size // 4]
+    if dtype == "float32":
+        return f"__uint_as_float({word}.{comp})"
+    if dtype == "int32":
+        return f"(int){word}.{comp}"
+    half = f"(u16)({word}.{comp} >> {16 * (j % 2)})"
+    return (f"bf16_to_f32({half})" if dtype == "bfloat16"
+            else f"f16_to_f32({half})")
+
+
+def _pack(dtype: str, vals: Sequence[str], nbytes: int) -> str:
+    """The words of a vector of ``vals`` (each already in the stored
+    type's C value) to store as a uint4 or uint2."""
+    if dtype in ("float32", "int32"):
+        words = [f"(unsigned)({v})" if dtype == "int32"
+                 else f"__float_as_uint({v})" for v in vals]
+    else:
+        conv = "f32_to_bf16" if dtype == "bfloat16" else "f32_to_f16"
+        words = [f"((unsigned){conv}({vals[2 * k]}) | "
+                 f"((unsigned){conv}({vals[2 * k + 1]}) << 16))"
+                 for k in range(len(vals) // 2)]
+    return f"make_{_WORDS[nbytes]}({', '.join(words)})"
+
+
 def emit(prog: Program, rank: int, kinds: Sequence[str],
          wide_index: bool) -> Tuple[str, str]:
     """The CUDA C source of ``prog``'s kernel for an index space of
@@ -662,7 +724,18 @@ def emit(prog: Program, rank: int, kinds: Sequence[str],
     says (see :func:`layout`), with 64-bit offsets if ``wide_index``.
     Returns (source, kernel name). The source is the compile cache's key:
     it holds the body, the dtypes, the rank and the access kinds, while
-    sizes and strides are launch arguments."""
+    sizes and strides are launch arguments.
+
+    Where every read is ``flat`` or ``zero`` (:func:`vector_width`), the
+    module holds a second kernel, :func:`vector_kernel_name`, before the
+    scalar one: each thread takes a vector of VEC consecutive elements per
+    iteration, with one 16-byte load (8 for a narrower type) of each
+    ``flat`` read and one store of each output, ``zero`` reads loaded
+    once; the body's text is repeated for each element, so the
+    arithmetic is the scalar kernel's; and the scalar loop, started past
+    the last whole vector, handles the ``n % VEC`` elements left. The
+    caller launches it only when :func:`vector_aligned` holds for the
+    push's pointers."""
     em = _Emitter()
     outs = {n: f"o_{n}" for n, _, _ in prog.outputs}
     for kind, name, value in prog.stmts:
@@ -678,6 +751,11 @@ def emit(prog: Program, rank: int, kinds: Sequence[str],
     params = [f"const {_ST_TYPE[dtypes[n]]}* __restrict__ in_{n}"
               for n, _, _ in prog.inputs]
     params += [f"{_ST_TYPE[dt]}* __restrict__ out_{n}" for n, _, dt in prog.outputs]
+    fills = []
+    for n, _, dt in prog.outputs:
+        fill = ("__int_as_float(0x7fc00000)" if dt in FLOATS
+                else "(-2147483647 - 1)")
+        fills.append(f"{_C_TYPE[dt]} o_{n} = {fill};")
     body: List[str] = []
     if "strided" in kinds:
         body.append(f"{idx} rem = ({idx})i;")
@@ -696,10 +774,7 @@ def emit(prog: Program, rank: int, kinds: Sequence[str],
             off = " + ".join(f"c{d} * ({idx})p.st[{k}][{d}]" for d in range(rank))
         body.append(f"const {_C_TYPE[dtypes[n]]} v_{n} = "
                     f"{_load(dtypes[n], f'in_{n}', off)};")
-    for n, _, dt in prog.outputs:
-        fill = ("__int_as_float(0x7fc00000)" if dt in FLOATS
-                else "(-2147483647 - 1)")
-        body.append(f"{_C_TYPE[dt]} o_{n} = {fill};")
+    body += fills
     body += em.lines
     for n, _, dt in prog.outputs:
         body.append(f"out_{n}[({idx})i] = {_store(dt, f'o_{n}')};")
@@ -709,18 +784,63 @@ def emit(prog: Program, rank: int, kinds: Sequence[str],
                  f"reads {list(zip(prog.reads, kinds))}; index {idx}")
     kname = "rtc_" + hashlib.sha256(signature.encode()).hexdigest()[:16]
     st = f"  long long st[{nread}][{rank}];\n" if nread else ""
+    head = (f"(const RtcArgs p, " + ", ".join(params) + ") {\n"
+            "  const long long nthreads = (long long)gridDim.x * gridDim.y * "
+            "gridDim.z * blockDim.x * blockDim.y * blockDim.z;\n"
+            "  const long long tid = ((long long)(blockIdx.z * gridDim.y + "
+            "blockIdx.y) * gridDim.x + blockIdx.x) * (blockDim.x * blockDim.y * "
+            "blockDim.z) + (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x "
+            "+ threadIdx.x;\n")
+    def scalar_loop(start):
+        return (f"  for (long long i = {start}; i < p.n; i += nthreads) {{\n"
+                + "".join(f"    {line}\n" for line in body) + "  }\n")
+
+    vec = vector_width(prog, kinds)
+    vector = "" if vec is None else (
+        f'extern "C" __global__ void {vector_kernel_name(kname)}' + head
+        + _vector_loop(prog, kinds, vec, idx, fills, em.lines)
+        + scalar_loop(f"nvec * {vec} + tid") + "}\n")
     src = (f"// Rtc kernel generated by mxnet_tpu_torch.ops.cuda.rtc_codegen\n"
            f"// {signature}\n" + _PRELUDE +
            f"struct RtcArgs {{\n  long long n;\n  long long dim[{rank}];\n{st}}};\n"
-           f'extern "C" __global__ void {kname}(const RtcArgs p, '
-           + ", ".join(params) + ") {\n"
-           "  const long long nthreads = (long long)gridDim.x * gridDim.y * "
-           "gridDim.z * blockDim.x * blockDim.y * blockDim.z;\n"
-           "  const long long tid = ((long long)(blockIdx.z * gridDim.y + "
-           "blockIdx.y) * gridDim.x + blockIdx.x) * (blockDim.x * blockDim.y * "
-           "blockDim.z) + (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x "
-           "+ threadIdx.x;\n"
-           "  for (long long i = tid; i < p.n; i += nthreads) {\n"
-           + "".join(f"    {line}\n" for line in body)
-           + "  }\n}\n")
+           + vector +
+           f'extern "C" __global__ void {kname}' + head
+           + scalar_loop("tid") + "}\n")
     return src, kname
+
+
+def _vector_loop(prog: Program, kinds: Sequence[str], vec: int, idx: str,
+                 fills: List[str], lines: List[str]) -> str:
+    """The vector kernel's main loop (see :func:`emit`): vector ``v`` of
+    every ``flat`` read loaded, then the body once per element in a block
+    of its own, then vector ``v`` of every output stored."""
+    dtypes = {n: dt for n, _, dt in prog.inputs}
+    flat = [n for n, k in zip(prog.reads, kinds) if k == "flat"]
+    out: List[str] = []
+    for n, k in zip(prog.reads, kinds):
+        if k == "zero":  # one element, loaded once
+            out.append(f"const {_C_TYPE[dtypes[n]]} v_{n} = "
+                       f"{_load(dtypes[n], f'in_{n}', '0')};")
+    out.append(f"const long long nvec = p.n / {vec};")
+    out.append("for (long long v = tid; v < nvec; v += nthreads) {")
+    for n in flat:
+        w = _WORDS[vec * _SIZE[dtypes[n]]]
+        out.append(f"  const {w} w_{n} = "
+                   f"reinterpret_cast<const {w}*>(in_{n})[({idx})v];")
+    for n, _, dt in prog.outputs:
+        out.append(f"  {_C_TYPE[dt]} r_{n}[{vec}];")
+    for lane in range(vec):
+        out.append("  {")
+        for n in flat:
+            out.append(f"    const {_C_TYPE[dtypes[n]]} v_{n} = "
+                       f"{_lane(dtypes[n], f'w_{n}', lane, vec)};")
+        out += [f"    {line}" for line in fills + lines]
+        out += [f"    r_{n}[{lane}] = o_{n};" for n, _, _ in prog.outputs]
+        out.append("  }")
+    for n, _, dt in prog.outputs:
+        nbytes = vec * _SIZE[dt]
+        vals = [f"r_{n}[{lane}]" for lane in range(vec)]
+        out.append(f"  reinterpret_cast<{_WORDS[nbytes]}*>(out_{n})[({idx})v] = "
+                   f"{_pack(dt, vals, nbytes)};")
+    out.append("}")
+    return "".join(f"  {line}\n" for line in out)

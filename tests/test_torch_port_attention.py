@@ -19,7 +19,8 @@ import torch
 import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention_ops as port_attention_ops
-from mxnet_tpu_torch.ops.cuda.attention import (attention_plain,
+from mxnet_tpu_torch.ops.cuda.attention import (_dense_mma_sync,
+                                                attention_plain,
                                                 flash_attention,
                                                 masked_attention_plain)
 
@@ -219,15 +220,27 @@ def test_flash_attention_value_errors_match_jax(ref, what):
 def test_cpu_runs_plain_and_counts_no_launch():
     q, k, v, causal, lens, seg = _case("segments_lengths_causal")
     t = [torch.from_numpy(a) for a in (q, k, v)]
-    before = (flash_attention.launches, flash_attention.masked_launches)
+    before = (flash_attention.launches, flash_attention.masked_launches,
+              flash_attention.wgmma_launches)
     dense = flash_attention(*t, causal=True)
     masked = flash_attention(*t, causal=True, lengths=torch.from_numpy(lens),
                              segment_ids=torch.from_numpy(seg))
-    assert (flash_attention.launches,
-            flash_attention.masked_launches) == before
+    assert (flash_attention.launches, flash_attention.masked_launches,
+            flash_attention.wgmma_launches) == before
     assert torch.equal(dense, attention_plain(*t, causal=True))
     assert torch.equal(masked, masked_attention_plain(
         *t, torch.from_numpy(lens), torch.from_numpy(seg), causal=True))
+
+
+def test_mma_sync_timing_route_takes_only_card_tensors():
+    """The forced mma.sync route exists to time that variant beside the
+    wgmma one on the card; it checks shapes like the public entry point
+    and has no CPU path."""
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(MXNetError, match="CUDA"):
+        _dense_mma_sync(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="seq_q <= seq_k"):
+        _dense_mma_sync(q, q[:, :, :4], q[:, :, :4], causal=True)
 
 
 def test_meta_infers_shapes_and_keeps_layout():
@@ -348,3 +361,65 @@ def test_kernel_takes_strided_views_and_refuses_grad(card, offset):
         flash_attention(q.detach().requires_grad_(), q, q)
     with pytest.raises(MXNetError):
         flash_attention(*(torch.zeros(1, 1, 4, 160, device=card),) * 3)
+
+
+# (B, H, Sq, Sk, D, causal, layout) for the wgmma/TMA variant: tile edges
+# (192-row query tiles, 128-key tiles at D = 64 and 64-key at D = 128),
+# Sq < Sk causal, D = 128, and (B, H, S, D) views of (B, S, H, D) memory
+WGMMA_CASES = [
+    (2, 3, 1000, 1000, 64, True, "bhsd"),
+    (2, 3, 1000, 1000, 64, False, "bhsd"),
+    (2, 2, 129, 1000, 64, True, "bhsd"),
+    (2, 2, 77, 200, 128, True, "bhsd"),
+    (1, 2, 300, 300, 128, False, "bhsd"),
+    (2, 8, 500, 500, 64, True, "bshd"),
+    (2, 4, 333, 333, 128, True, "bshd"),
+    (1, 1, 1, 1, 64, False, "bhsd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_wgmma_variant_matches_plain(card, case):
+    """The dense bf16 core at D = 64 and 128 takes the wgmma/TMA variant,
+    within two bf16 ulps of the plain version at the reference's
+    magnitude (at least 1); the mma.sync variant agrees as well."""
+    b, h, sq, sk, d, causal, layout = case
+    rng = np.random.RandomState(sq + sk + d)
+
+    def make(s):
+        if layout == "bshd":
+            return torch.tensor(rng.normal(0, 1, (b, s, h, d)),
+                                dtype=torch.bfloat16,
+                                device=card).transpose(1, 2)
+        return torch.tensor(rng.normal(0, 1, (b, h, s, d)),
+                            dtype=torch.bfloat16, device=card)
+    q, k, v = make(sq), make(sk), make(sk)
+    before = flash_attention.wgmma_launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.wgmma_launches == before + 1
+    want = attention_plain(q, k, v, causal=causal).float()
+    bound = 2.0 ** -6 * want.abs().clamp(min=1.0)
+    assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
+    assert bool(((out.float() - want).abs() <= bound).all())
+    mma = _dense_mma_sync(q, k, v, causal=causal)
+    assert flash_attention.wgmma_launches == before + 1
+    assert bool(((mma.float() - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_wgmma_variant_routes_by_alignment(card):
+    """A view no row of which is 16-byte aligned, and fp32, keep their
+    earlier routes; so does the masked core."""
+    x = torch.randn(1, 4, 200, 65, device=card, dtype=torch.bfloat16)[..., 1:]
+    before = flash_attention.wgmma_launches
+    out = flash_attention(x, x, x, causal=True)
+    f32 = flash_attention(x.float(), x.float(), x.float())
+    y = x.contiguous()
+    masked = flash_attention(y, y, y, lengths=torch.tensor([100], device=card))
+    torch.cuda.synchronize()
+    assert flash_attention.wgmma_launches == before
+    assert (out.float() - attention_plain(x, x, x, causal=True).float()
+            ).abs().max().item() <= 1.6e-2
+    assert f32.dtype == torch.float32 and masked.shape == y.shape

@@ -428,6 +428,56 @@ def test_literals_convert_as_torch_converts():
             assert got == want and code.startswith("rnd_") == (dt != "float32")
 
 
+def test_vector_kernel_only_for_flat_and_zero_reads():
+    """The module holds the vector kernel (16-byte accesses, before the
+    scalar one) only where every read is flat or zero; its tail is the
+    scalar loop started past the last whole vector."""
+    body = "o[:] = x[:] * 2.0 + y[:]"
+    prog = _prog(body, ins=(("x", (4, 3), F32), ("y", (3,), F32)))
+    for kinds, vec in ((["flat", "flat"], 4), (["flat", "zero"], 4),
+                       (["flat", "strided"], None)):
+        assert cg.vector_width(prog, kinds) == vec
+        src, name = cg.emit(prog, 1 if vec else 2, kinds, False)
+        vname = cg.vector_kernel_name(name)
+        assert (vname in src) == (vec is not None)
+        if vec is None:
+            continue
+        vec_src = src[src.index(vname):src.index(name + "(")]
+        assert "reinterpret_cast<const uint4*>(in_x)" in vec_src
+        assert ("reinterpret_cast<const uint4*>(in_y)" in vec_src) == \
+            (kinds[1] == "flat")
+        assert "reinterpret_cast<uint4*>(out_o)" in vec_src
+        # the tail: the scalar loop body, from the first element past the
+        # vectors
+        tail = vec_src[vec_src.index("for (long long i = nvec * 4 + tid;"):]
+        scalar = src[src.index(name + "("):]
+        loop = scalar[scalar.index("for (long long i = tid;"):]
+        def body_of(text):  # the loop's statements
+            return text.split("\n", 1)[1].split("\n  }\n", 1)[0]
+        assert body_of(tail) == body_of(loop) and "out_o[" in body_of(loop)
+    # 2-byte types only: 8 a vector; a 4-byte operand makes it 4
+    bf = _prog("o[:] = x[:] * 0.5", ins=(("x", (9,), "bfloat16"),),
+               outs=(("o", (9,), "bfloat16"),))
+    assert cg.vector_width(bf, ["flat"]) == 8
+    mixed = _prog("o[:] = x[:].astype(jnp.float32)",
+                  ins=(("x", (9,), "bfloat16"),), outs=(("o", (9,), F32),))
+    assert cg.vector_width(mixed, ["flat"]) == 4
+    src, name = cg.emit(mixed, 1, ["flat"], False)
+    assert "reinterpret_cast<const uint2*>(in_x)" in src  # 4 bf16: 8 bytes
+
+
+def test_vector_alignment_choice():
+    """A push takes the vector kernel only when every vector pointer sits
+    on its vector's width: an address and its access bytes, in pairs."""
+    assert cg.vector_aligned([0x7f0000000000, 0x7f0000000100], [16, 16])
+    assert not cg.vector_aligned([0x7f0000000004, 0x7f0000000100], [16, 16])
+    assert cg.vector_aligned([0x7f0000000008], [8])  # 4 bf16 of a mixed body
+    assert not cg.vector_aligned([0x7f0000000002], [8])
+    assert cg.vector_aligned([], [])  # nothing read in vectors
+    assert cg.vector_kernel_name("rtc_0123456789abcdef") == \
+        "rtcv_0123456789abcdef"
+
+
 # -- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -506,3 +556,46 @@ def test_launch_shape_and_aliasing_on_card(card):
         assert x.asnumpy()[-1] == 5000.0 and b.asnumpy()[-1] == 9998.0
         with pytest.raises(MXNetError):
             k.push([x], [x, b], block_dims=(2048, 1, 1))
+
+
+@pytest.mark.cuda
+def test_vector_kernel_per_push_on_card(card):
+    """The vector kernel at n % 4 != 0, the scalar kernel for a view one
+    element into a tensor with the same layout (so the same launch plan),
+    a zero (broadcast) operand, and an aliased push: all bit for bit
+    equal to the plain version."""
+    from mxnet_tpu_torch.ops.cuda.rtc import rtc_launch
+    n = 4 * 1000 + 3
+    rng = np.random.RandomState(3)
+    base = torch.tensor(rng.normal(0, 2, n + 1), dtype=torch.float32)
+    y = torch.tensor(rng.normal(0, 2, n), dtype=torch.float32)
+    a = torch.tensor([1.5])
+    body = "o[:] = x[:] * a[:] + y[:]"
+    on_card = base.to("cuda")
+    # aligned, then one element in: views of one card tensor
+    cases = [(base[:n], on_card[:n], True), (base[1:], on_card[1:], False)]
+    k = None
+    for x, x_card, vector in cases:
+        with card:
+            Y, A = (pnd.NDArray(t.to("cuda")) for t in (y, a))
+            X = pnd.NDArray(x_card)
+            O = pnd.zeros((n,))
+        if k is None:
+            k = mxt.rtc.Rtc("axpb", [("x", X), ("a", A), ("y", Y)],
+                            [("o", O)], body)
+        before = (rtc_launch.launches, rtc_launch.vector_launches)
+        k.push([X, A, Y], [O])
+        torch.cuda.synchronize()
+        assert (rtc_launch.launches, rtc_launch.vector_launches) == (
+            before[0] + 1, before[1] + vector)
+        want = k._run_plain([x, a, y], torch.device("cpu"))[0]
+        assert _bits_equal(O._data, want)
+    with card:  # aliased: a and b read x as it was
+        x = pnd.array(np.arange(n, dtype=np.float32))
+        b = pnd.zeros((n,))
+        k2 = mxt.rtc.Rtc("alias", [("x", x)], [("a", x), ("b", b)],
+                         "a[:] = x[:] + 1.0\nb[:] = x[:] * 2.0")
+        before = rtc_launch.vector_launches
+        k2.push([x], [x, b])
+        assert rtc_launch.vector_launches == before + 1
+        assert x.asnumpy()[-1] == n and b.asnumpy()[-1] == 2 * (n - 1)
