@@ -14,13 +14,18 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    wgmma attention kernel's registers, spills, wgmma serialization and
    shared memory a block;
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
-   version at its path's shapes and ragged ones, fp32 and bf16; the
-   dense bf16 attention cases (D = 64 and 128, ragged, Sq < Sk, the
-   transformer's (B, S, H, D) views) through the wgmma/TMA variant, by
-   its launch counter;
+   version at its path's shapes and ragged ones, fp32 and bf16; the LSTM
+   sequence kernel over T=128 steps at N=1 and 16 (H=1024) and T=7, N=3,
+   H=200, forward and reverse; the dense bf16 attention cases (D = 64 and
+   128, ragged, Sq < Sk, the transformer's (B, S, H, D) views) through the
+   wgmma/TMA variant, by its launch counter;
 4. LSTM slice: the 2x1024 LSTM language model (V=10000, T=128, random
    weights from a seed) behind ``PredictorBackend(dev_type=2)`` answers 8
-   requests of 1 and 16 rows; one request is answered again on the CPU;
+   requests of 1 and 16 rows, each forward one sequence-kernel launch a
+   layer and no per-step launch; one request is answered again on the
+   CPU. Then a one-layer LSTM LM at H=1536, whose weights do not fit in
+   the sequence kernel's shared memory, answers 2 one-row requests through
+   the per-step kernel (T launches a forward);
 5. transformer slice: the transformer LM at ``TransformerConfig()``'s
    width (32000 vocab, 4 x 512, 8 heads, bf16, weights from seed 0)
    behind ``CallableBackend`` answers 8 requests of 1 and 4 rows at
@@ -30,10 +35,13 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 6. masked attention: packed and length-masked batches through the public
    ``flash_attention(lengths=..., segment_ids=...)`` entry point;
 7. timing: each kernel, its plain version and the nearest PyTorch library
-   call with CUDA events; B2's wgmma/TMA variant, its earlier mma.sync
-   variant and ``scaled_dot_product_attention`` in turns, each with
-   TFLOP/s and share of bound; Predictor and transformer forward times; peak
-   memory;
+   call with CUDA events; one LSTM layer (T=128, H=1024, fp32, N=1 and 16)
+   through the sequence kernel, through 128 per-step launches, through its
+   plain version and through cuDNN's ``torch.nn.LSTM`` (beside the port's
+   input projection plus the kernel), and T grid barriers with no step
+   body (the kernel's own and cooperative groups' grid sync); B2's wgmma/TMA variant, its earlier mma.sync variant and
+   ``scaled_dot_product_attention`` in turns, each with TFLOP/s and share
+   of bound; Predictor and transformer forward times; peak memory;
 8. profile: device time by kernel over one forward per bucket of each
    model, and the device's idle share of it;
 9. rtc kernels: Rtc bodies compiled by NVRTC (``csrc/rtc_runtime.cu``,
@@ -57,9 +65,9 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    scalar kernel on the largest tensor (in turns) against its bound, its
    plain version, axpy's against ``torch.add``, and peak memory.
 
-Each path (4, 5, 6, 10) sets its kernels' launch counts to 0 just before it
-runs and reads them just after, and fails if a kernel of the path was not
-launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+Each path (4 and its wide LSTM, 5, 6, 10) sets its kernels' launch counts
+to 0 just before it runs and reads them just after, and fails if a kernel
+of the path was not launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -75,6 +83,10 @@ import torch
 
 # fp32 tolerance: only the summation order differs from the plain version
 FP32_TOL = 2e-5
+# the LSTM sequence kernel against its plain version in fp32: each step
+# differs in summation order only, and the differences compound through
+# the recurrence over 128 steps
+SEQ_FP32_TOL = 1e-4
 # bf16 tolerance, compared in bf16: two bf16 ulps at 1.0
 BF16_TOL = 1.6e-2
 # card against the port's CPU path on the LM's probabilities
@@ -96,6 +108,11 @@ BF16_TENSOR_FLOPS = 989.4e12
 
 V, H, LAYERS, T = 10000, 1024, 2, 128
 BUCKETS = (1, 16)
+# an LSTM width whose weights do not fit in the sequence kernel's shared
+# memory on an H100 (ops/cuda/lstm.py:sequence_fits)
+WIDE_H = 1536
+# (T, N, H) of the sequence kernel's checks
+SEQ_CASES = ((T, 1, H), (T, 16, H), (7, 3, 200))
 
 # the transformer LM: TransformerConfig() defaults, requests of 1 and 4 rows
 TF_S = 2048
@@ -182,10 +199,70 @@ def cell_inputs(n, hdim, dtype, seed):
     return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrays]
 
 
+def bf16_state_tol(ref):
+    """Two bf16 ulps at the largest magnitude of ``ref``."""
+    mag = ref.float().abs().max().item()
+    return 2 * 2.0 ** (math.floor(math.log2(mag)) - 7) if mag else 0.0
+
+
+def sequence_inputs(steps, n, hdim, dtype, seed):
+    """xproj (T,N,4H) and the cell inputs' h0, c0, w_h2h at the LM's scale."""
+    rng = np.random.RandomState(seed)
+    xproj = torch.tensor(rng.normal(0, 1, (steps, n, 4 * hdim)), dtype=dtype,
+                         device="cuda")
+    return [xproj] + cell_inputs(n, hdim, dtype, seed + 1)[1:]
+
+
+def phase_sequence_kernel():
+    """The sequence kernel against lstm_sequence_plain; returns the worst
+    fp32 error and the worst bf16 error in bf16 ulps of the state."""
+    from mxnet_tpu_torch.ops.cuda.lstm import (lstm_cell_fused,
+                                               lstm_sequence_fused,
+                                               lstm_sequence_plain)
+    errs = {"fp32": 0.0, "bf16_ulps": 0.0}
+    for steps, n, hdim in SEQ_CASES:
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            args = sequence_inputs(steps, n, hdim, dtype, seed=steps + n + hdim)
+            for reverse in (False, True):
+                before = (lstm_sequence_fused.launches,
+                          lstm_cell_fused.launches)
+                got = lstm_sequence_fused(*args, reverse=reverse)
+                torch.cuda.synchronize()
+                if (lstm_sequence_fused.launches, lstm_cell_fused.launches) != (
+                        before[0] + 1, before[1]):
+                    raise RuntimeError("lstm_sequence: not one launch of the "
+                                       "sequence kernel")
+                want = lstm_sequence_plain(*args, reverse=reverse)
+                worst = []
+                for name, g, w in zip(("out", "hT", "cT"), got, want):
+                    if g.dtype != dtype or g.shape != w.shape:
+                        raise RuntimeError(f"lstm_sequence {name}: {g.dtype} "
+                                           f"{tuple(g.shape)}")
+                    tol = SEQ_FP32_TOL if tag == "fp32" else bf16_state_tol(w)
+                    err = (g.float() - w.float()).abs().max().item()
+                    if not err <= tol:
+                        raise RuntimeError(
+                            f"lstm_sequence {tag} T={steps} N={n} H={hdim} "
+                            f"reverse={reverse} {name} disagrees with its "
+                            f"plain version: {err} > {tol}")
+                    worst.append(err if tag == "fp32" else 2 * err / tol)
+                log(f"[kernels] lstm_sequence T={steps} N={n} H={hdim} {tag} "
+                    f"reverse={reverse}: max|d| out, hT, cT "
+                    + ", ".join(f"{e:.3e}" for e in worst)
+                    + (f" (tol {SEQ_FP32_TOL})" if tag == "fp32"
+                       else " bf16 ulps of the state (tol 2)"))
+                key = "fp32" if tag == "fp32" else "bf16_ulps"
+                errs[key] = max(errs[key], *worst)
+    return errs
+
+
 def phase_kernels():
+    """The per-step kernel against lstm_cell_plain at the served widths, a
+    ragged one and the wide LM's (1, WIDE_H); returns the errors by (N, H)
+    and dtype."""
     from mxnet_tpu_torch.ops.cuda.lstm import lstm_cell_fused, lstm_cell_plain
-    errs = {"fp32": 0.0, "bf16": 0.0}
-    for n, hdim in ((1, 1024), (16, 1024), (3, 200)):
+    errs = {}
+    for n, hdim in ((1, 1024), (16, 1024), (3, 200), (1, WIDE_H)):
         for tag, dtype, tol in (("fp32", torch.float32, FP32_TOL),
                                 ("bf16", torch.bfloat16, BF16_TOL)):
             args = cell_inputs(n, hdim, dtype, seed=n * 1000 + hdim)
@@ -204,7 +281,7 @@ def phase_kernels():
             if not err <= tol:
                 raise RuntimeError(f"lstm_cell {tag} N={n} H={hdim} disagrees "
                                    f"with its plain version: {err} > {tol}")
-            errs[tag] = max(errs[tag], err)
+            errs.setdefault((n, hdim), {})[tag] = err
     return errs
 
 
@@ -236,7 +313,8 @@ def check_probs(out, rows):
 
 def phase_slice():
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch.ops.cuda.lstm import lstm_cell_fused
+    from mxnet_tpu_torch.ops.cuda.lstm import (lstm_cell_fused,
+                                               lstm_sequence_fused)
     from mxnet_tpu_torch.serving import PredictorBackend
 
     net = build_lm(mx, V, H, LAYERS, T)
@@ -255,30 +333,36 @@ def phase_slice():
                 for rows in BUCKETS * 4]
 
     torch.cuda.reset_peak_memory_stats()
-    lstm_cell_fused.launches = 0  # the main path's run starts here
+    # the main path's run starts here
+    lstm_sequence_fused.launches = lstm_cell_fused.launches = 0
     backend = PredictorBackend(symbol_json, param_bytes, row_shape=(T,),
                                dev_type=2)
     backend.load()
     per_forward = []
+
+    def counts():
+        return lstm_sequence_fused.launches, lstm_cell_fused.launches
+
     for rows in BUCKETS:
-        before = lstm_cell_fused.launches
+        before = counts()
         backend.bind_bucket(rows)  # binds and runs one forward
-        per_forward.append(lstm_cell_fused.launches - before)
+        per_forward.append(tuple(a - b for a, b in zip(counts(), before)))
     answers = []
     for batch in requests:
-        before = lstm_cell_fused.launches
+        before = counts()
         (out,) = backend.infer({"data": batch})
-        per_forward.append(lstm_cell_fused.launches - before)
+        per_forward.append(tuple(a - b for a, b in zip(counts(), before)))
         check_probs(out, batch.shape[0])
         answers.append(out)
-    launches = lstm_cell_fused.launches  # the main path's run ends here
+    launches, cell_launches = counts()  # the main path's run ends here
     peak = torch.cuda.max_memory_allocated()
-    log(f"[slice] {len(requests)} requests answered; lstm_cell launches per "
-        f"forward {per_forward}; total {launches}; peak device memory "
-        f"{peak} bytes")
-    if any(n != LAYERS * T for n in per_forward):
-        raise RuntimeError(f"lstm_cell launched {per_forward} times per "
-                           f"forward, expected {LAYERS * T}")
+    log(f"[slice] {len(requests)} requests answered; (lstm_sequence, "
+        f"lstm_cell) launches per forward {per_forward}; total "
+        f"{(launches, cell_launches)}; peak device memory {peak} bytes")
+    if any(n != (LAYERS, 0) for n in per_forward):
+        raise RuntimeError(f"(lstm_sequence, lstm_cell) launched "
+                           f"{per_forward} times per forward, expected "
+                           f"{(LAYERS, 0)}")
 
     # the same bytes on the CPU's plain path, for the first 4 rows of a
     # 16-row request (rows of a batch are independent)
@@ -293,6 +377,59 @@ def phase_slice():
     if not prob_err <= PROB_TOL:
         raise RuntimeError(f"card and CPU disagree: {prob_err} > {PROB_TOL}")
     return backend, requests, launches, peak, prob_err
+
+
+def phase_wide_lstm():
+    """A one-layer LSTM LM at H=WIDE_H, whose weights do not fit in the
+    sequence kernel's shared memory, answers 2 one-row requests: each
+    forward launches the per-step kernel T times and the sequence kernel
+    never. The first answer is held to the port's CPU path. Returns the
+    per-step kernel's launches in this run and that error."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda.lstm import (lstm_cell_fused,
+                                               lstm_sequence_fused,
+                                               sequence_fits)
+    from mxnet_tpu_torch.serving import PredictorBackend
+
+    if sequence_fits(1, WIDE_H, torch.device("cuda", 0)):
+        raise RuntimeError(f"H={WIDE_H} fits the sequence kernel on this card")
+    net = build_lm(mx, V, WIDE_H, 1, T)
+    arg_shapes, _, _ = net.infer_shape(data=(1, T))
+    rng = np.random.RandomState(2)
+    params = {n: rng.uniform(-0.05, 0.05, s).astype(np.float32)
+              for n, s in zip(net.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    symbol_json = net.tojson()
+    param_bytes = mx.convert.params_to_bytes(params, {})
+    backend = PredictorBackend(symbol_json, param_bytes, row_shape=(T,),
+                               dev_type=2)
+    reqs = np.random.RandomState(3)
+    batches = [reqs.randint(0, V, (1, T)).astype(np.float32)
+               for _ in range(2)]
+    answers = []
+    # this path's run starts here
+    lstm_sequence_fused.launches = lstm_cell_fused.launches = 0
+    backend.load()
+    for batch in batches:
+        (out,) = backend.infer({"data": batch})
+        check_probs(out, 1)
+        answers.append(out)
+    launches = (lstm_sequence_fused.launches, lstm_cell_fused.launches)
+    log(f"[wide] LSTM LM H={WIDE_H}, 1 layer: 2 requests of 1 row; "
+        f"(lstm_sequence, lstm_cell) launches {launches}")
+    if launches[0] != 0 or launches[1] == 0 or launches[1] % T:
+        raise RuntimeError(f"wide LSTM launched {launches}, expected (0, a "
+                           f"multiple of {T})")
+    cpu = PredictorBackend(symbol_json, param_bytes, row_shape=(T,),
+                           dev_type=1)
+    (cpu_out,) = cpu.infer({"data": batches[0]})
+    prob_err = float(np.abs(answers[0] - cpu_out).max())
+    log(f"[wide] card against CPU, 1 row: max|d| prob {prob_err:.3e} "
+        f"(tol {PROB_TOL}); largest prob {float(cpu_out.max()):.3e}")
+    if not prob_err <= PROB_TOL:
+        raise RuntimeError(f"wide LM: card and CPU disagree: {prob_err} > "
+                           f"{PROB_TOL}")
+    return launches[1], prob_err
 
 
 def time_on_stream(fn, iters=50):
@@ -328,17 +465,17 @@ def cell_bound_ms(n, hdim, elem_bytes):
 def phase_timing(backend, requests):
     from mxnet_tpu_torch.ops.cuda.lstm import lstm_cell_fused, lstm_cell_plain
     cells = {}
-    for n in BUCKETS:
-        xproj, h, c, w = cell_inputs(n, H, torch.float32, seed=7 + n)
+    for n, hdim in [(n, H) for n in BUCKETS] + [(1, WIDE_H)]:
+        xproj, h, c, w = cell_inputs(n, hdim, torch.float32, seed=7 + n)
         row = {
             "kernel_ms": time_on_stream(lambda: lstm_cell_fused(xproj, h, c, w)),
             "plain_ms": time_on_stream(lambda: lstm_cell_plain(xproj, h, c, w)),
             "library_ms": time_on_stream(lambda: torch.addmm(xproj, h, w.t())),
         }
-        row["bound_ms"], row["bound_by"] = cell_bound_ms(n, H, 4)
+        row["bound_ms"], row["bound_by"] = cell_bound_ms(n, hdim, 4)
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
-        cells[n] = row
-        log(f"[timing] lstm_cell N={n} H={H} fp32: kernel "
+        cells[(n, hdim)] = row
+        log(f"[timing] lstm_cell N={n} H={hdim} fp32: kernel "
             f"{row['kernel_ms'] * 1e3:.3f} us, plain "
             f"{row['plain_ms'] * 1e3:.3f} us, addmm (library) "
             f"{row['library_ms'] * 1e3:.3f} us, bound "
@@ -361,6 +498,93 @@ def phase_timing(backend, requests):
             f"{ms:.3f} ms of {forward[rows]['runs_ms']}, "
             f"{forward[rows]['tokens_per_s']:.1f} tokens/s")
     return cells, forward
+
+
+def sequence_bound_ms(steps, n, hdim, elem_bytes):
+    """Least time on an H100 for one LSTM layer over T steps: each input
+    (xproj, h0, c0, w_h2h) read once and each output (out, hT, cT) written
+    once from device memory, against the products' 2*T*N*4H*H operations
+    at the fp32 peak."""
+    nbytes = elem_bytes * (steps * n * 4 * hdim + 2 * n * hdim
+                           + 4 * hdim * hdim + steps * n * hdim + 2 * n * hdim)
+    flops = 2 * steps * n * 4 * hdim * hdim
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def phase_sequence_timing():
+    """One LSTM layer (T=128, H=1024, fp32) at each bucket: the sequence
+    kernel, the per-step route (T launches of the step kernel), the plain
+    loop, T grid barriers with no step body, and cuDNN's LSTM (which also
+    computes the input projection) beside the port's projection plus the
+    kernel. The port never calls cuDNN's LSTM."""
+    from mxnet_tpu_torch.ops.cuda.lstm import (lstm_cell_fused,
+                                               lstm_sequence_fused,
+                                               lstm_sequence_plain,
+                                               sequence_barriers)
+    out = {}
+    for n in BUCKETS:
+        xproj, h0, c0, w = sequence_inputs(T, n, H, torch.float32, seed=11 + n)
+
+        def per_step():
+            return lstm_sequence_plain(xproj, h0, c0, w, cell=lstm_cell_fused)
+
+        rng = np.random.RandomState(13 + n)
+        x_in = torch.tensor(rng.normal(0, 1, (T, n, H)), dtype=torch.float32,
+                            device="cuda")
+        w_i2h = torch.tensor(rng.uniform(-0.05, 0.05, (4 * H, H)),
+                             dtype=torch.float32, device="cuda")
+        bias = torch.tensor(rng.uniform(-0.05, 0.05, (4 * H,)),
+                            dtype=torch.float32, device="cuda")
+        cudnn = torch.nn.LSTM(H, H, 1).cuda()
+        with torch.no_grad():
+            cudnn.weight_ih_l0.copy_(w_i2h)
+            cudnn.weight_hh_l0.copy_(w)
+            cudnn.bias_ih_l0.copy_(bias)
+            cudnn.bias_hh_l0.zero_()
+
+        def port_with_projection():
+            xp = torch.matmul(x_in.reshape(T * n, H), w_i2h.t()) + bias
+            return lstm_sequence_fused(xp.reshape(T, n, 4 * H), h0, c0, w)
+
+        with torch.no_grad():
+            mine = port_with_projection()
+            theirs = cudnn(x_in, (h0[None], c0[None]))
+            torch.cuda.synchronize()
+            yard_err = (mine[0] - theirs[0]).abs().max().item()
+            row = {
+                "kernel_ms": time_on_stream(
+                    lambda: lstm_sequence_fused(xproj, h0, c0, w), iters=20),
+                "per_step_ms": time_on_stream(per_step, iters=5),
+                "plain_ms": time_on_stream(
+                    lambda: lstm_sequence_plain(xproj, h0, c0, w), iters=2),
+                "barrier_floor_ms": time_on_stream(
+                    lambda: sequence_barriers(T, n, H, h0.device), iters=20),
+                "cudnn_lstm_ms": time_on_stream(
+                    lambda: cudnn(x_in, (h0[None], c0[None])), iters=20),
+                "projection_plus_kernel_ms": time_on_stream(
+                    port_with_projection, iters=20),
+                "port_vs_cudnn_max_abs": yard_err,
+            }
+        row["bound_ms"], row["bound_by"] = sequence_bound_ms(T, n, H, 4)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        out[n] = row
+        log(f"[timing] one LSTM layer T={T} N={n} H={H} fp32: sequence kernel "
+            f"{row['kernel_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} (share "
+            f"{row['share_of_bound']:.3f}); {T} per-step launches "
+            f"{row['per_step_ms'] * 1e3:.1f} us; plain "
+            f"{row['plain_ms'] * 1e3:.1f} us; {T} empty grid barriers "
+            f"{row['barrier_floor_ms'] * 1e3:.1f} us; cuDNN LSTM with its "
+            f"projection {row['cudnn_lstm_ms'] * 1e3:.1f} us against the "
+            f"port's projection plus kernel "
+            f"{row['projection_plus_kernel_ms'] * 1e3:.1f} us (outputs agree "
+            f"to {yard_err:.2e})")
+        if not yard_err <= SEQ_FP32_TOL:
+            raise RuntimeError(f"the port's LSTM layer and cuDNN's disagree: "
+                               f"{yard_err}")
+    return out
 
 
 def phase_profile(backend, requests):
@@ -1257,11 +1481,14 @@ def main():
     phase_device()
     wgmma_build = phase_build()
     errs = phase_kernels()
+    seq_errs = phase_sequence_kernel()
     att_errs = phase_attention_kernels()
     backend, requests, launches, peak, prob_err = phase_slice()
+    wide_launches, wide_prob_err = phase_wide_lstm()
     tf = phase_transformer()
     masked_launches = phase_masked_path()
     cells, forward = phase_timing(backend, requests)
+    seq = phase_sequence_timing()
     att = phase_attention_timing()
     tf_timing = phase_transformer_timing(tf)
     profiled = phase_profile(backend, requests)
@@ -1269,33 +1496,60 @@ def main():
     rtc_k = phase_rtc_kernels()
     imp = phase_imperative()
     main_n = max(BUCKETS)
-    cell = cells[main_n]
-    lstm = {
-        "name": "lstm_cell",
+    layer = seq[main_n]
+    lstm_sequence = {
+        "name": "lstm_sequence",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
-        "replaces": "mxnet_tpu/ops/pallas/lstm.py:43",
+        "replaces": "mxnet_tpu/ops/rnn_ops.py:139",
+        "replaces_scan_over": "mxnet_tpu/ops/pallas/lstm.py:57",
         "launches": launches,
-        "max_abs_err": errs["fp32"],
-        "ms": cell["kernel_ms"],
-        "plain_ms": cell["plain_ms"],
-        "bound_ms": cell["bound_ms"],
-        "bound_by": cell["bound_by"],
-        "library_ms": cell["library_ms"],
-        "shape": f"N={main_n} H={H} fp32",
-        "max_err_fp32": errs["fp32"],
-        "max_err_bf16": errs["bf16"],
-        "kernel_us": cell["kernel_ms"] * 1e3,
-        "plain_us": cell["plain_ms"] * 1e3,
-        "library_us": cell["library_ms"] * 1e3,
-        "bound_us": cell["bound_ms"] * 1e3,
-        "by_rows": {str(n): c for n, c in cells.items()},
+        "max_abs_err": seq_errs["fp32"],
+        "ms": layer["kernel_ms"],
+        "plain_ms": layer["plain_ms"],
+        "bound_ms": layer["bound_ms"],
+        "bound_by": layer["bound_by"],
+        "library_ms": layer["cudnn_lstm_ms"],
+        "library": "torch.nn.LSTM (cuDNN, TF32 off), input projection "
+                   "included; the port's projection plus the kernel is "
+                   "projection_plus_kernel_ms",
+        "shape": f"one layer T={T} N={main_n} H={H} fp32",
+        "max_err_fp32": seq_errs["fp32"],
+        "max_err_bf16_ulps": seq_errs["bf16_ulps"],
+        "per_step_route_ms": layer["per_step_ms"],
+        "barrier_floor_ms": layer["barrier_floor_ms"],
+        "projection_plus_kernel_ms": layer["projection_plus_kernel_ms"],
+        "share_of_bound": layer["share_of_bound"],
+        "by_rows": {str(n): r for n, r in seq.items()},
         "predictor": {str(n): f for n, f in forward.items()},
         "prob_err_card_vs_cpu": prob_err,
         "peak_device_bytes": peak,
         "profile": profiled,
     }
-    records = [lstm]
+    # the per-step kernel's numbers at its path's shape, the wide LM's
+    cell = cells[(1, WIDE_H)]
+    lstm = {
+        "name": "lstm_cell",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+        "replaces": "mxnet_tpu/ops/pallas/lstm.py:43",
+        "launches": wide_launches,
+        "launches_path": f"the one-layer LSTM LM at H={WIDE_H} (phase 4); "
+                         "0 on the 2x1024 LM's path",
+        "max_abs_err": errs[(1, WIDE_H)]["fp32"],
+        "ms": cell["kernel_ms"],
+        "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"],
+        "bound_by": cell["bound_by"],
+        "library_ms": cell["library_ms"],
+        "shape": f"N=1 H={WIDE_H} fp32",
+        "max_err_bf16": errs[(1, WIDE_H)]["bf16"],
+        "max_err_by_shape": {f"N={n} H={hdim}": e
+                             for (n, hdim), e in errs.items()},
+        "prob_err_card_vs_cpu": wide_prob_err,
+        "by_shape": {f"N={n} H={hdim}": c for (n, hdim), c in cells.items()},
+    }
+    records = [lstm_sequence, lstm]
     for name, line, n in (("flash_attention", 32, tf["launches"]),
                           ("flash_attention_masked", 277, masked_launches)):
         t = att[name]

@@ -56,7 +56,7 @@ __all__ = ["Program", "analyze", "emit", "layout", "promote", "QUEUE_ENTRY",
            "vector_width", "vector_kernel_name", "vector_aligned"]
 
 # where the rest of the body language is queued
-QUEUE_ENTRY = "ROADMAP.md:406"
+QUEUE_ENTRY = "ROADMAP.md:431"
 
 DTYPES = ("float32", "bfloat16", "float16", "int32")
 FLOATS = ("float32", "bfloat16", "float16")

@@ -2,10 +2,11 @@
 
 Counterpart of ``mxnet_tpu/ops/rnn_ops.py``. The input projection of the
 whole sequence is one ``torch.matmul`` outside the time loop, as the JAX
-package leaves it to XLA; a Python loop over the time steps takes the place
-of ``lax.scan``. Each LSTM step is one call of the fused cell
-(``ops/cuda/lstm.py``), which launches the Hopper kernel on CUDA tensors.
-GRU and the plain RNN modes are plain torch.
+package leaves it to XLA. The LSTM's time loop (``lax.scan`` over the fused
+cell there) is one call of ``lstm_sequence_fused`` (``ops/cuda/lstm.py``) a
+layer and direction, which on CUDA tensors launches one persistent Hopper
+kernel for all T steps. GRU and the plain RNN modes are plain torch, a
+Python loop over the steps taking the place of ``lax.scan``.
 
 Weight packing follows the cuDNN convention bit for bit: all layer weights
 first (per layer, per direction: i2h (G*H, in) then h2h (G*H, H), row-major),
@@ -18,7 +19,7 @@ import torch
 
 from ..base import AttrSpec, MXNetError
 from ..dtypes import torch_dtype
-from .cuda.lstm import lstm_cell_fused
+from .cuda.lstm import lstm_sequence_fused
 from .registry import register
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
@@ -82,13 +83,9 @@ def _unpack(params, num_layers, input_size, state_size, mode, bidirectional):
 
 
 def _cell_step(mode, H):
-    """step(carry, xproj, w_h2h, b_h2h) -> new carry for one time step,
-    given the precomputed x-projection; carry is (h,) or (h, c) for lstm."""
-    if mode == "lstm":
-        def step(carry, xproj, w_h2h, b_h2h):
-            h, c = carry
-            return lstm_cell_fused(xproj, h, c, w_h2h)
-        return step
+    """step(carry, xproj, w_h2h, b_h2h) -> new carry for one time step of
+    GRU or a plain RNN, given the precomputed x-projection; carry is
+    (h,)."""
     if mode == "gru":
         def step(carry, xproj, w_h2h, b_h2h):
             (h,) = carry
@@ -115,17 +112,17 @@ def _run_direction(x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h, mode, H,
     bias = b_i2h if mode == "gru" else b_i2h + b_h2h
     xproj = torch.matmul(x.reshape(T * N, -1), w_i2h.t()) + bias
     xproj = xproj.reshape(T, N, -1)
-    # the kernel takes contiguous tensors of one dtype
-    w_h2h = w_h2h.contiguous()
+    if mode == "lstm":
+        # the kernel takes contiguous tensors of one dtype
+        return lstm_sequence_fused(xproj, h0.contiguous(), c0.contiguous(),
+                                   w_h2h.contiguous(), reverse=reverse)
     step = _cell_step(mode, H)
-    carry = (h0, c0) if mode == "lstm" else (h0,)
+    carry = (h0,)
     outs = [None] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         carry = step(carry, xproj[t], w_h2h, b_h2h)
         outs[t] = carry[0]
-    out = torch.stack(outs)
-    cT = carry[1] if mode == "lstm" else None
-    return out, carry[0], cT
+    return torch.stack(outs), carry[0], None
 
 
 def _rnn_impl(data, parameters, state, state_cell, state_size, num_layers,
