@@ -16,9 +16,10 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
    version at its path's shapes and ragged ones, fp32 and bf16; the LSTM
    sequence kernel over T=128 steps at N=1 and 16 (H=1024) and T=7, N=3,
-   H=200, forward and reverse; the dense bf16 attention cases (D = 64 and
-   128, ragged, Sq < Sk, the transformer's (B, S, H, D) views) through the
-   wgmma/TMA variant, by its launch counter;
+   H=200, forward and reverse; the dense and masked bf16 attention cases
+   (D = 64 and 128, ragged, Sq < Sk, the transformer's (B, S, H, D) views,
+   lengths, packed segments) through the wgmma/TMA variant, by its launch
+   counter;
 4. LSTM slice: the 2x1024 LSTM language model (V=10000, T=128, random
    weights from a seed) behind ``PredictorBackend(dev_type=2)`` answers 8
    requests of 1 and 16 rows, each forward one sequence-kernel launch a
@@ -33,7 +34,8 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    fp32 and against an fp32 forward on the card; each forward launches
    the wgmma/TMA attention variant 4 times;
 6. masked attention: packed and length-masked batches through the public
-   ``flash_attention(lengths=..., segment_ids=...)`` entry point;
+   ``flash_attention(lengths=..., segment_ids=...)`` entry point, both on
+   the wgmma/TMA variant;
 7. timing: each kernel, its plain version and the nearest PyTorch library
    call with CUDA events; one LSTM layer (T=128, H=1024, fp32, N=1 and 16)
    through the sequence kernel, through 128 per-step launches, through its
@@ -41,7 +43,9 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    input projection plus the kernel), and T grid barriers with no step
    body (the kernel's own and cooperative groups' grid sync); B2's wgmma/TMA variant, its earlier mma.sync variant and
    ``scaled_dot_product_attention`` in turns, each with TFLOP/s and share
-   of bound; Predictor and transformer forward times; peak memory;
+   of bound, and the same for B3 with lengths and with packed segments
+   (SDPA given the mask as a bool tensor); Predictor and transformer
+   forward times; peak memory;
 8. profile: device time by kernel over one forward per bucket of each
    model, and the device's idle share of it;
 9. rtc kernels: Rtc bodies compiled by NVRTC (``csrc/rtc_runtime.cu``,
@@ -630,8 +634,9 @@ def attention_cases():
     layout) held against the plain versions: the transformer's shapes at
     both buckets, ragged ones, the transformer's (B, S, H, D) view layout,
     unaligned views (the CUDA-core variant in bf16), and the masked
-    variants at the transformer's largest bucket. The dense bf16 cases at
-    D = 64 and 128 with aligned views run the wgmma/TMA variant."""
+    variants at the transformer's largest bucket. The dense and masked
+    bf16 cases at D = 64 and 128 with aligned views run the wgmma/TMA
+    variant."""
     b, h, s, d = ATT_SHAPE
     dense = [(f"dense causal={c}", shape, c, None, False, 0, "bhsd")
              for shape in ((b, h, s, s, d), (1, h, s, s, d))
@@ -657,6 +662,10 @@ def attention_cases():
                "bhsd"),
               ("masked causal+lengths", (b, h, s, s, d), True, ATT_LENGTHS,
                False, 0, "bhsd"),
+              ("masked causal segments", (b, h, s, s, d), True, None, True,
+               0, "bhsd"),
+              ("masked D=128 causal lengths views", (2, 4, 1000, 1000, 128),
+               True, [777, 0], False, 0, "bshd"),
               ("masked unaligned segments", (2, 4, 300, 300, 64), True, None,
                True, 1, "bhsd")]
     return dense + ragged + masked
@@ -686,10 +695,10 @@ def phase_attention_kernels():
             out = flash_attention(q, k, v, causal=causal, lengths=lens,
                                   segment_ids=seg)
             torch.cuda.synchronize()
-            # the dense bf16 core at D = 64 or 128 over aligned views is
-            # the wgmma/TMA variant's; everything else keeps its route
-            wgmma = (not masked and tag == "bf16" and d in (64, 128)
-                     and offset == 0)
+            # the dense and the masked bf16 core at D = 64 or 128 over
+            # aligned views is the wgmma/TMA variant's; everything else
+            # keeps its route
+            wgmma = tag == "bf16" and d in (64, 128) and offset == 0
             after = (flash_attention.launches,
                      flash_attention.masked_launches,
                      flash_attention.wgmma_launches)
@@ -724,8 +733,8 @@ def phase_attention_kernels():
                 log(f"[kernels]   {int(dead.all(-1).sum())} fully masked "
                     "rows, exact 0")
             errs[name][tag] = max(errs[name][tag], err)
-    log(f"[kernels] flash_attention: {wgmma_cases} dense bf16 cases through "
-        "the wgmma/TMA variant")
+    log(f"[kernels] flash_attention: {wgmma_cases} dense and masked bf16 "
+        "cases through the wgmma/TMA variant")
     return errs
 
 
@@ -856,11 +865,13 @@ def phase_masked_path():
             and bool((ragged[3] == 0).all())):
         raise RuntimeError("masked rows are not exact 0")
     log(f"[masked] packed and length-masked batches {ATT_SHAPE} bf16: "
-        f"{launches} masked launches, {flash_attention.launches} dense")
+        f"{launches} masked launches ({flash_attention.wgmma_launches} on "
+        f"the wgmma/TMA variant), {flash_attention.launches} dense")
     if (launches != 2 or flash_attention.launches != 0
-            or flash_attention.wgmma_launches != 0):
-        raise RuntimeError("the masked path did not run the masked kernel")
-    return launches
+            or flash_attention.wgmma_launches != 2):
+        raise RuntimeError("the masked path did not run the masked core on "
+                           "the wgmma/TMA variant")
+    return launches, flash_attention.wgmma_launches
 
 
 def attention_bound_ms(live_pairs, b, h, sq, sk, d, elem_bytes):
@@ -874,20 +885,27 @@ def attention_bound_ms(live_pairs, b, h, sq, sk, d, elem_bytes):
                                          else "operations")
 
 
-def dense_variants_timing(q, k, v, live):
-    """B2 at the transformer's shape: the wgmma/TMA variant (the main
-    path's), the earlier mma.sync variant (forced through the library's
-    internal route) and scaled_dot_product_attention, in turns (wgmma,
-    mma.sync, library, library, mma.sync, wgmma); each one's mean of its
-    two turns, its TFLOP/s on the live pairs and its share of the bound."""
+def variants_timing(label, q, k, v, live, lengths=None, seg=None):
+    """B2 (no mask) or B3 (``lengths`` or ``seg``) at the transformer's
+    shape, causal: the wgmma/TMA variant (the main path's), the earlier
+    mma.sync variant (forced through the library's internal route) and
+    scaled_dot_product_attention (given the mask as a bool tensor where
+    there is one), in turns (wgmma, mma.sync, library, library, mma.sync,
+    wgmma); each one's mean of its two turns, its TFLOP/s on the live
+    pairs and its share of the bound."""
     import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.cuda.attention import (_dense_mma_sync,
+    from mxnet_tpu_torch.ops.cuda.attention import (_combined_mask,
+                                                    _mma_sync,
                                                     flash_attention)
     b, h, s, d = q.shape
-    fns = {"wgmma": lambda: flash_attention(q, k, v, causal=True),
-           "mma_sync": lambda: _dense_mma_sync(q, k, v, causal=True),
+    mask = (None if lengths is None and seg is None
+            else _combined_mask(s, s, True, lengths, seg, q.device))
+    fns = {"wgmma": lambda: flash_attention(q, k, v, causal=True,
+                                            lengths=lengths, segment_ids=seg),
+           "mma_sync": lambda: _mma_sync(q, k, v, causal=True,
+                                         lengths=lengths, segment_ids=seg),
            "library": lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True)}
+               q, k, v, attn_mask=mask, is_causal=mask is None)}
     runs = {name: [] for name in fns}
     for name in ("wgmma", "mma_sync", "library", "library", "mma_sync",
                  "wgmma"):
@@ -899,7 +917,7 @@ def dense_variants_timing(q, k, v, live):
         out[name] = {"ms": mean, "runs_ms": ms,
                      "tflops": 4 * d * live / mean / 1e9,
                      "share_of_bound": bound_ms / mean}
-        log(f"[timing] B2 {name}: {mean * 1e3:.3f} us (turns "
+        log(f"[timing] {label} {name}: {mean * 1e3:.3f} us (turns "
             f"{[round(t * 1e3, 3) for t in ms]}), "
             f"{out[name]['tflops']:.2f} TFLOP/s, share of bound "
             f"{out[name]['share_of_bound']:.4f}")
@@ -915,8 +933,10 @@ def phase_attention_timing():
     b, h, s, d = ATT_SHAPE
     q, k, v = attention_inputs(b, h, s, s, d, torch.bfloat16, seed=7)
     lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device="cuda")
+    seg = packed_segments(b, s)
     mask = _combined_mask(s, s, True, lens, None, q.device)  # (B,1,S,S)
-    variants = dense_variants_timing(q, k, v, b * h * s * (s + 1) // 2)
+    packed_mask = _combined_mask(s, s, True, None, seg, q.device)
+    variants = variants_timing("B2", q, k, v, b * h * s * (s + 1) // 2)
     rows = {}
     for name, fn, plain, library, live in (
             ("flash_attention",
@@ -928,7 +948,13 @@ def phase_attention_timing():
              lambda: flash_attention(q, k, v, causal=True, lengths=lens),
              lambda: masked_attention_plain(q, k, v, lens, causal=True),
              lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-             h * int(mask.sum().item()))):
+             h * int(mask.sum().item())),
+            ("flash_attention_masked packed",
+             lambda: flash_attention(q, k, v, causal=True, segment_ids=seg),
+             lambda: masked_attention_plain(q, k, v, None, seg, causal=True),
+             lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    attn_mask=packed_mask),
+             h * int(packed_mask.sum().item()))):
         row = {"kernel_ms": time_on_stream(fn, iters=20),
                "plain_ms": time_on_stream(plain, iters=10),
                "library_ms": time_on_stream(library, iters=20),
@@ -941,10 +967,21 @@ def phase_attention_timing():
         log(f"[timing] {name} {ATT_SHAPE} bf16 causal: kernel "
             f"{row['kernel_ms'] * 1e3:.3f} us ({row['tflops']:.2f} TFLOP/s), "
             f"plain {row['plain_ms'] * 1e3:.3f} us, scaled_dot_product_"
-            f"attention (library) {row['library_ms'] * 1e3:.3f} us, bound "
-            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']}, share of "
-            f"bound {row['share_of_bound']:.4f}")
+            f"attention (library) {row['library_ms'] * 1e3:.3f} us, live "
+            f"pairs {live}, bound {row['bound_ms'] * 1e3:.3f} us by "
+            f"{row['bound_by']}, share of bound {row['share_of_bound']:.4f}")
     rows["flash_attention"]["variants"] = variants
+    masked = rows["flash_attention_masked"]
+    masked["variants"] = variants_timing(
+        f"B3 lengths={ATT_LENGTHS}", q, k, v, masked["live_pairs"],
+        lengths=lens)
+    masked["packed"] = rows.pop("flash_attention_masked packed")
+    masked["packed"]["variants"] = variants_timing(
+        "B3 packed", q, k, v, masked["packed"]["live_pairs"], seg=seg)
+    # what the segment ranges' pre-pass costs beside the kernel
+    masked["packed"]["profile"] = profile_device(
+        "one packed B3 call", lambda: flash_attention(q, k, v, causal=True,
+                                                      segment_ids=seg))
     return rows
 
 
@@ -1486,7 +1523,7 @@ def main():
     backend, requests, launches, peak, prob_err = phase_slice()
     wide_launches, wide_prob_err = phase_wide_lstm()
     tf = phase_transformer()
-    masked_launches = phase_masked_path()
+    masked_launches, masked_wgmma = phase_masked_path()
     cells, forward = phase_timing(backend, requests)
     seq = phase_sequence_timing()
     att = phase_attention_timing()
@@ -1573,6 +1610,10 @@ def main():
             "tflops": t["tflops"],
             "live_pairs": t["live_pairs"],
         }
+        if name == "flash_attention_masked":
+            record["wgmma_launches"] = masked_wgmma
+            record["variants"] = t["variants"]
+            record["packed"] = t["packed"]
         if name == "flash_attention":
             record["wgmma_launches"] = tf["wgmma_launches"]
             record["variants"] = t["variants"]

@@ -27,19 +27,24 @@
 // views the transformer makes are read in place:
 //
 // - the Hopper variant (flash_fwd_wgmma_kernel), taken for the dense core
-//   (B2: no lengths, no segment ids) in bf16 with D = 64 or 128 when TMA
-//   can describe q, k and v: one block of a TMA producer warpgroup and three
-//   wgmma consumer warpgroups per (batch*head, 192 query rows), K/V tiles
-//   (128 keys at D = 64, 64 at D = 128) in a ring of 3 stages guarded by
-//   mbarriers, S = Q K^T and O += P V as wgmma with P fed from registers.
-//   Its design and what each part answers are set out above the kernel;
-// - the mma.sync tensor-core variant (flash_fwd_mma_kernel), kept for the
-//   masked core (B3) and for dense views TMA cannot take, bf16 with D = 64
+//   (B2) and the masked core (B3: key lengths, segment ids) in bf16 with
+//   D = 64 or 128 when TMA can describe q, k and v: one block of a TMA
+//   producer warpgroup and three wgmma consumer warpgroups per
+//   (batch*head, 192 query rows), K/V tiles (128 keys at D = 64, 64 at
+//   D = 128) in a ring of 3 stages guarded by mbarriers, S = Q K^T and
+//   O += P V as wgmma with P fed from registers; tiles past a batch
+//   element's length, and tiles whose segment ids cannot meet the query
+//   tile's, are neither loaded nor computed. Its design and what each part
+//   answers are set out above the kernel;
+// - the mma.sync tensor-core variant (flash_fwd_mma_kernel), kept for
+//   views TMA cannot take (and, through route 1, for timing beside the
+//   Hopper one), bf16 with D = 64
 //   or 128 and 16-byte aligned rows: one block of 4 warps of 16 query rows
 //   per (batch*head, 64 rows), mma.sync m16n8k16 (the Ampere instruction,
 //   below the wgmma rate on Hopper), K/V double buffered by cp.async from
 //   the computing threads, read by ldmatrix; the tensor cores idle while
-//   the softmax runs. It measured 0.10 of the bound at the shape above;
+//   the softmax runs. It measured 0.10 of the bound at the shape above
+//   with lengths (PERF.md);
 // - the CUDA-core variant (flash_fwd_kernel) for fp32, for other D up to
 //   128 and for unaligned views: 8 warps of 8 query rows, q (times scale),
 //   K and V staged as fp32, a lane scoring 2 keys with fp32 FMAs, p through
@@ -53,6 +58,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -623,8 +629,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // ---------------------------------------------------------------------------
 // The Hopper variant (flash_fwd_wgmma_kernel): bf16, D = 64 or 128, the
-// dense core (no lengths, no segment ids), q, k and v views that TMA can
-// describe (16-byte aligned bases, strides of whole 16-byte units).
+// dense and the masked core, q, k and v views that TMA can describe
+// (16-byte aligned bases, strides of whole 16-byte units).
 //
 // One block of 4 warpgroups per (batch*head, tile of 192 query rows):
 // - warpgroup 0 is the producer (its registers handed to the consumers by
@@ -653,6 +659,29 @@ __global__ void __launch_bounds__(kMmaThreads)
 // zero rows) are masked by the key < Sk predicate; rows past Sq are
 // computed on zeros and not stored.
 //
+// The masked core (B3) runs on the same pipeline:
+// - key lengths are a runtime cut, read once a block: producer and
+//   consumers stop at ceil(len / BK) tiles as at the diagonal, and keys
+//   at or past len are masked. A block with no tile left (len = 0) loads
+//   nothing, not even its Q tile, waits on no barrier, and writes 0;
+// - segment ids (HAS_SEG) skip whole tiles: seg_ranges_kernel first sums
+//   up the ids of every 64 positions of each row (smallest and largest
+//   positive id, and the one id that fills the chunk), on the device. The
+//   producer loads a K tile only if its id range meets the block's Q
+//   range; the consumers walk the same sequence of loads (one predicate,
+//   so that the stage ring stays in step) and compute, of those, the ones
+//   from the first to the last whose range meets their own 64 rows'. The
+//   range test only drops tiles in which no pair can match, so the result
+//   is the same for ids in any order. The producer stages each K tile's
+//   ids by a bulk copy into the stage's shared memory (512 bytes at
+//   BK = 128), where a masked tile's softmax reads them; each lane keeps
+//   its two rows' ids in registers. A tile takes the unmasked softmax only
+//   if its keys and the consumer's 64 rows all hold one id;
+// - under segments a row may see no live key for some tiles (a pad row, a
+//   row whose first tiles hold another segment), so m can still be kNeg
+//   after a tile and exp2(kNeg - kNeg) would be 1: p is zeroed there, as
+//   the mask says, and a row that never sees a key writes exact 0.
+//
 // What holds it back (PERF.md): at D = 64 a score costs the softmax about
 // as much issue and special-function time (one exp2 per score) as the
 // tensor cores spend on its 4 D products, and the consumers overlap the
@@ -673,17 +702,28 @@ struct WgTile {
   static constexpr int Q_BYTES = PANELS * Q_PANEL;
   static constexpr int KV_BYTES = PANELS * KV_PANEL;  // one of K or V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  // tiles, then 1 + 2 * kStages mbarriers, plus slack to align the tiles
-  // to the 1024 bytes that the 128-byte swizzle repeats over
-  static constexpr size_t SMEM =
-      1024 + Q_BYTES + kStages * STAGE_BYTES + 8 * (1 + 2 * kStages);
+  static constexpr int BAR_BYTES = 64;         // 1 + 2 * kStages mbarriers
+  static constexpr int SEG_BYTES = BK * 4;     // a K tile's segment ids
+  // tiles, then the mbarriers, then each stage's segment ids, plus slack
+  // to align the tiles to the 1024 bytes that the 128-byte swizzle
+  // repeats over
+  static constexpr size_t SMEM = 1024 + Q_BYTES + kStages * STAGE_BYTES +
+                                 BAR_BYTES + kStages * SEG_BYTES;
 };
+
+// Segment ids are summed up in chunks of this many positions (a Q tile of
+// a consumer, half or all of a K tile).
+constexpr int kSegChunk = 64;
+constexpr int kSegPad = 128;  // the padded id rows' length is a multiple
 
 struct WgParams {
   CUtensorMap tq, tk, tv;  // 4-D maps over q, k and v (see encode_map)
   void* o;
+  const int* lengths;      // (B,) key lengths, or null
+  const int* seg_pad;      // (B, s_pad) segment ids, zeros past S (HAS_SEG)
+  const int4* seg_range;   // (B, s_pad / kSegChunk) of (lo, hi, uni, 0)
   long long o_sb, o_sh, o_ss;
-  int H, Sq, Sk;
+  int H, Sq, Sk, s_pad;
   int q_slots, k_slots, v_slots;  // where S, H and B sit in each map
   float scale_log2;
 };
@@ -737,6 +777,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c[0]), "r"(c[1]),
       "r"(c[2]), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
+// memory at dst, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -869,12 +920,57 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int D, bool CAUSAL>
+// The segment ids of each row summed up in chunks of kSegChunk positions,
+// for the Hopper variant's tile skipping: per (b, chunk) the smallest and
+// the largest positive id (INT_MAX and 0 where it holds none) and the one
+// id that fills the whole chunk (0 where none does: two ids, a pad or a
+// position past S). Also writes the ids into rows of s_pad, zeros past S,
+// so that the producer can bulk-copy a K tile's ids (16-byte aligned, in
+// bounds). One warp per (chunk, b), two positions a lane.
+__global__ void __launch_bounds__(32)
+    seg_ranges_kernel(const int* __restrict__ seg, int S, int s_pad,
+                      int* __restrict__ seg_pad, int4* __restrict__ range) {
+  const int b = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const int lane = threadIdx.x;
+  int lo = INT_MAX, hi = 0, mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int pos = chunk * kSegChunk + lane + 32 * j;
+    const int id = pos < S ? seg[static_cast<size_t>(b) * S + pos] : 0;
+    seg_pad[static_cast<size_t>(b) * s_pad + pos] = id;
+    if (id > 0) {
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+    mn = min(mn, id);
+    mx = max(mx, id);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  if (lane == 0) {
+    range[static_cast<size_t>(b) * (s_pad / kSegChunk) + chunk] =
+        make_int4(lo, hi, mn == mx && mn > 0 ? mn : 0, 0);
+  }
+}
+
+// Whether a query range (lo, hi) and a key range (lo, hi, ...) share a
+// positive id: a necessary condition for any pair of the two to attend.
+__device__ __forceinline__ bool ranges_meet(int2 q, int4 k) {
+  return max(q.x, k.x) <= min(q.y, k.y);
+}
+
+template <int D, bool CAUSAL, bool HAS_SEG>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ WgParams p) {
   using T = WgTile<D>;
   constexpr int BK = T::BK;
   constexpr int NS = BK / 2;  // score accumulator floats of a thread
+  constexpr int CPT = BK / kSegChunk;  // id chunks of a K tile
   using bf16 = __nv_bfloat16;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats over 1024 bytes: tiles start on such a
@@ -882,6 +978,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t kv_s = q_s + T::Q_BYTES;  // stage s: K, then V
   const uint32_t q_full = kv_s + kStages * T::STAGE_BYTES;
+  const uint32_t seg_s = q_full + T::BAR_BYTES;  // stage s's key ids
   const auto full = [&](int s) { return q_full + 8u * (1 + s); };
   const auto empty = [&](int s) { return q_full + 8u * (1 + kStages + s); };
 
@@ -890,12 +987,50 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // the longest causal tiles first, for every head in the first wave
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBlockQ;
   const int shift = p.Sk - p.Sq;  // the causal diagonal: key <= row + shift
+  // keys at or past the batch element's length are masked, and tiles
+  // wholly past it are not loaded
+  const int len =
+      p.lengths != nullptr ? min(max(p.lengths[b], 0), p.Sk) : p.Sk;
   // K/V tiles that rows up to `last` attend to
   const auto tiles_to = [&](int last) {
-    const int keys = CAUSAL ? min(p.Sk, last + shift + 1) : p.Sk;
+    const int keys = CAUSAL ? min(len, last + shift + 1) : len;
     return (keys + BK - 1) / BK;
   };
   const int n_tiles = tiles_to(min(q0 + kWgBlockQ, p.Sq) - 1);
+
+  // Segment tile skipping: (lo, hi) of the positive ids of `count` chunks
+  // of rows from chunk `first` (none past Sq), and (lo, hi, uni) of K tile
+  // kt. A K tile is loaded only if its range meets the block's Q range;
+  // producer and consumers evaluate that one predicate, so that they walk
+  // the same sequence of loads through the stage ring.
+  const int4* ranges = HAS_SEG ? p.seg_range + static_cast<size_t>(b) *
+                                                   (p.s_pad / kSegChunk)
+                               : nullptr;
+  const auto q_range = [&](int first, int count) {
+    int2 r = make_int2(INT_MAX, 0);
+    for (int j = 0; j < count && (first + j) * kSegChunk < p.Sq; ++j) {
+      const int4 x = __ldg(ranges + first + j);
+      r.x = min(r.x, x.x);
+      r.y = max(r.y, x.y);
+    }
+    return r;
+  };
+  const auto k_tile = [&](int kt) {
+    int4 r = __ldg(ranges + kt * CPT);
+#pragma unroll
+    for (int j = 1; j < CPT; ++j) {
+      const int4 x = __ldg(ranges + kt * CPT + j);
+      r.x = min(r.x, x.x);
+      r.y = max(r.y, x.y);
+      r.z = r.z == x.z ? r.z : 0;
+    }
+    return r;
+  };
+  const int2 q_block = HAS_SEG ? q_range(q0 / kSegChunk, kConsumers)
+                               : make_int2(0, 0);
+  const auto loaded = [&](int kt) {
+    return !HAS_SEG || ranges_meet(q_block, k_tile(kt));
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -908,33 +1043,63 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 0) {  // the producer: one thread issues every TMA load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, T::Q_BYTES);
-#pragma unroll
-      for (int pn = 0; pn < T::PANELS; ++pn) {
-        tma_load(q_s + pn * T::Q_PANEL, &p.tq, q_full, p.q_slots, 64 * pn,
-                 q0, h, b);
-      }
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), T::STAGE_BYTES);
-        const uint32_t ks = kv_s + s * T::STAGE_BYTES;
+  if (wg == 0) {  // the producer: one thread issues every load
+    if constexpr (HAS_SEG) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    }
+    // Load i (K/V tile kt) goes to stage i % kStages. The Q tile is
+    // loaded with the first K/V tile: a block that loads none (no key
+    // left by the length cut or the segments) leaves no copy in flight at
+    // its exit.
+    const auto issue = [&](int kt, int i) {
+      if (i == 0) {
+        mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
         for (int pn = 0; pn < T::PANELS; ++pn) {
-          tma_load(ks + pn * T::KV_PANEL, &p.tk, full(s), p.k_slots, 64 * pn,
-                   kt * BK, h, b);
-          tma_load(ks + T::KV_BYTES + pn * T::KV_PANEL, &p.tv, full(s),
-                   p.v_slots, 64 * pn, kt * BK, h, b);
+          tma_load(q_s + pn * T::Q_PANEL, &p.tq, q_full, p.q_slots, 64 * pn,
+                   q0, h, b);
         }
       }
+      const int s = i % kStages;
+      mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+      mbar_expect_tx(full(s), T::STAGE_BYTES + (HAS_SEG ? T::SEG_BYTES : 0));
+      const uint32_t ks = kv_s + s * T::STAGE_BYTES;
+#pragma unroll
+      for (int pn = 0; pn < T::PANELS; ++pn) {
+        tma_load(ks + pn * T::KV_PANEL, &p.tk, full(s), p.k_slots, 64 * pn,
+                 kt * BK, h, b);
+        tma_load(ks + T::KV_BYTES + pn * T::KV_PANEL, &p.tv, full(s),
+                 p.v_slots, 64 * pn, kt * BK, h, b);
+      }
+      if constexpr (HAS_SEG) {
+        bulk_load(seg_s + s * T::SEG_BYTES,
+                  p.seg_pad + static_cast<size_t>(b) * p.s_pad + kt * BK,
+                  T::SEG_BYTES, full(s));
+      }
+    };
+    if constexpr (HAS_SEG) {
+      // warp 0 tests 32 tiles at a time, a lane each, and lane 0 issues
+      // the loaded ones: one round trip for the ranges, not one a tile
+      if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        int i = 0;
+        for (int base = 0; base < n_tiles; base += 32) {
+          unsigned m = __ballot_sync(
+              0xffffffffu, base + lane < n_tiles && loaded(base + lane));
+          for (; m != 0u; m &= m - 1u, ++i) {
+            if (lane == 0) issue(base + __ffs(m) - 1, i);
+          }
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      for (int kt = 0; kt < n_tiles; ++kt) issue(kt, kt);
     }
     return;
   }
-  // the consumers take the registers the producer gave back: 24 + 3 x 160
-  // a thread over the four warpgroups, within the block's 4 x 128
+  // the consumers take the registers the producer gave back: 24 (32) +
+  // 3 x 160 a thread over the four warpgroups, within the block's 4 x 128
   asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
 
   // a consumer: 64 query rows, warp w of it rows 16w .. 16w + 15
@@ -951,6 +1116,59 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int my_tiles = r0 < p.Sq ? tiles_to(min(r0 + 64, p.Sq) - 1) : 0;
   const float sl2 = p.scale_log2;
 
+  // The loaded tiles this consumer computes: from the first to the last
+  // one below my_tiles whose ids can meet its rows' (a tile between them
+  // that cannot is computed and masked whole). The rest it waits for and
+  // releases unread, in load order, holding no stage meanwhile. Each warp
+  // tests 32 tiles at a time, a lane each, and keeps the window's masks:
+  // which tiles are loaded, and which hold only its rows' one id.
+  int c_first = 0, c_last = my_tiles - 1;
+  int seg_a = 0, seg_b = 0, q_uni = 0;  // this lane's rows' segments
+  int win = -32;                         // the window's first tile
+  unsigned win_loaded = 0u, win_uni = 0u;
+  if constexpr (HAS_SEG) {
+    const int* ids = p.seg_pad + static_cast<size_t>(b) * p.s_pad;
+    seg_a = row_a < p.Sq ? __ldg(ids + row_a) : 0;
+    seg_b = row_b < p.Sq ? __ldg(ids + row_b) : 0;
+    if (r0 < p.Sq) q_uni = __ldg(ranges + r0 / kSegChunk).z;
+    const int2 q_mine = q_range(r0 / kSegChunk, 1);
+    c_first = my_tiles;
+    c_last = -1;
+    for (int base = 0; base < my_tiles; base += 32) {
+      const unsigned m = __ballot_sync(
+          0xffffffffu, base + lane < my_tiles &&
+                           ranges_meet(q_mine, k_tile(base + lane)));
+      if (m != 0u) {
+        c_first = min(c_first, base + __ffs(m) - 1);
+        c_last = base + 31 - __clz(m);
+      }
+    }
+  }
+  // the first loaded tile after kt (n_tiles if none); warp-uniform
+  const auto next_loaded = [&](int kt) {
+    ++kt;
+    if constexpr (HAS_SEG) {
+      while (kt < n_tiles) {
+        const int base = kt & ~31;
+        if (base != win) {
+          win = base;
+          bool in = false, one = false;
+          if (base + lane < n_tiles) {
+            const int4 r = k_tile(base + lane);
+            in = ranges_meet(q_block, r);
+            one = q_uni > 0 && r.z == q_uni;
+          }
+          win_loaded = __ballot_sync(0xffffffffu, in);
+          win_uni = __ballot_sync(0xffffffffu, one);
+        }
+        const unsigned m = win_loaded >> (kt - base);
+        if (m != 0u) return kt + __ffs(m) - 1;
+        kt = base + 32;
+      }
+    }
+    return kt;
+  };
+
   float sacc[NS];           // scores of the tile in flight
   uint32_t pa[BK / 16][4];  // P of the previous tile, bf16 A fragments
   float oacc[T::PANELS][32];
@@ -964,13 +1182,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // running max in log2 units (scores times sl2), l: this lane's part
   float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
 
-  const auto stage_k = [&](int kt) {
-    return kv_s + (kt % kStages) * T::STAGE_BYTES;
+  const auto stage_k = [&](int i) {  // load i's stage
+    return kv_s + (i % kStages) * T::STAGE_BYTES;
   };
-  // S = Q K^T for tile kt: D/16 steps of 16 along the head dim, 32 bytes
+  // S = Q K^T for load i: D/16 steps of 16 along the head dim, 32 bytes
   // apart inside a panel's swizzled 128-byte rows
-  const auto issue_s = [&](int kt) {
-    const uint32_t ks = stage_k(kt);
+  const auto issue_s = [&](int i) {
+    const uint32_t ks = stage_k(i);
     fence_regs(sacc);
     wgmma_fence();
 #pragma unroll
@@ -987,11 +1205,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     wgmma_commit();
   };
-  // O += P V for tile kt: V's rows of each 16-key step, 2048 bytes a step;
+  // O += P V for load i: V's rows of each 16-key step, 2048 bytes a step;
   // MN-major with one 64-column atom along N, so the leading and the
   // stride offsets are both the 8-key step
-  const auto issue_pv = [&](int kt) {
-    const uint32_t vs = stage_k(kt) + T::KV_BYTES;
+  const auto issue_pv = [&](int i) {
+    const uint32_t vs = stage_k(i) + T::KV_BYTES;
 #pragma unroll
     for (int pn = 0; pn < T::PANELS; ++pn) fence_regs(oacc[pn]);
     wgmma_fence();
@@ -1007,17 +1225,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     wgmma_commit();
   };
-  // the online softmax on tile kt's fragment: sacc[4n + e] is row
+  // the online softmax on tile kt's fragment (load ld): sacc[4n + e] is row
   // (e < 2 ? row_a : row_b), key k0 + 8n + 2 t4 + (e & 1). Leaves P in
   // sacc and returns the factors that rescale O. Two paths, by a
   // warp-uniform branch: a tile no mask touches with a positive scale
   // takes the row max of the raw scores and one fma a score
-  // (exp2(s sl2 - m)); a masked tile (the diagonal, the ragged end) or
-  // any other scale scales first, so that masked scores sit at kNeg.
-  const auto softmax = [&](int kt, float& alpha_a, float& alpha_b) {
+  // (exp2(s sl2 - m)); a masked tile (the diagonal, the ragged end, the
+  // length, other segments) or any other scale scales first, so that
+  // masked scores sit at kNeg. Under segments a tile is unmasked only if
+  // its keys and the consumer's 64 rows all hold one id.
+  const auto softmax = [&](int kt, int ld, float& alpha_a, float& alpha_b) {
     const int k0 = kt * BK;
-    const bool whole =
-        k0 + BK <= p.Sk && (!CAUSAL || k0 + BK - 1 <= wr0 + shift);
+    bool whole = k0 + BK <= len && (!CAUSAL || k0 + BK - 1 <= wr0 + shift);
+    // kt lies in the window next_loaded last set
+    if constexpr (HAS_SEG) whole = whole && ((win_uni >> (kt - win)) & 1u);
     float mx_a = kNeg, mx_b = kNeg;
     float mn_a, mn_b;
     if (whole && sl2 > 0.f) {
@@ -1038,15 +1259,28 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         sacc[i] = fast_exp2(fmaf(sacc[i], sl2, (i & 2) ? -mn_b : -mn_a));
       }
     } else {
+      const int* ids = nullptr;  // the tile's key ids, staged with it
+      if constexpr (HAS_SEG) {
+        ids = reinterpret_cast<const int*>(
+            smem_raw + (seg_s - smem_addr(smem_raw)) +
+            (ld % kStages) * T::SEG_BYTES);
+      }
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n) {
+        int2 kid = make_int2(0, 0);
+        if constexpr (HAS_SEG) {
+          kid = *reinterpret_cast<const int2*>(ids + n * 8 + 2 * t4);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + n * 8 + 2 * t4 + (e & 1);
           float& x = sacc[4 * n + e];
-          const bool ok =
-              key < p.Sk &&
-              (!CAUSAL || key <= (e < 2 ? row_a : row_b) + shift);
+          bool ok = key < len &&
+                    (!CAUSAL || key <= (e < 2 ? row_a : row_b) + shift);
+          if constexpr (HAS_SEG) {
+            const int sq = e < 2 ? seg_a : seg_b;
+            ok = ok && sq > 0 && ((e & 1) ? kid.y : kid.x) == sq;
+          }
           x = ok ? x * sl2 : kNeg;
           if (e < 2) {
             mx_a = fmaxf(mx_a, x);
@@ -1057,11 +1291,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
       mn_a = fmaxf(m_a, quad_max(mx_a));
       mn_b = fmaxf(m_b, quad_max(mx_b));
-      // every row sees key 0 in tile 0, so m is a real score from then
-      // on and a masked score's exp2(kNeg - m) is exact 0
+      // Without segments every row sees key 0 in tile 0 (the length cut
+      // leaves a block no tile where the length is 0), so m is a real
+      // score from then on and a masked score's exp2(kNeg - m) is exact
+      // 0. Under segments a row may see no live key for several tiles (a
+      // pad row, a row whose first tiles are another segment's): while m
+      // is kNeg its p is zeroed, as the mask says, by subtracting +inf.
+      float sub_a = mn_a, sub_b = mn_b;
+      if constexpr (HAS_SEG) {
+        if (mn_a == kNeg) sub_a = __int_as_float(0x7f800000);
+        if (mn_b == kNeg) sub_b = __int_as_float(0x7f800000);
+      }
 #pragma unroll
       for (int i = 0; i < NS; ++i) {
-        sacc[i] = fast_exp2(sacc[i] - ((i & 2) ? mn_b : mn_a));
+        sacc[i] = fast_exp2(sacc[i] - ((i & 2) ? sub_b : sub_a));
       }
     }
     alpha_a = fast_exp2(m_a - mn_a);
@@ -1094,51 +1337,67 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   };
-  const auto release = [&](int kt) {  // this warp is done with kt's stage
-    if (lane == 0) mbar_arrive(empty(kt % kStages));
+  const auto release = [&](int i) {  // this warp is done with load i
+    if (lane == 0) mbar_arrive(empty(i % kStages));
   };
-  const auto wait_full = [&](int kt) {
-    mbar_wait(full(kt % kStages), (kt / kStages) & 1);
+  const auto wait_full = [&](int i) {
+    mbar_wait(full(i % kStages), (i / kStages) & 1);
   };
 
-  // S of tile kt is issued with P V of tile kt - 1, and the softmax of kt
-  // runs while P V does. Every wgmma and its wait sit in straight-line
-  // code, so that ptxas keeps them asynchronous. Tiles past this
-  // consumer's diagonal are released unread.
-  mbar_wait(q_full, 0);
-  if (my_tiles > 0) {
-    wait_full(0);
-    issue_s(0);
+  // S of tile kt is issued with P V of the tile before it, and the
+  // softmax of kt runs while P V does. Every wgmma and its wait sit in
+  // straight-line code, so that ptxas keeps them asynchronous. kt walks
+  // the loaded tiles, i counts them.
+  int kt = next_loaded(-1), i = 0;
+  for (; kt < c_first; kt = next_loaded(kt), ++i) {  // before its first
+    wait_full(i);
+    release(i);
+  }
+  if (c_first <= c_last) {  // kt == c_first: the Q tile was loaded with it
+    mbar_wait(q_full, 0);
+    wait_full(i);
+    issue_s(i);
     wgmma_wait_all();
     fence_regs(sacc);
     float alpha_a, alpha_b;
-    softmax(0, alpha_a, alpha_b);
+    softmax(kt, i, alpha_a, alpha_b);
     pack_p();
-    for (int kt = 1; kt < my_tiles; ++kt) {
-      wait_full(kt);
-      issue_s(kt);
-      issue_pv(kt - 1);
+    int prev = i;
+    for (kt = next_loaded(kt), ++i; kt <= c_last;
+         kt = next_loaded(kt), ++i) {
+      wait_full(i);
+      issue_s(i);
+      issue_pv(prev);
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
       fence_regs(sacc);  // S of tile kt has landed; P V may still run
-      softmax(kt, alpha_a, alpha_b);
+      softmax(kt, i, alpha_a, alpha_b);
       wgmma_wait_all();
 #pragma unroll
       for (int pn = 0; pn < T::PANELS; ++pn) fence_regs(oacc[pn]);
-      release(kt - 1);
+      release(prev);
       rescale_o(alpha_a, alpha_b);
       pack_p();
+      prev = i;
     }
-    issue_pv(my_tiles - 1);
+    issue_pv(prev);
     wgmma_wait_all();
 #pragma unroll
     for (int pn = 0; pn < T::PANELS; ++pn) fence_regs(oacc[pn]);
-    release(my_tiles - 1);
+    release(prev);
   }
-  for (int kt = my_tiles; kt < n_tiles; ++kt) {  // past the diagonal
-    wait_full(kt);
-    release(kt);
+  for (; kt < n_tiles; kt = next_loaded(kt), ++i) {  // past its last
+    wait_full(i);
+    release(i);
+  }
+  if constexpr (HAS_SEG) {
+    // a loaded tile may meet the block's id range but no consumer's: the
+    // Q tile then came with it unread, and must land before the block
+    // exits
+    if (i > 0) mbar_wait(q_full, 0);
   }
 
+  // a row that saw no key (its length 0, a pad row) has l = 0 and
+  // oacc = 0: exact 0 over the floored normalizer
   const float norm_a = fmaxf(quad_sum(l_a), 1e-30f);
   const float norm_b = fmaxf(quad_sum(l_b), 1e-30f);
   bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
@@ -1286,8 +1545,17 @@ int encode_map(CUtensorMap* map, int* slots, const void* base, int D, int S,
   return r == CUDA_SUCCESS ? 0 : kCuBase + static_cast<int>(r);
 }
 
-template <int D, bool CAUSAL>
-int launch_wgmma(const Params& p, cudaStream_t stream) {
+// The padded length of a row of segment ids that the Hopper variant's
+// tile skipping reads.
+int seg_pad_length(int S) { return (S + kSegPad - 1) / kSegPad * kSegPad; }
+
+// seg_scratch: flash_attention_seg_scratch_ints(B, Sk) int32 on the card,
+// 16-byte aligned, when p.seg is not null: the padded ids (B, s_pad), then
+// their chunk ranges (B, s_pad / kSegChunk, 4), both written by
+// seg_ranges_kernel ahead of the attention kernel on the same stream, with
+// no host sync.
+template <int D, bool CAUSAL, bool HAS_SEG>
+int launch_wgmma(const Params& p, int* seg_scratch, cudaStream_t stream) {
   using T = WgTile<D>;
   WgParams w;
   int err = encode_map(&w.tq, &w.q_slots, p.q, D, p.Sq, p.H, p.B, p.q_ss,
@@ -1302,10 +1570,25 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   }
   if (err != 0) return err;
   w.o = p.o;
+  w.lengths = p.lengths;
+  w.seg_pad = nullptr;
+  w.seg_range = nullptr;
+  w.s_pad = 0;
+  if constexpr (HAS_SEG) {
+    w.s_pad = seg_pad_length(p.Sk);
+    int4* range = reinterpret_cast<int4*>(
+        seg_scratch + static_cast<size_t>(p.B) * w.s_pad);
+    w.seg_pad = seg_scratch;
+    w.seg_range = range;
+    seg_ranges_kernel<<<dim3(w.s_pad / kSegChunk, p.B), 32, 0, stream>>>(
+        p.seg, p.Sk, w.s_pad, seg_scratch, range);
+    const cudaError_t pre = cudaGetLastError();
+    if (pre != cudaSuccess) return static_cast<int>(pre);
+  }
   w.o_sb = p.o_sb, w.o_sh = p.o_sh, w.o_ss = p.o_ss;
   w.H = p.H, w.Sq = p.Sq, w.Sk = p.Sk;
   w.scale_log2 = p.scale * 1.4426950408889634f;
-  const auto kernel = flash_fwd_wgmma_kernel<D, CAUSAL>;
+  const auto kernel = flash_fwd_wgmma_kernel<D, CAUSAL, HAS_SEG>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM));
@@ -1313,6 +1596,17 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.H, (p.Sq + kWgBlockQ - 1) / kWgBlockQ);
   kernel<<<grid, kWgThreads, T::SMEM, stream>>>(w);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_wgmma(const Params& p, bool causal, int* seg_scratch,
+                   cudaStream_t s) {
+  if (p.seg != nullptr) {
+    return causal ? launch_wgmma<D, true, true>(p, seg_scratch, s)
+                  : launch_wgmma<D, false, true>(p, seg_scratch, s);
+  }
+  return causal ? launch_wgmma<D, true, false>(p, nullptr, s)
+                : launch_wgmma<D, false, false>(p, nullptr, s);
 }
 
 // The Hopper variant reads q, k and v through TMA maps: 16-byte aligned
@@ -1340,19 +1634,21 @@ extern "C" {
 
 // strides: 12 element strides (batch, head, row) of q, k, v and o; the
 // head dim of each is contiguous. lengths (B,) and segment_ids (B, Sk)
-// are int32 on the card, or null. dtype: 0 = float32, 1 = bfloat16.
-// route: 0 picks the variant by dtype, D, masks and alignment; 1 takes
-// the mma.sync variant wherever it applies (bf16, D = 64 or 128, aligned
-// rows), so that it can be timed beside the Hopper one. *variant is set
-// to the variant launched: 0 the CUDA-core one, 1 mma.sync, 2 wgmma.
-// Returns the cudaError_t of the launch, or kCuBase + a CUresult of the
-// TMA map encoding.
+// are int32 on the card, or null; with segment_ids, seg_scratch holds
+// flash_attention_seg_scratch_ints(B, Sk) int32 on the card, 16-byte
+// aligned (the Hopper variant's tile skipping writes it). dtype: 0 =
+// float32, 1 = bfloat16. route: 0 picks the variant by dtype, D and
+// alignment; 1 takes the mma.sync variant wherever it applies (bf16, D =
+// 64 or 128, aligned rows), so that it can be timed beside the Hopper one.
+// *variant is set to the variant launched: 0 the CUDA-core one, 1
+// mma.sync, 2 wgmma. Returns the cudaError_t of the launch, or kCuBase +
+// a CUresult of the TMA map encoding.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, const void* lengths,
-                            const void* segment_ids, const long long* strides,
-                            int B, int H, int Sq, int Sk, int D, float scale,
-                            int causal, int dtype, int route, int* variant,
-                            void* stream) {
+                            const void* segment_ids, void* seg_scratch,
+                            const long long* strides, int B, int H, int Sq,
+                            int Sk, int D, float scale, int causal, int dtype,
+                            int route, int* variant, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > kMaxD ||
       B * H > 65535 || shared_bytes(D) > kMaxSharedBytes ||
       (segment_ids != nullptr && Sq != Sk) || route < 0 || route > 1) {
@@ -1375,14 +1671,16 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   const bool c = causal != 0;
   const bool mma = dtype == 1 && (D == 64 || D == 128) && mma_aligned(p);
   if (route == 1 && !mma) return static_cast<int>(cudaErrorInvalidValue);
-  const bool dense = lengths == nullptr && segment_ids == nullptr;
-  if (route == 0 && dtype == 1 && dense && (D == 64 || D == 128) &&
+  if (route == 0 && dtype == 1 && (D == 64 || D == 128) &&
       wgmma_aligned(p)) {
-    *variant = 2;
-    if (D == 64) {
-      return c ? launch_wgmma<64, true>(p, s) : launch_wgmma<64, false>(p, s);
+    int* scratch = static_cast<int*>(seg_scratch);
+    if (segment_ids != nullptr &&
+        (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
-    return c ? launch_wgmma<128, true>(p, s) : launch_wgmma<128, false>(p, s);
+    *variant = 2;
+    return D == 64 ? dispatch_wgmma<64>(p, c, scratch, s)
+                   : dispatch_wgmma<128>(p, c, scratch, s);
   }
   if (mma) {
     *variant = 1;
@@ -1393,6 +1691,12 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   if (dtype == 0) return dispatch_scalar<float>(p, c, s);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_scalar<__nv_bfloat16>(p, c, s);
+}
+
+// the int32 scratch the Hopper variant takes with segment ids
+size_t flash_attention_seg_scratch_ints(int B, int S) {
+  const size_t s_pad = static_cast<size_t>(seg_pad_length(S));
+  return static_cast<size_t>(B) * (s_pad + s_pad / kSegChunk * 4);
 }
 
 // the sizes of the Hopper variant's shared memory, D = 64 and 128

@@ -516,12 +516,14 @@ def _ctx_from_attr(ctx) -> Optional[Context]:
 
 def imperative_invoke(op_name, inputs, attrs, out=None):
     """Run one op on NDArrays. Outputs are new NDArrays, or with ``out=``
-    written (cast to each target's dtype) behind the given ones. Ops that
-    draw randomness raise until ``random`` is ported (queue A9); the
-    autograd tape comes with the training slice."""
+    written (cast to each target's dtype) behind the given ones. Calls that
+    draw randomness (``opdef.uses_rng``) raise until ``random`` is ported
+    (queue A9); an op that takes a key but does not draw with these attrs
+    gets ``None`` for it. The autograd tape comes with the training
+    slice."""
     opdef = get_op(op_name) if isinstance(op_name, str) else op_name
     parsed = opdef.parse_attrs(attrs or {})
-    if opdef.needs_rng:
+    if opdef.uses_rng(parsed):
         raise MXNetError(f"operator {opdef.name} draws random numbers: the "
                          "imperative path runs it once `random` is ported "
                          "(ROADMAP queue A9)")
@@ -538,6 +540,8 @@ def imperative_invoke(op_name, inputs, attrs, out=None):
     is_train = _autograd_is_training()
     if opdef.needs_is_train:
         call_attrs["_is_train"] = is_train
+    if opdef.needs_rng:
+        vals = [None] + vals
     outputs = opdef.fn(*vals, **call_attrs)
     if not isinstance(outputs, tuple):
         outputs = (outputs,)

@@ -7,11 +7,13 @@ dispatch: with neither ``lengths`` nor ``segment_ids`` it is the dense core
 ``_masked_attention``). On CUDA tensors both launch the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (counted in
 ``flash_attention.launches`` and ``flash_attention.masked_launches``) or
-raise. The library picks the variant by dtype, head dim, masks and
-alignment: the dense core in bf16 at D = 64 or 128 over views TMA can
-describe takes the wgmma/TMA variant (also counted in
-``flash_attention.wgmma_launches``), the masked core the mma.sync one,
-fp32 and unaligned views the CUDA-core one. On CPU and ``meta`` tensors
+raise. The library picks the variant by dtype, head dim and alignment:
+the dense and the masked core in bf16 at D = 64 or 128 over views TMA can
+describe take the wgmma/TMA variant (also counted in
+``flash_attention.wgmma_launches``; with segment ids it first sums up the
+ids of each 64 positions into a scratch tensor, so that it skips tiles
+whose ids cannot meet), other aligned bf16 views the mma.sync one, fp32
+and unaligned views the CUDA-core one. On CPU and ``meta`` tensors
 they run :func:`attention_plain` and
 :func:`masked_attention_plain`, the torch transcriptions of
 ``_attn_reference`` and ``_masked_reference``. The backward
@@ -134,7 +136,7 @@ _WGMMA = 2
 
 def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
     """``route`` 0 lets the library pick the variant; 1 takes the mma.sync
-    variant (see :func:`_dense_mma_sync`)."""
+    variant (see :func:`_mma_sync`)."""
     tensors = (q, k, v)
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or q.dtype not in _KERNEL_DTYPES:
@@ -160,12 +162,18 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=q.device).contiguous()
+    lib = _lib()
+    scratch = None
     if segment_ids is not None:
         segment_ids = torch.as_tensor(segment_ids, dtype=torch.int32,
                                       device=q.device).contiguous()
+        # the wgmma variant's padded ids and their ranges (a fresh
+        # allocation is 16-byte aligned, as the bulk copy needs)
+        scratch = torch.empty(
+            int(lib.flash_attention_seg_scratch_ints(b, sk)),
+            dtype=torch.int32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    lib = _lib()
     variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -173,7 +181,8 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lengths.data_ptr() if lengths is not None else None,
             segment_ids.data_ptr() if segment_ids is not None else None,
-            strides, b, h, sq, sk, d, ctypes.c_float(scale), int(causal),
+            scratch.data_ptr() if scratch is not None else None, strides,
+            b, h, sq, sk, d, ctypes.c_float(scale), int(causal),
             _KERNEL_DTYPES[q.dtype], route, ctypes.byref(variant), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
@@ -188,28 +197,32 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
     return out
 
 
-def _dense_mma_sync(q, k, v, causal=False, scale=None):
-    """The dense core through the mma.sync variant, which the dense bf16
-    path no longer takes where TMA applies: for timing the two side by
-    side, never on a model's path. Raises where that variant does not
-    apply (not bf16, D not 64 or 128, unaligned rows)."""
-    _check(q, k, v, causal, None, None)
+def _mma_sync(q, k, v, causal=False, scale=None, lengths=None,
+              segment_ids=None):
+    """The dense or masked core through the mma.sync variant, which bf16
+    no longer takes where TMA applies: for timing the two side by side,
+    never on a model's path. Counted as :func:`flash_attention` counts.
+    Raises where that variant does not apply (not bf16, D not 64 or 128,
+    unaligned rows)."""
+    _check(q, k, v, causal, lengths, segment_ids)
     if q.device.type != "cuda":
-        raise MXNetError("_dense_mma_sync takes CUDA tensors")
+        raise MXNetError("_mma_sync takes CUDA tensors")
     return _launch(q, k, v, causal, _default_scale(q.shape[-1], scale),
-                   None, None, route=1)
+                   lengths, segment_ids, route=1)
 
 
 def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_attention_forward.argtypes is None:
         lib.flash_attention_forward.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int),
                                     ctypes.c_void_p])
         lib.flash_attention_forward.restype = ctypes.c_int
+        lib.flash_attention_seg_scratch_ints.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_seg_scratch_ints.restype = ctypes.c_size_t
         lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_size_t
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -219,8 +232,8 @@ def _lib():
 
 def wgmma_shared_bytes(d):
     """Dynamic shared memory of a wgmma/TMA variant block at head dim ``d``
-    (64 or 128): the Q tile, 3 K/V stages, the mbarriers and the slack
-    that aligns the tiles to 1024 bytes."""
+    (64 or 128): the Q tile, 3 K/V stages, the mbarriers, 3 K tiles'
+    segment ids and the slack that aligns the tiles to 1024 bytes."""
     return int(_lib().flash_attention_wgmma_smem_bytes(d))
 
 

@@ -55,8 +55,9 @@ __all__ = ["Program", "analyze", "emit", "layout", "promote", "QUEUE_ENTRY",
            "DTYPES", "JNP_FUNCS", "NN_FUNCS", "CASTS", "nan_fill",
            "vector_width", "vector_kernel_name", "vector_aligned"]
 
-# where the rest of the body language is queued
-QUEUE_ENTRY = "ROADMAP.md:431"
+# where the rest of the body language is queued: the file and the entry's
+# heading text in it
+QUEUE_ENTRY = "ROADMAP.md: B4 remaining body language"
 
 DTYPES = ("float32", "bfloat16", "float16", "int32")
 FLOATS = ("float32", "bfloat16", "float16")

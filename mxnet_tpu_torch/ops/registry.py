@@ -22,9 +22,11 @@ class OpDef:
     """One operator.
 
     fn(*inputs, **attrs) -> tensor or tuple of tensors. Ops whose signature
-    takes a leading ``rng`` argument set ``needs_rng``; ops whose semantics
-    differ between train and eval read the ``_is_train`` attr injected by
-    the caller and set ``needs_is_train``. ``aux_update`` maps an output
+    takes a leading ``rng`` argument set ``needs_rng`` (True, or a predicate
+    over the parsed attrs that says whether a call draws: see
+    :meth:`uses_rng`); ops whose semantics differ between train and eval
+    read the ``_is_train`` attr injected by the caller and set
+    ``needs_is_train``. ``aux_update`` maps an output
     index to the input it is written back into on the imperative path in
     training (BatchNorm's moving statistics).
     """
@@ -38,7 +40,7 @@ class OpDef:
         num_outputs: Union[int, Callable] = 1,
         input_names: Optional[Sequence[str]] = None,
         output_names: Optional[Sequence[str]] = None,
-        needs_rng: bool = False,
+        needs_rng: Union[bool, Callable] = False,
         needs_is_train: bool = False,
         key_var_num_args: Optional[str] = None,
         aux_update: Optional[Dict[int, int]] = None,
@@ -67,6 +69,18 @@ class OpDef:
         if callable(self._num_outputs):
             return self._num_outputs(attrs)
         return self._num_outputs
+
+    def uses_rng(self, attrs) -> bool:
+        """Does THIS instantiation actually draw randomness?
+
+        ``needs_rng`` stays truthy whenever the fn signature takes a key
+        (every call site threads one); a *callable* ``needs_rng`` is an
+        attrs predicate refining that: the fused RNN op only samples when
+        its inter-layer dropout ``p`` is nonzero.
+        """
+        if callable(self.needs_rng):
+            return bool(self.needs_rng(attrs))
+        return bool(self.needs_rng)
 
     def parse_attrs(self, raw_attrs: Dict) -> Dict:
         return self.attr_spec.parse(raw_attrs, self.name)

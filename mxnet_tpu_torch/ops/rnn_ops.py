@@ -15,6 +15,8 @@ order: LSTM i,f,g,o; GRU r,z,n.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..base import AttrSpec, MXNetError
@@ -105,8 +107,15 @@ def _cell_step(mode, H):
 
 def _run_direction(x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h, mode, H,
                    reverse=False):
-    """One direction of one layer. x: (T, N, in). Returns (out(T,N,H), hT, cT)."""
+    """One direction of one layer. x: (T, N, in). Returns (out(T,N,H), hT, cT).
+    Data, weights and states promote to one dtype first, as jnp's ``@``
+    does (bf16 data over fp32 parameters computes in fp32)."""
     T, N = x.shape[0], x.shape[1]
+    ts = (x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h)
+    dt = functools.reduce(torch.promote_types,
+                          (t.dtype for t in ts if t is not None))
+    x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h = (
+        None if t is None else t.to(dt) for t in ts)
     # GRU keeps the h2h bias apart (the reset gate multiplies the
     # h-projection); the other modes fold both biases into the x-projection
     bias = b_i2h if mode == "gru" else b_i2h + b_h2h
@@ -130,9 +139,11 @@ def _rnn_impl(data, parameters, state, state_cell, state_size, num_layers,
     T, N, input_size = data.shape
     H = state_size
     D = _num_directions(bidirectional)
-    if p > 0 and _is_train:
-        raise MXNetError("RNN inter-layer dropout in training comes with "
-                         "the training slice")
+    if p > 0 and _is_train and num_layers > 1:
+        # the reference draws a dropout mask between layers
+        raise MXNetError("RNN inter-layer dropout in training draws random "
+                         "numbers: it runs once `random` is ported (ROADMAP "
+                         "queue A1)")
     pieces = _unpack(parameters, num_layers, input_size, H, mode,
                      bidirectional)
     x = data
@@ -188,11 +199,20 @@ def _rnn_param_shapes(attrs, shapes):
     return out
 
 
+def _rnn_uses_rng(attrs):
+    """Inter-layer dropout is the RNN op's only randomness: with p=0 the
+    op draws nothing (the signature still takes a key, unused)."""
+    try:
+        return float(attrs.get("p", 0.0) or 0.0) > 0.0
+    except (TypeError, ValueError):
+        return True
+
+
 @register("RNN",
           num_inputs=None,
           input_names=["data", "parameters", "state", "state_cell"],
           num_outputs=_rnn_nout,
-          needs_rng=True,
+          needs_rng=_rnn_uses_rng,
           needs_is_train=True,
           param_shapes=_rnn_param_shapes,
           attrs=AttrSpec(state_size=("int",), num_layers=("int",),
@@ -207,8 +227,9 @@ def _rnn(rng, *inputs, state_size, num_layers, mode="lstm",
          lstm_state_clip_min=None, lstm_state_clip_max=None,
          _is_train=False):
     """Fused multi-layer RNN (reference rnn-inl.h; cuDNN-equivalent).
-    ``rng`` is unused: inter-layer dropout, the op's only randomness, runs
-    only in training, which comes with a later slice."""
+    ``rng`` is unused: inter-layer dropout, the op's only randomness, is
+    drawn only in training between layers, and raises there until
+    ``random`` is ported. A one-layer op with p > 0 draws nothing."""
     if mode not in _GATES:
         raise MXNetError(f"unknown RNN mode {mode}")
     if mode == "lstm":

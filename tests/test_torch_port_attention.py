@@ -19,8 +19,7 @@ import torch
 import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention_ops as port_attention_ops
-from mxnet_tpu_torch.ops.cuda.attention import (_dense_mma_sync,
-                                                attention_plain,
+from mxnet_tpu_torch.ops.cuda.attention import (_mma_sync, attention_plain,
                                                 flash_attention,
                                                 masked_attention_plain)
 
@@ -238,9 +237,9 @@ def test_mma_sync_timing_route_takes_only_card_tensors():
     and has no CPU path."""
     q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(MXNetError, match="CUDA"):
-        _dense_mma_sync(q, q, q, causal=True)
+        _mma_sync(q, q, q, causal=True)
     with pytest.raises(ValueError, match="seq_q <= seq_k"):
-        _dense_mma_sync(q, q[:, :, :4], q[:, :, :4], causal=True)
+        _mma_sync(q, q[:, :, :4], q[:, :, :4], causal=True)
 
 
 def test_meta_infers_shapes_and_keeps_layout():
@@ -403,7 +402,7 @@ def test_wgmma_variant_matches_plain(card, case):
     bound = 2.0 ** -6 * want.abs().clamp(min=1.0)
     assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
     assert bool(((out.float() - want).abs() <= bound).all())
-    mma = _dense_mma_sync(q, k, v, causal=causal)
+    mma = _mma_sync(q, k, v, causal=causal)
     assert flash_attention.wgmma_launches == before + 1
     assert bool(((mma.float() - want).abs() <= bound).all())
 
@@ -411,15 +410,112 @@ def test_wgmma_variant_matches_plain(card, case):
 @pytest.mark.cuda
 def test_wgmma_variant_routes_by_alignment(card):
     """A view no row of which is 16-byte aligned, and fp32, keep their
-    earlier routes; so does the masked core."""
+    earlier routes; the masked core in bf16 over aligned views takes the
+    wgmma/TMA variant."""
     x = torch.randn(1, 4, 200, 65, device=card, dtype=torch.bfloat16)[..., 1:]
     before = flash_attention.wgmma_launches
     out = flash_attention(x, x, x, causal=True)
     f32 = flash_attention(x.float(), x.float(), x.float())
-    y = x.contiguous()
-    masked = flash_attention(y, y, y, lengths=torch.tensor([100], device=card))
     torch.cuda.synchronize()
     assert flash_attention.wgmma_launches == before
     assert (out.float() - attention_plain(x, x, x, causal=True).float()
             ).abs().max().item() <= 1.6e-2
-    assert f32.dtype == torch.float32 and masked.shape == y.shape
+    assert f32.dtype == torch.float32
+    y = x.contiguous()
+    lens = torch.tensor([100], device=card)
+    masked = flash_attention(y, y, y, lengths=lens)
+    torch.cuda.synchronize()
+    assert flash_attention.wgmma_launches == before + 1
+    assert masked.shape == y.shape
+    assert (masked.float() - masked_attention_plain(y, y, y, lens).float()
+            ).abs().max().item() <= 1.6e-2
+
+
+def _runs_of_ids(b, s, seed):
+    """Segment ids in runs of 1 to 200 positions drawn from {0, 1, 2, 3}:
+    ids that repeat out of order, with pads between them."""
+    rng = np.random.RandomState(seed)
+    seg = np.zeros((b, s), np.int32)
+    for i in range(b):
+        pos = 0
+        while pos < s:
+            run = rng.randint(1, 201)
+            seg[i, pos:pos + run] = rng.randint(0, 4)
+            pos += run
+    return seg
+
+
+def _late_second_segment(b, s):
+    """Segment 1 up to 600, segment 2 up to 950, pads after: a query tile
+    across 600 has rows whose first K tiles all hold the other segment."""
+    seg = np.zeros((b, s), np.int32)
+    seg[:, :600], seg[:, 600:950] = 1, 2
+    return seg
+
+
+# (label, (B, H, Sq, Sk, D), causal, lengths, segments, layout) for the
+# masked core on the wgmma/TMA variant: lengths of 0 and off a 128-key
+# tile's edge, causal Sq < Sk with lengths, rows whose first K tiles are
+# another segment's (the running max stays at its floor for those tiles),
+# ids that repeat out of order, pad heads, (B, H, S, D) views of
+# (B, S, H, D) memory, D = 128, and rows of more than 32 K tiles (the
+# kernel tests tiles for skipping 32 at a time)
+MASKED_WGMMA_CASES = [
+    ("lengths", (3, 4, 300, 300, 64), False, [300, 0, 77], None, "bhsd"),
+    ("causal lengths", (3, 2, 1000, 1000, 64), True, [1000, 513, 0], None,
+     "bhsd"),
+    ("causal Sq<Sk lengths", (2, 2, 77, 200, 128), True, [150, 0], None,
+     "bhsd"),
+    ("late second segment", (2, 2, 1000, 1000, 64), False, None,
+     _late_second_segment, "bhsd"),
+    ("ids out of order causal", (2, 4, 700, 700, 64), True, None,
+     lambda b, s: _runs_of_ids(b, s, seed=3), "bhsd"),
+    ("ids out of order lengths", (2, 2, 640, 640, 128), False, [640, 333],
+     lambda b, s: _runs_of_ids(b, s, seed=4), "bhsd"),
+    ("segments lengths views", (2, 8, 500, 500, 64), True, [500, 321],
+     _segments, "bshd"),
+    ("D=128 segments views", (2, 4, 333, 333, 128), False, None, _segments,
+     "bshd"),
+    ("D=128 causal lengths views", (2, 4, 333, 333, 128), True, [0, 300],
+     None, "bshd"),
+    ("over 32 K tiles ids out of order", (1, 2, 4500, 4500, 64), True,
+     None, lambda b, s: _runs_of_ids(b, s, seed=5), "bhsd"),
+    ("D=128 over 32 K tiles segments", (2, 1, 2600, 2600, 128), False,
+     [2600, 2222], _segments, "bhsd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MASKED_WGMMA_CASES, ids=lambda c: c[0])
+def test_masked_wgmma_variant_matches_plain(card, case):
+    """The masked bf16 core at D = 64 and 128 takes the wgmma/TMA variant,
+    within two bf16 ulps of the plain version at the reference's
+    magnitude (at least 1), its fully masked rows exact 0."""
+    _, (b, h, sq, sk, d), causal, lengths, segments, layout = case
+    rng = np.random.RandomState(sq + sk + d)
+
+    def make(s):
+        if layout == "bshd":
+            return torch.tensor(rng.normal(0, 1, (b, s, h, d)),
+                                dtype=torch.bfloat16,
+                                device=card).transpose(1, 2)
+        return torch.tensor(rng.normal(0, 1, (b, h, s, d)),
+                            dtype=torch.bfloat16, device=card)
+    q, k, v = make(sq), make(sk), make(sk)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=card))
+    seg = (None if segments is None
+           else torch.tensor(segments(b, sk), device=card))
+    before = (flash_attention.masked_launches, flash_attention.wgmma_launches)
+    out = flash_attention(q, k, v, causal=causal, lengths=lens,
+                          segment_ids=seg)
+    torch.cuda.synchronize()
+    assert (flash_attention.masked_launches,
+            flash_attention.wgmma_launches) == (before[0] + 1, before[1] + 1)
+    want = masked_attention_plain(q, k, v, lens, seg, causal=causal).float()
+    bound = 2.0 ** -6 * want.abs().clamp(min=1.0)
+    assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
+    assert bool(((out.float() - want).abs() <= bound).all())
+    dead = (want == 0).all(-1)
+    assert bool(dead.any())  # every case has rows that see no key
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))

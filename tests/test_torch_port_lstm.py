@@ -177,6 +177,73 @@ def test_rnn_op_matches_jax(ref, mode, layers, bidirectional):
                                    atol=ATOL)
 
 
+def _toy_rnn(mode, layers=1, seed=3):
+    """The RNN op's inputs at a toy size (T=3, N=2, in=4, H=5) and its
+    attributes."""
+    arrays, H = _rnn_inputs(mode, layers, False, T=3, N=2, I=4, H=5,
+                            seed=seed)
+    return arrays, dict(state_size=H, num_layers=layers, mode=mode,
+                        state_outputs=True)
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh"])
+@pytest.mark.parametrize("path", ["nd", "bf16_data"])
+def test_rnn_op_entry_matches_jax(ref, path, mode):
+    """``mx.nd.RNN`` on the CPU runs (the op takes a key it does not draw
+    from at p = 0) and matches the JAX package's; bf16 data over fp32
+    parameters promotes to fp32 as jnp's ``@`` does."""
+    import jax
+    arrays, attrs = _toy_rnn(mode)
+    if path == "nd":
+        with jax.enable_x64(False):
+            outs_j = [o.asnumpy() for o in ref.mx.nd.RNN(
+                *map(ref.mx.nd.array, arrays), **attrs)]
+        outs_t = mxt.nd.RNN(*(mxt.nd.array(a, ctx=mxt.cpu())
+                              for a in arrays), **attrs)
+        assert all(o.context == mxt.cpu() for o in outs_t)
+        outs_t = [o.asnumpy() for o in outs_t]
+        tol = dict(rtol=1e-5, atol=1e-5)
+    else:
+        with jax.enable_x64(False):
+            ins = [ref.jnp.asarray(a) for a in arrays]
+            ins[0] = ins[0].astype(ref.jnp.bfloat16)
+            outs_j = ref.mx.ops.get_op("RNN").fn(None, *ins, **attrs)
+            assert all(o.dtype == ref.jnp.float32 for o in outs_j)
+            outs_j = [np.asarray(o) for o in outs_j]
+        ins = [torch.from_numpy(a) for a in arrays]
+        ins[0] = ins[0].to(torch.bfloat16)
+        # the op's fn returns the hidden outputs too; the registry shows a
+        # prefix of them
+        outs_t = mxt.OP_TABLE["RNN"].fn(None, *ins, **attrs)
+        assert all(o.dtype == torch.float32 for o in outs_t)
+        outs_t = [o.numpy() for o in outs_t]
+        tol = dict(rtol=1e-2, atol=1e-2)
+    n = 3 if mode == "lstm" else 2  # out, hy (, cy) are visible
+    assert len(outs_t[:n]) == len(outs_j[:n]) == n
+    for o_j, o_t in zip(outs_j[:n], outs_t[:n], strict=True):
+        np.testing.assert_allclose(o_t, o_j, **tol)
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_rnn_op_dropout_in_training(layers):
+    """The reference draws dropout only between layers: a one-layer op
+    with p > 0 in training equals the p = 0 result; a deeper one would
+    draw, and raises until ``random`` is ported."""
+    arrays, attrs = _toy_rnn("lstm", layers)
+    fn = mxt.OP_TABLE["RNN"].fn
+    ins = [torch.from_numpy(a) for a in arrays]
+    assert mxt.OP_TABLE["RNN"].uses_rng({"p": 0.5})
+    assert not mxt.OP_TABLE["RNN"].uses_rng({"p": 0.0})
+    if layers == 2:
+        with pytest.raises(MXNetError):
+            fn(None, *ins, p=0.5, _is_train=True, **attrs)
+        return
+    want = fn(None, *ins, p=0.0, _is_train=True, **attrs)
+    got = fn(None, *ins, p=0.5, _is_train=True, **attrs)
+    for w, g in zip(want, got, strict=True):
+        assert torch.equal(w, g)
+
+
 @pytest.mark.parametrize("bidirectional", [False, True])
 @pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
 def test_unpack_matches_jax_bit_for_bit(ref, mode, bidirectional):

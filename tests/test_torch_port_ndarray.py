@@ -554,8 +554,10 @@ def test_left_out_parts_raise():
             with pytest.raises(MXNetError):
                 call()
         assert a.tostype("default") is a and a.detach().shape == (2,)
+    # a call that draws random numbers (RNN's dropout at p > 0)
     with pytest.raises(MXNetError, match="A9"):
-        mxt.nd.imperative_invoke("RNN", [], {"state_size": 2, "num_layers": 1})
+        mxt.nd.imperative_invoke("RNN", [], {"state_size": 2, "num_layers": 1,
+                                             "p": 0.5})
 
 
 def test_default_context_is_the_card():
