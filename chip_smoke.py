@@ -67,9 +67,29 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    updated weights through ``nd.save``/``nd.load`` bit for bit; every push
    of the path the vector kernel; ms per step of both, the vector and the
    scalar kernel on the largest tensor (in turns) against its bound, its
-   plain version, axpy's against ``torch.add``, and peak memory.
+   plain version, axpy's against ``torch.add``, and peak memory;
+11. training: the training forward (gates and c kept) and the backward
+   kernels against their plain versions on the card's tensors, fp32 and
+   bf16, both directions: the sequence backward kernel at (T,N,H) =
+   (128,1,1024), (128,16,1024), the main path's (256,64,1024), (7,3,200)
+   and (7,37,200), the per-step one at (8,1,1536);
+   one forward_backward of the full-width LM (T=8, N=4) on the card and
+   on the port's CPU path from the same seeded Xavier init, every
+   gradient held to the CPU's; the benchmark's training shape (N=64,
+   T=256, ``benchmarks/bench_lstm.py``): ``Module`` on the default
+   context, Xavier, SGD (lr 0.5, no momentum), one ``fit`` epoch over 4
+   batches and 10 ``forward``/``backward``/``update`` steps on one batch,
+   each step 2 sequence forward and 2 sequence backward launches and no
+   per-step one, every output and parameter finite, and 10 steps from the
+   same init at learning rate 0.5 / T, whose loss must fall; ms per
+   step, tokens/s, peak
+   memory, one profiled step; one training step of the one-layer H=1536
+   LM through the per-step kernels (T and T + 1 launches); the backward
+   kernel's time against its bound and the plain loop, and the port's
+   whole layer backward against cuDNN's LSTM backward on the same inputs,
+   at T=128, N=1 and 16, and at the bench shape.
 
-Each path (4 and its wide LSTM, 5, 6, 10) sets its kernels' launch counts
+Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM) sets its kernels' launch counts
 to 0 just before it runs and reads them just after, and fails if a kernel
 of the path was not launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -289,8 +309,10 @@ def phase_kernels():
     return errs
 
 
-def build_lm(mx, vocab, hidden, layers, seq_len):
-    """bench_lstm.py's model, with an un-reshaped softmax_label."""
+def build_lm(mx, vocab, hidden, layers, seq_len, train=False):
+    """bench_lstm.py's model: for serving with an un-reshaped
+    softmax_label, for training (``train``) with the label (N, T)
+    reshaped in the graph as bench_lstm.py:39-49 does."""
     data = mx.sym.var("data")
     embed = mx.sym.Embedding(data, input_dim=vocab, output_dim=hidden,
                              name="embed")
@@ -301,8 +323,10 @@ def build_lm(mx, vocab, hidden, layers, seq_len):
                           layout="TNC")
     pred = mx.sym.Reshape(out, shape=(-1, hidden))
     pred = mx.sym.FullyConnected(pred, num_hidden=vocab, name="pred")
-    return mx.sym.SoftmaxOutput(pred, mx.sym.var("softmax_label"),
-                                name="softmax")
+    label = mx.sym.var("softmax_label")
+    if train:
+        label = mx.sym.Reshape(label, shape=(-1,))
+    return mx.sym.SoftmaxOutput(pred, label, name="softmax")
 
 
 def check_probs(out, rows):
@@ -1043,13 +1067,18 @@ def profile_device(label, fn):
             f"{attempt + 1} of 3)")
     if not busy_us:
         raise RuntimeError("the profiler recorded no device time")
+    # values read back to the host inside fn (.item(), bool() of a device
+    # tensor): each waits for the device
+    host_reads = sum(e.count for e in prof.key_averages()
+                     if e.key == "aten::_local_scalar_dense")
     log(f"[profile] {label} under the profiler: wall {wall_us:.1f} us, "
         f"device busy {busy_us:.1f} us, idle share "
-        f"{1 - busy_us / wall_us:.4f}")
+        f"{1 - busy_us / wall_us:.4f}; host reads of device values "
+        f"{host_reads}")
     for key, us, count in events[:8]:
         log(f"[profile]   {us:12.1f} us  x{count:<5d} {key[:90]}")
     return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "idle_share": 1 - busy_us / wall_us,
+            "idle_share": 1 - busy_us / wall_us, "host_reads": host_reads,
             "top": [[k[:90], us, n] for k, us, n in events[:8]]}
 
 
@@ -1473,6 +1502,539 @@ def phase_imperative():
             "save_load_bytes": size, "save_load_s": io_s}
 
 
+# -- training (phase 11) ------------------------------------------------------
+
+# the benchmark's training shape (benchmarks/bench_lstm.py:28-65)
+TRAIN_N, TRAIN_T = 64, 256
+TRAIN_BATCHES, TRAIN_STEPS = 4, 10
+TRAIN_SGD = {"learning_rate": 0.5, "momentum": 0.0}
+# (T, N, H) of the training kernels' checks: the sequence kernels at the
+# served shapes, at the main training path's shape (four chunks of 16 rows)
+# and two ragged ones (one chunk; two whole chunks and a part), the
+# per-step kernels at the wide LM's H
+BWD_CASES = ((T, 1, H), (T, 16, H), (TRAIN_T, TRAIN_N, H), (7, 3, 200),
+             (7, 37, 200), (8, 1, WIDE_H))
+# one forward_backward of the full-width LM, card against the port's CPU
+GRAD_T, GRAD_N = 8, 4
+# gradients card against CPU, fp32 with TF32 off on both: summation order
+# only, through 8 steps and the 10000-way softmax; each held relative to its
+# own largest magnitude (on the CPU from 0.012 for embed_weight to 1.0 for
+# pred_bias)
+GRAD_TOL = 1e-5
+CARD = "cuda"
+
+
+def train_counts():
+    """(lstm_sequence_fused, lstm_sequence_backward, lstm_cell_fused,
+    lstm_cell_backward) launches."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    return (L.lstm_sequence_fused.launches, L.lstm_sequence_backward.launches,
+            L.lstm_cell_fused.launches, L.lstm_cell_backward.launches)
+
+
+def zero_train_counts():
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    for fn in (L.lstm_sequence_fused, L.lstm_sequence_backward,
+               L.lstm_cell_fused, L.lstm_cell_backward):
+        fn.launches = 0
+
+
+def backward_case(steps, n, hdim, dtype, seed):
+    """The sequence inputs and head cotangents (dout, dhT, dcT) at the
+    LM's scale."""
+    args = sequence_inputs(steps, n, hdim, dtype, seed)
+    rng = np.random.RandomState(seed + 1000)
+    cots = [torch.tensor(rng.normal(0, 0.1, shape), dtype=dtype, device=CARD)
+            for shape in ((steps, n, hdim), (n, hdim), (n, hdim))]
+    return args, cots
+
+
+def max_err_against(got, want, tag, name):
+    """(error, tolerance): fp32 SEQ_FP32_TOL (relative to the magnitude
+    for dw, a sum over T*N rows), bf16 two bf16 ulps at the reference's
+    largest magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    if tag == "fp32":
+        scale = max(1.0, want.abs().max().item()) if name == "dw" else 1.0
+        return err, SEQ_FP32_TOL * scale
+    return err, bf16_state_tol(want)
+
+
+def phase_train_kernels():
+    """K1, the training forward (the sequence kernel, or at H=WIDE_H the
+    per-step kernel, keeping gates and c), against
+    lstm_sequence_train_plain, and the backward (K2, the sequence
+    backward kernel; K3, the per-step one at H=WIDE_H) against
+    lstm_sequence_backward_plain on the same card tensors, fp32 and bf16,
+    both directions. bf16 dw, which the kernel route sums in fp32 once and
+    the plain version rounds to bf16 every step, is held to the fp32 sum
+    of the plain version's dgates. Returns the worst errors by kernel."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    errs = {k: {"fp32": 0.0, "bf16_ulps": 0.0}
+            for k in ("forward", "sequence_backward", "cell_backward")}
+    for steps, n, hdim in BWD_CASES:
+        fits = L.backward_fits(n, hdim, torch.device(CARD, 0))
+        if fits != (hdim != WIDE_H):
+            raise RuntimeError(f"backward_fits(N={n}, H={hdim}) = {fits}")
+        kernel = "sequence_backward" if fits else "cell_backward"
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            (xproj, h0, c0, w), (dout, dh_last, dc_last) = backward_case(
+                steps, n, hdim, dtype, seed=steps + n + hdim)
+            for reverse in (False, True):
+                saved = L.lstm_sequence_train(xproj, h0, c0, w, reverse)
+                plain = L.lstm_sequence_train_plain(xproj, h0, c0, w, reverse)
+                torch.cuda.synchronize()
+                for name, g, p in zip(("out", "hT", "cT", "gates", "cs"),
+                                      saved, plain):
+                    if g.dtype != p.dtype or g.shape != p.shape:
+                        raise RuntimeError(f"training forward {name}: "
+                                           f"{g.dtype} {tuple(g.shape)}")
+                    err, tol = max_err_against(g, p, tag, name)
+                    if not err <= tol:
+                        raise RuntimeError(
+                            f"training forward {tag} T={steps} N={n} "
+                            f"H={hdim} reverse={reverse} {name}: {err} > "
+                            f"{tol}")
+                    errs["forward"][tag if tag == "fp32" else "bf16_ulps"] = \
+                        max(errs["forward"][tag if tag == "fp32"
+                                            else "bf16_ulps"],
+                            err if tag == "fp32" else 2 * err / tol)
+                out, _, _, gates, cs = saved
+                case = (dout, dh_last, dc_last, gates, cs, out, h0, c0, w)
+                before = train_counts()
+                got = L.lstm_sequence_backward(*case, reverse=reverse)
+                torch.cuda.synchronize()
+                moved = tuple(a - b for a, b in zip(train_counts(), before))
+                want_moved = (0, 1, 0, 0) if fits else (0, 0, 0, steps + 1)
+                if moved != want_moved:
+                    raise RuntimeError(f"backward launched {moved}, expected "
+                                       f"{want_moved}")
+                want = L.lstm_sequence_backward_plain(*case, reverse=reverse)
+                worst = []
+                for name, g, p in zip(("dxproj", "dh0", "dc0", "dw"), got,
+                                      want):
+                    if g.dtype != p.dtype or g.shape != p.shape:
+                        raise RuntimeError(f"backward {name}: {g.dtype} "
+                                           f"{tuple(g.shape)}")
+                    if name == "dw" and tag == "bf16":
+                        h_prev = (torch.cat([out[1:], h0[None]]) if reverse
+                                  else torch.cat([h0[None], out[:-1]]))
+                        p = torch.einsum("tnk,tnh->kh", want[0],
+                                         h_prev.float())
+                    err, tol = max_err_against(g, p, tag, name)
+                    if not err <= tol:
+                        raise RuntimeError(
+                            f"{kernel} {tag} T={steps} N={n} H={hdim} "
+                            f"reverse={reverse} {name} disagrees with the "
+                            f"plain backward: {err} > {tol}")
+                    worst.append(err if tag == "fp32" else 2 * err / tol)
+                log(f"[train-kernels] {kernel} T={steps} N={n} H={hdim} "
+                    f"{tag} reverse={reverse}: max|d| dxproj, dh0, dc0, dw "
+                    + ", ".join(f"{e:.3e}" for e in worst)
+                    + (" (tol 1e-4, dw relative)" if tag == "fp32"
+                       else " bf16 ulps (tol 2; dw against the fp32 sum)"))
+                key = "fp32" if tag == "fp32" else "bf16_ulps"
+                errs[kernel][key] = max(errs[kernel][key], *worst)
+    return errs
+
+
+def phase_train_card_vs_cpu():
+    """One forward_backward of the full-width LM at T=GRAD_T, N=GRAD_N on
+    the card and on the port's CPU path, from the same seeded Xavier
+    init: every gradient within GRAD_TOL of the CPU's, relative to its
+    own largest magnitude."""
+    import mxnet_tpu_torch as mx
+    net = build_lm(mx, V, H, LAYERS, GRAD_T, train=True)
+    rng = np.random.RandomState(21)
+    tokens = [rng.randint(0, V, (GRAD_N, GRAD_T)).astype(np.float32)
+              for _ in range(2)]
+    grads = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mx.random.seed(0)
+        mod = mx.mod.Module(net, context=ctx)
+        mod.bind(data_shapes=[("data", (GRAD_N, GRAD_T))],
+                 label_shapes=[("softmax_label", (GRAD_N, GRAD_T))])
+        mod.init_params(mx.init.Xavier())
+        batch = mx.io.DataBatch([mx.nd.array(tokens[0], ctx=mx.cpu())],
+                                [mx.nd.array(tokens[1], ctx=mx.cpu())])
+        mod.forward_backward(batch)
+        grads[ctx.device_type] = {n: g.asnumpy()
+                                  for n, g in mod._exec.grad_dict.items()}
+    errs, scales = {}, {}
+    for name, cpu in grads["cpu"].items():
+        card = grads["gpu"][name]
+        scales[name] = float(np.abs(cpu).max())
+        errs[name] = float(np.abs(card - cpu).max()) / scales[name]
+        if not np.isfinite(card).all() or not errs[name] <= GRAD_TOL:
+            raise RuntimeError(f"gradient {name}: card against CPU "
+                               f"{errs[name]} > {GRAD_TOL}")
+    log(f"[train] full-width LM T={GRAD_T} N={GRAD_N}: gradients card "
+        f"against CPU, max|d| / max|cpu|: {errs} (tol {GRAD_TOL}); "
+        f"max|cpu| {scales}")
+    return errs
+
+
+def cross_entropy(mx, mod, batch):
+    metric = mx.metric.CrossEntropy()
+    mod.update_metric(metric, batch.label)
+    return metric.get()[1]
+
+
+def descent_losses(mx, net, batch):
+    """TRAIN_STEPS steps on the repeated batch from the same seeded init
+    at the bench's learning rate divided by T: the loss must fall. At the
+    bench's 0.5 the softmax gradient, summed over N*T rows and rescaled by
+    1/N, takes a step T times the per-token one, and the loss on a
+    repeated batch does not fall past the first steps, in the JAX package
+    as in the port (tests/test_torch_port_module.py, at T=256 and toy
+    widths)."""
+    mx.random.seed(0)
+    mod = mx.mod.Module(net)
+    mod.bind(data_shapes=[("data", (TRAIN_N, TRAIN_T))],
+             label_shapes=[("softmax_label", (TRAIN_N, TRAIN_T))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        TRAIN_SGD, learning_rate=TRAIN_SGD["learning_rate"] / TRAIN_T))
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        losses.append(cross_entropy(mx, mod, batch))
+    log(f"[train] {TRAIN_STEPS} steps on one batch at learning rate "
+        f"{TRAIN_SGD['learning_rate'] / TRAIN_T}: cross-entropy "
+        f"{[round(x, 5) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss on the repeated batch did not fall: "
+                           f"{losses}")
+    return losses
+
+
+def phase_train_bench():
+    """The main training path at the benchmark's shape: Module on the
+    default context, one fit epoch over TRAIN_BATCHES batches, then
+    TRAIN_STEPS forward/backward/update steps on one batch; each step two
+    sequence-kernel forwards and two sequence-kernel backwards and no
+    per-step launch. Then ms per step (CUDA events, median of 7), tokens/s,
+    peak memory and one profiled step."""
+    import mxnet_tpu_torch as mx
+    net = build_lm(mx, V, H, LAYERS, TRAIN_T, train=True)
+    rng = np.random.RandomState(0)
+    shape = (TRAIN_BATCHES * TRAIN_N, TRAIN_T)
+    data = rng.randint(0, V, shape).astype(np.float32)
+    label = rng.randint(0, V, shape).astype(np.float32)
+    batch = mx.io.DataBatch([mx.nd.array(data[:TRAIN_N], ctx=mx.cpu())],
+                            [mx.nd.array(label[:TRAIN_N], ctx=mx.cpu())])
+    marks = []
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run starts here
+    zero_train_counts()
+    mx.random.seed(0)
+    mod = mx.mod.Module(net)  # the default context, gpu(0)
+    mod.bind(data_shapes=[("data", (TRAIN_N, TRAIN_T))],
+             label_shapes=[("softmax_label", (TRAIN_N, TRAIN_T))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_SGD)
+    fit_metric = mx.metric.create("ce")
+    mod.fit(mx.io.NDArrayIter(data, label, batch_size=TRAIN_N), num_epoch=1,
+            eval_metric=fit_metric,
+            batch_end_callback=lambda p: marks.append(train_counts()))
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        marks.append(train_counts())
+        losses.append(cross_entropy(mx, mod, batch))
+    launches = train_counts()  # the main path's run ends here
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [tuple(a - b for a, b in zip(m, prev))
+                for m, prev in zip(marks, [(0, 0, 0, 0)] + marks[:-1])]
+    log(f"[train] LM V={V} H={H} layers={LAYERS} N={TRAIN_N} T={TRAIN_T}: "
+        f"fit over {TRAIN_BATCHES} batches, cross-entropy "
+        f"{fit_metric.get()[1]:.4f}; {TRAIN_STEPS} steps on one batch at "
+        f"{TRAIN_SGD}, cross-entropy {[round(x, 4) for x in losses]}")
+    log(f"[train] (lstm_sequence, lstm_sequence_backward, lstm_cell, "
+        f"lstm_cell_backward) launches per step {per_step}; total "
+        f"{launches}; peak device memory {peak} bytes")
+    if any(c != (LAYERS, LAYERS, 0, 0) for c in per_step):
+        raise RuntimeError(f"launches per step {per_step}, expected "
+                           f"{(LAYERS, LAYERS, 0, 0)}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite loss: {losses}")
+    out = mod.get_outputs()[0]
+    if out.shape != (TRAIN_N * TRAIN_T, V) or not bool(
+            torch.isfinite(out._data).all()):
+        raise RuntimeError(f"outputs {out.shape} not finite")
+    for name, arr in mod.get_params()[0].items():
+        if not bool(torch.isfinite(arr._data).all()):
+            raise RuntimeError(f"parameter {name} not finite")
+    descent = descent_losses(mx, net, batch)
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    event_ms, host_ms = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+    event_ms, host_ms = event_ms[1:], host_ms[1:]  # the first warms up
+    ms = statistics.median(event_ms)
+    tokens = TRAIN_N * TRAIN_T / ms * 1e3
+    log(f"[train] one step (forward, backward, SGD update) at N={TRAIN_N} "
+        f"T={TRAIN_T}: median {ms:.3f} ms (CUDA events) of "
+        f"{[round(x, 3) for x in event_ms]}, host clock median "
+        f"{statistics.median(host_ms):.3f} ms; {tokens:.1f} tokens/s")
+    profile = profile_device(f"one training step N={TRAIN_N} T={TRAIN_T}",
+                             step)
+    return {"launches": launches, "per_step": per_step[0],
+            "losses": losses, "descent_losses": descent,
+            "fit_cross_entropy": fit_metric.get()[1],
+            "step_ms": ms, "step_runs_ms": event_ms,
+            "step_host_ms": statistics.median(host_ms),
+            "tokens_per_s": tokens, "peak_device_bytes": peak,
+            "profile": profile}
+
+
+def phase_train_wide():
+    """A training step of the one-layer LM at H=WIDE_H (over the sequence
+    kernels' shared memory), one row, T steps: the per-step forward kernel
+    T times and the per-step backward kernel T + 1 times. Returns the
+    per-step backward kernel's launches in this run."""
+    import mxnet_tpu_torch as mx
+    net = build_lm(mx, V, WIDE_H, 1, T, train=True)
+    rng = np.random.RandomState(5)
+    batch = mx.io.DataBatch(
+        [mx.nd.array(rng.randint(0, V, (1, T)).astype(np.float32),
+                     ctx=mx.cpu())],
+        [mx.nd.array(rng.randint(0, V, (1, T)).astype(np.float32),
+                     ctx=mx.cpu())])
+    # this path's run starts here
+    zero_train_counts()
+    mx.random.seed(3)
+    mod = mx.mod.Module(net)
+    mod.bind(data_shapes=[("data", (1, T))],
+             label_shapes=[("softmax_label", (1, T))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_SGD)
+    mod.forward_backward(batch)
+    mod.update()
+    launches = train_counts()  # this path's run ends here
+    log(f"[train-wide] one step of the LM at H={WIDE_H}, 1 layer, 1 row: "
+        f"(lstm_sequence, lstm_sequence_backward, lstm_cell, "
+        f"lstm_cell_backward) launches {launches}")
+    if launches != (0, 0, T, T + 1):
+        raise RuntimeError(f"wide training step launched {launches}, "
+                           f"expected {(0, 0, T, T + 1)}")
+    for name, arr in mod.get_params()[0].items():
+        if not bool(torch.isfinite(arr._data).all()):
+            raise RuntimeError(f"wide LM parameter {name} not finite")
+    return launches[3]
+
+
+def sequence_backward_bound_ms(steps, n, hdim, elem_bytes):
+    """Least time on an H100 for one layer's backward: each input (dout,
+    dhT, dcT, the fp32 gates, cs, c0, w_h2h) read once and each output
+    (the fp32 dgates, dh0, dc0) written once, against the products'
+    2*T*N*4H*H operations (dh = dgates . w_h2h) at the fp32 peak."""
+    nbytes = (elem_bytes * (2 * steps * n * hdim + 4 * n * hdim
+                            + 4 * hdim * hdim)
+              + 4 * 2 * steps * n * 4 * hdim)
+    flops = 2 * steps * n * 4 * hdim * hdim
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def phase_train_timing():
+    """The backward of one LSTM layer (H=1024, fp32) at T=128, N=1 and 16,
+    and at the bench shape: the sequence backward kernel, the kernel route with
+    its dw product, the plain loop, the port's whole layer backward and
+    cuDNN's torch.nn.LSTM backward (each through autograd, from the same
+    inputs, weights and cotangents: the data, state and weight gradients,
+    the input projection's included; their agreement is reported); then
+    the per-step backward kernel at N=1, H=WIDE_H, its plain step and the dh
+    product as torch.matmul. The port never calls cuDNN."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    from mxnet_tpu_torch.ops.rnn_ops import _run_direction
+    out = {}
+    for steps, n in ((T, 1), (T, 16), (TRAIN_T, TRAIN_N)):
+        (xproj, h0, c0, w), (dout, dh_last, dc_last) = backward_case(
+            steps, n, H, torch.float32, seed=31 + n)
+        o, _, _, gates, cs = L.lstm_sequence_train(xproj, h0, c0, w)
+        case = (dout, dh_last, dc_last, gates, cs, o, h0, c0, w)
+        def kernel_only():
+            L._sequence_backward_launch(dout, dh_last, dc_last, gates, cs, h0,
+                                        c0, w, False)
+
+        rng = np.random.RandomState(41 + n)
+        x_in = torch.tensor(rng.normal(0, 1, (steps, n, H)),
+                            dtype=torch.float32, device=CARD)
+        cudnn = torch.nn.LSTM(H, H, 1).cuda()
+        h0c = h0[None].clone().requires_grad_()
+        c0c = c0[None].clone().requires_grad_()
+        x_c = x_in.clone().requires_grad_()
+        y, (hy, cy) = cudnn(x_c, (h0c, c0c))
+        leaves = [x_c, h0c, c0c] + list(cudnn.parameters())
+
+        def cudnn_backward():
+            return torch.autograd.grad((y, hy, cy), leaves,
+                                       (dout, dh_last[None], dc_last[None]),
+                                       retain_graph=True)
+
+        # the port's layer on cuDNN's inputs and weights: the input
+        # projection (torch products) and the training Function (K1, K2)
+        port = _run_direction(
+            x_c, h0c[0], c0c[0], cudnn.weight_ih_l0, cudnn.weight_hh_l0,
+            cudnn.bias_ih_l0, cudnn.bias_hh_l0, "lstm", H)
+
+        def layer_backward():
+            return torch.autograd.grad(port, leaves,
+                                       (dout, dh_last, dc_last),
+                                       retain_graph=True)
+
+        layer_err = max(
+            ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(layer_backward(), cudnn_backward()))
+        row = {
+            "kernel_ms": time_on_stream(kernel_only, iters=10),
+            "route_ms": time_on_stream(
+                lambda: L.lstm_sequence_backward(*case), iters=10),
+            "plain_ms": time_on_stream(
+                lambda: L.lstm_sequence_backward_plain(*case), iters=2),
+            "cudnn_backward_ms": time_on_stream(cudnn_backward, iters=10),
+            "layer_backward_ms": time_on_stream(layer_backward, iters=10),
+            "layer_vs_cudnn_max_rel": layer_err,
+            "forward_kernel_ms": time_on_stream(
+                lambda: L.lstm_sequence_fused(xproj, h0, c0, w), iters=10),
+            "train_forward_kernel_ms": time_on_stream(
+                lambda: L.lstm_sequence_train(xproj, h0, c0, w), iters=10),
+        }
+        row["bound_ms"], row["bound_by"] = sequence_backward_bound_ms(
+            steps, n, H, 4)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        out[f"T={steps} N={n}"] = row
+        log(f"[train-timing] one layer's backward T={steps} N={n} H={H} "
+            f"fp32: sequence backward kernel {row['kernel_ms'] * 1e3:.1f} "
+            f"us, bound {row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
+            f"(share {row['share_of_bound']:.3f}); with its dw product "
+            f"{row['route_ms'] * 1e3:.1f} us; plain "
+            f"{row['plain_ms'] * 1e3:.1f} us; the port's layer backward "
+            f"{row['layer_backward_ms'] * 1e3:.1f} us against cuDNN's "
+            f"{row['cudnn_backward_ms'] * 1e3:.1f} us (input projection "
+            f"included, gradients agree to "
+            f"{row['layer_vs_cudnn_max_rel']:.2e} of each one's largest); "
+            f"forward kernel "
+            f"{row['forward_kernel_ms'] * 1e3:.1f} us (inference), "
+            f"{row['train_forward_kernel_ms'] * 1e3:.1f} us (training)")
+    # the per-step backward kernel at the wide LM's shape, one step
+    n, hdim = 1, WIDE_H
+    (xproj, h0, c0, w), (dout, dh_last, dc_last) = backward_case(
+        2, n, hdim, torch.float32, seed=51)
+    o, _, _, gates, cs = L.lstm_sequence_train(xproj, h0, c0, w)
+    w_t = w.t().contiguous()
+    dg_next = torch.randn(n, 4 * hdim, device=CARD) * 0.01
+    dg_out = torch.empty(n, 4 * hdim, device=CARD)
+    dc = dc_last.clone()
+
+    def cell_step():
+        L.lstm_cell_backward(dg_next, w_t, gates[1], cs[0], dout[1],
+                             dh_last, dc, dg_out, dc)
+
+    cell = {
+        "kernel_ms": time_on_stream(cell_step),
+        "plain_ms": time_on_stream(lambda: L.lstm_cell_backward_plain(
+            dout[1] + torch.matmul(dg_next, w).to(h0.dtype), dc, gates[1],
+            cs[0], w, o[0])),
+        "library_ms": time_on_stream(lambda: torch.matmul(dg_next, w)),
+    }
+    nbytes = 4 * (n * 4 * hdim + 4 * hdim * hdim + n * 4 * hdim
+                  + 4 * n * hdim + n * 4 * hdim + n * hdim)
+    flops = 2 * n * 4 * hdim * hdim
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    cell["bound_ms"] = max(by_bytes, by_ops) * 1e3
+    cell["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"[train-timing] per-step backward kernel N={n} H={hdim} fp32: "
+        f"{cell['kernel_ms'] * 1e3:.2f} us, bound "
+        f"{cell['bound_ms'] * 1e3:.2f} us by {cell['bound_by']}; plain "
+        f"{cell['plain_ms'] * 1e3:.2f} us; torch.matmul (dh) "
+        f"{cell['library_ms'] * 1e3:.2f} us")
+    out["cell"] = cell
+    return out
+
+
+def train_records(kerrs, grad_errs, bench, wide_launches, timing):
+    """The lstm_sequence_backward and lstm_cell_backward entries of the
+    kernels line."""
+    main = timing[f"T={TRAIN_T} N={TRAIN_N}"]
+    seq = {
+        "name": "lstm_sequence_backward",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+        "replaces": "mxnet_tpu/ops/pallas/lstm.py:77",
+        "replaces_note": "_cell_bwd (jnp, the VJP of the Pallas cell "
+                         "mxnet_tpu/ops/pallas/lstm.py:57), run once a step "
+                         "by jax.vjp of the scan in "
+                         "mxnet_tpu/ops/rnn_ops.py:139",
+        "launches": bench["launches"][1],
+        "max_abs_err": kerrs["sequence_backward"]["fp32"],
+        "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["cudnn_backward_ms"],
+        "library": "torch.nn.LSTM (cuDNN, TF32 off) backward through "
+                   "autograd: data, state and weight gradients, the input "
+                   "projection's included",
+        "layer_backward_ms": main["layer_backward_ms"],
+        "layer_backward": "the port's whole layer backward through "
+                          "autograd on the same inputs: K2, the dw product "
+                          "and the input projection's gradients, the work "
+                          "library_ms does",
+        "shape": f"one layer T={TRAIN_T} N={TRAIN_N} H={H} fp32",
+        "max_err_bf16_ulps": kerrs["sequence_backward"]["bf16_ulps"],
+        "training_forward_max_err": kerrs["forward"],
+        "share_of_bound": main["share_of_bound"],
+        "by_shape": timing,
+        "train": {k: bench[k] for k in (
+            "per_step", "losses", "descent_losses", "fit_cross_entropy",
+            "step_ms",
+            "step_runs_ms", "step_host_ms", "tokens_per_s",
+            "peak_device_bytes", "profile")},
+        "gradients_card_vs_cpu": grad_errs,
+    }
+    cell = timing["cell"]
+    cell_rec = {
+        "name": "lstm_cell_backward",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/lstm_cell.cu",
+        "replaces": "mxnet_tpu/ops/pallas/lstm.py:77",
+        "launches": wide_launches,
+        "launches_path": f"one training step of the LM at H={WIDE_H} "
+                         "(phase 11); 0 on the 2x1024 LM's path",
+        "max_abs_err": kerrs["cell_backward"]["fp32"],
+        "ms": cell["kernel_ms"],
+        "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"],
+        "bound_by": cell["bound_by"],
+        "library_ms": cell["library_ms"],
+        "library": "torch.matmul(dgates, w_h2h), the step's product",
+        "shape": f"one step N=1 H={WIDE_H} fp32",
+        "max_err_bf16_ulps": kerrs["cell_backward"]["bf16_ulps"],
+    }
+    return [seq, cell_rec]
+
+
 def rtc_record(rtc_k, imp):
     t = imp["timing"]
     return {
@@ -1532,6 +2094,11 @@ def main():
     tf_profiled = phase_transformer_profile(tf)
     rtc_k = phase_rtc_kernels()
     imp = phase_imperative()
+    train_kerrs = phase_train_kernels()
+    grad_errs = phase_train_card_vs_cpu()
+    bench = phase_train_bench()
+    wide_train_launches = phase_train_wide()
+    train_timing = phase_train_timing()
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -1628,6 +2195,8 @@ def main():
             record["transformer"]["profile"] = tf_profiled
         records.append(record)
     records.append(rtc_record(rtc_k, imp))
+    records += train_records(train_kerrs, grad_errs, bench,
+                             wide_train_launches, train_timing)
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,13 +14,20 @@ imperative path: ``nd`` (NDArray, ``save``/``load`` in the JAX package's
 math, tensor and optimizer-update ops), ``optimizer`` (SGD with momentum
 and multi-precision, NAG, DCASGD, Adam, AdaGrad, RMSProp, AdaDelta, Ftrl,
 Test; ``get_updater``), ``lr_scheduler``, and ``rtc``, whose bodies are
-compiled to CUDA with NVRTC on the card.
+compiled to CUDA with NVRTC on the card. It trains symbol graphs: the
+executor's backward (autograd, with the LSTM's backward a hand-written
+kernel), ``mod.Module`` with ``fit``, ``init`` (the initializers),
+``metric``, ``io`` (``NDArrayIter``), ``callback``, ``model``
+(checkpoints) and ``random``.
 """
-from . import (c_predict, convert, lr_scheduler, models,  # noqa: F401
-               ndarray, optimizer, rnn, rtc, serving, symbol)
+from . import (c_predict, callback, convert, initializer, io,  # noqa: F401
+               lr_scheduler, metric, model, models, module, ndarray,
+               optimizer, random, rnn, rtc, serving, symbol)
 from .base import MXNetError, __version__  # noqa: F401
 from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from .ops import OP_TABLE  # noqa: F401
 
 nd = ndarray
 sym = symbol
+mod = module
+init = initializer

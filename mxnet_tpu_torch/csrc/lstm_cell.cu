@@ -1,6 +1,8 @@
-// LSTM forward for Hopper (sm_90a), with a plain C interface: two kernels.
+// LSTM forward and backward for Hopper (sm_90a), with a plain C interface:
+// two forward kernels, and below them (after "The backward") two backward
+// kernels that mirror them, lstm_seq_bwd_kernel and lstm_cell_bwd_kernel.
 //
-// Both compute what the TPU kernel mxnet_tpu/ops/pallas/lstm.py:_lstm_kernel
+// Both forward kernels compute what the TPU kernel mxnet_tpu/ops/pallas/lstm.py:_lstm_kernel
 // computes for one time step (launched by _cell_pallas, once per lax.scan
 // step of mxnet_tpu/ops/rnn_ops.py:_run_direction):
 //   gates = xproj + h . w_h2h^T, accumulated in fp32, gate order i, f, g, o
@@ -56,7 +58,9 @@
 // times. Where the weights do not fit (fp32 and bf16 above H = 1320 on 132
 // SMs), the wrapper launches the per-step kernel T times instead:
 // seq_plan states the rule, and ops/cuda/lstm.py:sequence_fits asks it
-// through lstm_sequence_shared_bytes.
+// through lstm_sequence_shared_bytes. In training both kernels also keep
+// the activated gates (fp32) and the sequence kernel every step's c, which
+// the backward reads instead of recomputing h . w_h2h^T.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,8 +98,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     lstm_cell_kernel(const T* __restrict__ xproj, const T* __restrict__ h,
                      const T* __restrict__ c, const T* __restrict__ w,
-                     T* __restrict__ h_out, T* __restrict__ c_out, int n_rows,
-                     int hidden) {
+                     T* __restrict__ h_out, T* __restrict__ c_out,
+                     float* __restrict__ gates_out, int n_rows, int hidden) {
   extern __shared__ float w_rows[];  // [4][hidden]
   const int j = blockIdx.x;
   for (int k = 0; k < 4; ++k) {
@@ -138,13 +142,20 @@ __global__ void __launch_bounds__(kThreads)
       const float c_new = gf * to_float(c[at]) + gi * gg;
       c_out[at] = from_float<T>(c_new);
       h_out[at] = from_float<T>(go * tanhf(c_new));
+      if (gates_out != nullptr) {
+        float* g_n = gates_out + static_cast<size_t>(n) * 4 * hidden + j;
+        g_n[0] = gi;
+        g_n[hidden] = gf;
+        g_n[2 * hidden] = gg;
+        g_n[3 * hidden] = go;
+      }
     }
   }
 }
 
 template <typename T>
 int launch(const void* xproj, const void* h, const void* c, const void* w,
-           void* h_out, void* c_out, int n_rows, int hidden,
+           void* h_out, void* c_out, void* gates_out, int n_rows, int hidden,
            cudaStream_t stream) {
   const size_t smem = 4 * static_cast<size_t>(hidden) * sizeof(float);
   if (hidden < 1 || n_rows < 1 || smem > kMaxSharedBytes) {
@@ -159,7 +170,8 @@ int launch(const void* xproj, const void* h, const void* c, const void* w,
   lstm_cell_kernel<T><<<hidden, kThreads, smem, stream>>>(
       static_cast<const T*>(xproj), static_cast<const T*>(h),
       static_cast<const T*>(c), static_cast<const T*>(w),
-      static_cast<T*>(h_out), static_cast<T*>(c_out), n_rows, hidden);
+      static_cast<T*>(h_out), static_cast<T*>(c_out),
+      static_cast<float*>(gates_out), n_rows, hidden);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,7 +319,9 @@ __device__ __forceinline__ float chunk_xproj(const T* x_t, int idx, int n0,
 }
 
 // xproj (T, N, 4H), h0 and c0 (N, H), w (4H, H), out (T, N, H), h_last and
-// c_out (N, H), counter one zeroed word. c_out carries c between steps
+// c_out (N, H), counter one zeroed word. In training, gates_out (T, N, 4H)
+// fp32 keeps the activated gates i, f, g, o and c_all (T, N, H) every
+// step's c in c's dtype, which the backward reads; inference passes null. c_out carries c between steps
 // (each block reads back only its own units). out and c_out are written
 // here and read again, by other blocks for out, so they are not
 // const __restrict__: the compiler must not route their loads through the
@@ -316,7 +330,8 @@ template <typename T, int kChunk>
 __global__ void __launch_bounds__(kSeqThreads, 1)
     lstm_seq_kernel(const T* __restrict__ xproj, const T* __restrict__ h0,
                     const T* __restrict__ c0, const T* __restrict__ w, T* out,
-                    T* h_last, T* c_out, unsigned* counter, int steps,
+                    T* h_last, T* c_out, float* __restrict__ gates_out,
+                    T* __restrict__ c_all, unsigned* counter, int steps,
                     int n_rows, int hidden, int units, int reverse) {
   extern __shared__ __align__(16) float smem[];
   const int rows = 4 * units;  // gate row r = gate * units + unit
@@ -452,9 +467,20 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
         const size_t at = static_cast<size_t>(n0 + b) * hidden + j0 + u;
         const float c_new = gf * c_s[idx] + gi * gg;
         const T h_new = from_float<T>(go * tanhf(c_new));
-        c_out[at] = from_float<T>(c_new);  // the carry keeps c's dtype
+        const T c_kept = from_float<T>(c_new);  // the carry keeps c's dtype
+        c_out[at] = c_kept;
         h_t[at] = h_new;
         if (s == steps - 1) h_last[at] = h_new;
+        if (gates_out != nullptr) {
+          float* g_n = gates_out +
+                       (static_cast<size_t>(t) * n_rows + n0 + b) * 4 * hidden +
+                       j0 + u;
+          g_n[0] = gi;
+          g_n[hidden] = gf;
+          g_n[2 * hidden] = gg;
+          g_n[3 * hidden] = go;
+        }
+        if (c_all != nullptr) c_all[static_cast<size_t>(t) * step_elems + at] = c_kept;
       }
     }
     if (s + 1 < steps) grid_barrier(counter, (s + 1) * gridDim.x);
@@ -504,8 +530,9 @@ int cooperative_launch(Kernel kernel, const SeqPlan& p, void** args,
 template <typename T, int kChunk>
 int seq_launch(const SeqPlan& p, const void* xproj, const void* h0,
                const void* c0, const void* w, void* out, void* h_last,
-               void* c_out, void* counter, int steps, int n_rows, int hidden,
-               int reverse, cudaStream_t stream) {
+               void* c_out, void* gates_out, void* c_all, void* counter,
+               int steps, int n_rows, int hidden, int reverse,
+               cudaStream_t stream) {
   const T* xproj_t = static_cast<const T*>(xproj);
   const T* h0_t = static_cast<const T*>(h0);
   const T* c0_t = static_cast<const T*>(c0);
@@ -513,24 +540,27 @@ int seq_launch(const SeqPlan& p, const void* xproj, const void* h0,
   T* out_t = static_cast<T*>(out);
   T* h_last_t = static_cast<T*>(h_last);
   T* c_out_t = static_cast<T*>(c_out);
+  float* gates_t = static_cast<float*>(gates_out);
+  T* c_all_t = static_cast<T*>(c_all);
   unsigned* counter_t = static_cast<unsigned*>(counter);
   int units = p.units;
-  void* args[] = {&xproj_t, &h0_t,    &c0_t,      &w_t,   &out_t,
-                  &h_last_t, &c_out_t, &counter_t, &steps, &n_rows,
-                  &hidden,  &units,   &reverse};
+  void* args[] = {&xproj_t,  &h0_t,    &c0_t,    &w_t,       &out_t,
+                  &h_last_t, &c_out_t, &gates_t, &c_all_t,   &counter_t,
+                  &steps,    &n_rows,  &hidden,  &units,     &reverse};
   return cooperative_launch(lstm_seq_kernel<T, kChunk>, p, args, stream);
 }
 
 template <typename T>
 int seq_dispatch(const SeqPlan& p, const void* xproj, const void* h0,
                  const void* c0, const void* w, void* out, void* h_last,
-                 void* c_out, void* counter, int steps, int n_rows,
-                 int hidden, int reverse, cudaStream_t stream) {
+                 void* c_out, void* gates_out, void* c_all, void* counter,
+                 int steps, int n_rows, int hidden, int reverse,
+                 cudaStream_t stream) {
 #define MXT_SEQ_CHUNK(C)                                                 \
   case C:                                                                \
     return seq_launch<T, C>(p, xproj, h0, c0, w, out, h_last, c_out,     \
-                            counter, steps, n_rows, hidden, reverse,     \
-                            stream);
+                            gates_out, c_all, counter, steps, n_rows,    \
+                            hidden, reverse, stream);
   switch (p.chunk) {
     MXT_SEQ_CHUNK(1)
     MXT_SEQ_CHUNK(2)
@@ -542,21 +572,386 @@ int seq_dispatch(const SeqPlan& p, const void* xproj, const void* h0,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// The backward: the adjoint of the scan over the cell, which the JAX package
+// writes in jnp (mxnet_tpu/ops/pallas/lstm.py:_cell_bwd, run once a step by
+// jax.vjp of the lax.scan in mxnet_tpu/ops/rnn_ops.py:_run_direction). Per
+// step t, from the cotangents dh_t (dy_t plus the carry from step t+1) and
+// dc_t, and the gates and c_{t-1} the training forward kept:
+//   dc      = dc_t + dh_t * o * (1 - tanh(c_t)^2)
+//   dgates  = [dc*g*i*(1-i), dc*c_{t-1}*f*(1-f), dc*i*(1-g^2), dh_t*tanh(c_t)*o*(1-o)]
+//   dh_{t-1} carry = dgates . w_h2h   (in h's dtype)
+//   dc_{t-1} carry = dc * f           (in c's dtype)
+// dgates (fp32) is dxproj; dw_h2h = sum_t dgates_t^T h_{t-1} is one large
+// product outside the loop (ops/cuda/lstm.py). As in the scan, the carries
+// are rounded to the states' dtypes every step, and dh_t = dy_t + carry is
+// summed in h's dtype.
+
+// the adjoint of one cell step at (n, j): writes dgates of its four gate
+// rows and the dc carry
+template <typename T>
+__device__ __forceinline__ void cell_adjoint(float dh_carry, float dy,
+                                             float dc_in, const float* g_n,
+                                             float c_prev, int hidden, int j,
+                                             float* dg_n, T* dc_out) {
+  const float dh = to_float(from_float<T>(dh_carry + dy));
+  const float gi = g_n[j], gf = g_n[hidden + j];
+  const float gg = g_n[2 * hidden + j], go = g_n[3 * hidden + j];
+  const float c_new = gf * c_prev + gi * gg;
+  const float tc = tanhf(c_new);
+  const float dc = dc_in + dh * go * (1.f - tc * tc);
+  dg_n[j] = dc * gg * gi * (1.f - gi);
+  dg_n[hidden + j] = dc * c_prev * gf * (1.f - gf);
+  dg_n[2 * hidden + j] = dc * gi * (1.f - gg * gg);
+  dg_n[3 * hidden + j] = dh * tc * go * (1.f - go);
+  *dc_out = from_float<T>(dc * gf);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// lstm_cell_bwd_kernel: one step of the backward, one launch a step (the
+// counterpart of lstm_cell_kernel, for layers whose weights do not fit the
+// sequence kernels' shared memory). One block per hidden unit j stages
+// column j of w_h2h (row j of w_t = w_h2h^T) as fp32; warps take the batch
+// rows in turn and lanes stride along 4H. With gates null it only writes
+// dh_out = dg_next . w_h2h (the dh0 of the last step).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lstm_cell_bwd_kernel(const float* dg_next, const T* __restrict__ w_t,
+                         const float* __restrict__ gates,
+                         const T* __restrict__ c_prev, const T* __restrict__ dy,
+                         const T* __restrict__ dh_in, const T* dc_in,
+                         float* dg_out, T* dc_out, T* dh_out, int n_rows,
+                         int hidden) {
+  extern __shared__ float w_col[];  // [4H]
+  const int j = blockIdx.x;
+  const int k = 4 * hidden;
+  for (int i = threadIdx.x; i < k; i += kThreads) {
+    w_col[i] = to_float(w_t[static_cast<size_t>(j) * k + i]);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int n = warp; n < n_rows; n += kWarps) {
+    float acc = 0.f;
+    if (dg_next != nullptr) {
+      const float* d = dg_next + static_cast<size_t>(n) * k;
+      for (int i = lane; i < k; i += 32) acc = fmaf(d[i], w_col[i], acc);
+      acc = warp_sum(acc);
+    }
+    if (lane != 0) continue;
+    const size_t at = static_cast<size_t>(n) * hidden + j;
+    if (gates == nullptr) {
+      dh_out[at] = from_float<T>(acc);
+      continue;
+    }
+    const float dh_carry =
+        dg_next != nullptr ? to_float(from_float<T>(acc)) : to_float(dh_in[at]);
+    cell_adjoint<T>(dh_carry, to_float(dy[at]), to_float(dc_in[at]),
+                    gates + static_cast<size_t>(n) * k, to_float(c_prev[at]),
+                    hidden, j, dg_out + static_cast<size_t>(n) * k,
+                    dc_out + at);
+  }
+}
+
+template <typename T>
+int cell_bwd_launch(const void* dg_next, const void* w_t, const void* gates,
+                    const void* c_prev, const void* dy, const void* dh_in,
+                    const void* dc_in, void* dg_out, void* dc_out,
+                    void* dh_out, int n_rows, int hidden,
+                    cudaStream_t stream) {
+  const size_t smem = 4 * static_cast<size_t>(hidden) * sizeof(float);
+  if (hidden < 1 || n_rows < 1 || smem > kMaxSharedBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lstm_cell_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lstm_cell_bwd_kernel<T><<<hidden, kThreads, smem, stream>>>(
+      static_cast<const float*>(dg_next), static_cast<const T*>(w_t),
+      static_cast<const float*>(gates), static_cast<const T*>(c_prev),
+      static_cast<const T*>(dy), static_cast<const T*>(dh_in),
+      static_cast<const T*>(dc_in), static_cast<float*>(dg_out),
+      static_cast<T*>(dc_out), static_cast<T*>(dh_out), n_rows, hidden);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lstm_seq_bwd_kernel: the backward's whole time loop of one layer and
+// direction in one persistent cooperative launch, the mirror of
+// lstm_seq_kernel. Its bound is the forward's: the products' 2*T*N*4H*H
+// operations (dh = dgates . w_h2h) at the fp32 rate, 256.4 us at T=128,
+// N=16, H=1024. As in the forward, w_h2h stays on the chip:
+//   - each block owns `units` = ceil(H / SMs) hidden units J and keeps the
+//     columns w_h2h[:, J] (4H x units, fp32) in shared memory for all T
+//     steps, laid out [units][4H]: the same bytes as the forward's rows;
+//   - each phase it reads the previous step's dgates (N, 4H, fp32), written
+//     by every block, through L2 only (ld.global.cg) into shared memory,
+//     `chunk` batch rows at a time: 4x the bytes of the forward's h chunk,
+//     so the chunk is smaller (4 rows at H = 1024 where the forward takes
+//     16);
+//   - a thread takes float4 columns k4 = tid, tid + 512, ... of K = 4H and
+//     keeps one fp32 sum per (batch row, unit), at most 32; a warp sums its
+//     lanes' 32 sums with 31 shuffles (lane l ends with sum l), and the 16
+//     warps' sums meet in shared memory, added in a fixed order;
+//   - the thread that owns (row, unit) applies cell_adjoint and writes the
+//     step's dgates for its unit's four gate rows, and keeps the dc carry
+//     in dc0 (read back only by itself);
+//   - a grid barrier (grid_barrier: fence, then acquire) between phases.
+// Phase s (0 <= s <= T) takes the product for the step done in phase s-1
+// and runs step t = T-1-s (reverse: t = s); phase T only writes
+// dh0 = dgates_0 . w_h2h.
+
+constexpr int kBwdMaxOut = 32;   // (batch row, unit) sums a thread keeps
+constexpr int kBwdMaxUnits = 10;  // H <= 1320 on 132 SMs
+
+__host__ __device__ constexpr int bwd_max_chunk(int units) {
+  return units * 16 <= kBwdMaxOut  ? 16
+         : units * 8 <= kBwdMaxOut ? 8
+         : units * 4 <= kBwdMaxOut ? 4
+         : units * 2 <= kBwdMaxOut ? 2
+                                   : 1;
+}
+
+// One level of warp_transpose_sum: lanes with bit S set keep the upper S of
+// their 2S sums and send the lower S, the others the reverse.
+template <int S>
+__device__ __forceinline__ void transpose_level(float (&v)[kBwdMaxOut],
+                                                int lane) {
+  const bool upper = (lane & S) != 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float send = upper ? v[i] : v[i + S];
+    const float keep = upper ? v[i + S] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+}
+
+// Sums v[i] over the warp's 32 lanes for every i at once; lane l returns
+// the sum of v[l]. 31 shuffles where 32 warp_sums take 160.
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[kBwdMaxOut]) {
+  static_assert(kBwdMaxOut == 32, "one sum a lane");
+  const int lane = threadIdx.x & 31;
+  transpose_level<16>(v, lane);
+  transpose_level<8>(v, lane);
+  transpose_level<4>(v, lane);
+  transpose_level<2>(v, lane);
+  transpose_level<1>(v, lane);
+  return v[0];
+}
+
+// Dynamic shared memory of a block, in floats: the columns [units][4H]; one
+// region that holds the dgates chunk [chunk][4H] during the products and
+// the warps' sums [warps][32] after them.
+size_t bwd_shared_bytes(int hidden, int units, int chunk) {
+  const size_t k = 4 * static_cast<size_t>(hidden);
+  const size_t sums = (kSeqThreads / 32) * static_cast<size_t>(kBwdMaxOut);
+  const size_t dg = chunk * k;
+  return 4 * (units * k + (dg > sums ? dg : sums));
+}
+
+bool bwd_plan(int n_rows, int hidden, int sm_count, SeqPlan* p) {
+  if (n_rows < 1 || hidden < 1 || sm_count < 1) return false;
+  p->units = (hidden + sm_count - 1) / sm_count;
+  if (p->units > kBwdMaxUnits) return false;
+  p->blocks = (hidden + p->units - 1) / p->units;
+  const int max_chunk = bwd_max_chunk(p->units);
+  int chunk = 1;
+  while (chunk < n_rows && chunk < max_chunk) chunk *= 2;
+  while (chunk > 1 && bwd_shared_bytes(hidden, p->units, chunk) > kMaxSharedBytes) {
+    chunk /= 2;
+  }
+  p->chunk = chunk;
+  p->smem = bwd_shared_bytes(hidden, p->units, chunk);
+  return p->smem <= kMaxSharedBytes;
+}
+
+template <typename T, int kUnits>
+__global__ void __launch_bounds__(kSeqThreads, 1)
+    lstm_seq_bwd_kernel(const T* __restrict__ dout,
+                        const T* __restrict__ dh_last,
+                        const T* __restrict__ dc_last,
+                        const float* __restrict__ gates,
+                        const T* __restrict__ cs, const T* __restrict__ c0,
+                        const T* __restrict__ w, float* dgates, T* dh0,
+                        T* dc0, unsigned* counter, int steps, int n_rows,
+                        int hidden, int chunk, int reverse) {
+  constexpr int kMaxChunk = bwd_max_chunk(kUnits);
+  constexpr int kWarpsSeq = kSeqThreads / 32;
+  extern __shared__ __align__(16) float smem[];
+  const int k4n = hidden;  // float4s in a row of 4H
+  const size_t krow = 4 * static_cast<size_t>(hidden);
+  float* w_s = smem;                   // [kUnits][4H]
+  float* dg_s = smem + kUnits * krow;  // [chunk][4H], then the warps' sums
+  float* sum_s = dg_s;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int j0 = blockIdx.x * kUnits;
+  const int owned = min(kUnits, hidden - j0);
+
+  // the block's columns, once, as fp32
+  for (int idx = tid; idx < kUnits * static_cast<int>(krow); idx += kSeqThreads) {
+    const int r = idx / kUnits, u = idx - r * kUnits;
+    w_s[u * krow + r] =
+        u < owned ? to_float(w[static_cast<size_t>(r) * hidden + j0 + u]) : 0.f;
+  }
+
+  const size_t step_elems = static_cast<size_t>(n_rows) * hidden;
+  const size_t gate_elems = static_cast<size_t>(n_rows) * krow;
+  for (int s = 0; s <= steps; ++s) {
+    const int t = reverse ? s : steps - 1 - s;
+    // the step done in the previous phase, whose dgates this phase reads
+    const int t_done = reverse ? t - 1 : t + 1;
+    for (int n0 = 0; n0 < n_rows; n0 += chunk) {
+      const int nb = min(chunk, n_rows - n0);
+      // the columns are staged, or the previous chunk's sums are read
+      __syncthreads();
+      if (s > 0) {
+        const float4* src = reinterpret_cast<const float4*>(
+            dgates + t_done * gate_elems + n0 * krow);
+        float4* dst = reinterpret_cast<float4*>(dg_s);
+#pragma unroll 4
+        for (int idx = tid; idx < nb * k4n; idx += kSeqThreads) {
+          dst[idx] = __ldcg(src + idx);
+        }
+        __syncthreads();
+        float acc[kBwdMaxOut];
+#pragma unroll
+        for (int i = 0; i < kBwdMaxOut; ++i) acc[i] = 0.f;
+        const float4* w4 = reinterpret_cast<const float4*>(w_s);
+        const float4* d4 = reinterpret_cast<const float4*>(dg_s);
+        for (int k4 = tid; k4 < k4n; k4 += kSeqThreads) {
+          float4 wv[kUnits];
+#pragma unroll
+          for (int u = 0; u < kUnits; ++u) wv[u] = w4[u * k4n + k4];
+#pragma unroll
+          for (int b = 0; b < kMaxChunk; ++b) {
+            if (b < nb) {
+              const float4 d = d4[b * k4n + k4];
+#pragma unroll
+              for (int u = 0; u < kUnits; ++u) {
+                float a = acc[b * kUnits + u];
+                a = fmaf(d.x, wv[u].x, a);
+                a = fmaf(d.y, wv[u].y, a);
+                a = fmaf(d.z, wv[u].z, a);
+                a = fmaf(d.w, wv[u].w, a);
+                acc[b * kUnits + u] = a;
+              }
+            }
+          }
+        }
+        __syncthreads();  // the sums overwrite the dgates chunk
+        const float v = warp_transpose_sum(acc);
+        if (lane < kMaxChunk * kUnits) sum_s[warp * kBwdMaxOut + lane] = v;
+        __syncthreads();
+      }
+      if (tid < nb * kUnits) {
+        const int b = tid / kUnits, u = tid - b * kUnits;
+        if (u < owned) {
+          float prod = 0.f;
+          if (s > 0) {
+            for (int g = 0; g < kWarpsSeq; ++g) prod += sum_s[g * kBwdMaxOut + tid];
+          }
+          const int n = n0 + b, j = j0 + u;
+          const size_t at = static_cast<size_t>(n) * hidden + j;
+          if (s == steps) {
+            dh0[at] = from_float<T>(prod);
+          } else {
+            const float dh_carry =
+                s == 0 ? to_float(dh_last[at]) : to_float(from_float<T>(prod));
+            const float dc_in = to_float(s == 0 ? dc_last[at] : dc0[at]);
+            const bool first = reverse ? t == steps - 1 : t == 0;
+            const float c_prev = to_float(
+                first ? c0[at]
+                      : cs[static_cast<size_t>(reverse ? t + 1 : t - 1) * step_elems + at]);
+            const size_t g_at = t * gate_elems + n * krow;
+            cell_adjoint<T>(dh_carry, to_float(dout[t * step_elems + at]), dc_in,
+                            gates + g_at, c_prev, hidden, j, dgates + g_at,
+                            dc0 + at);
+          }
+        }
+      }
+    }
+    if (s < steps) grid_barrier(counter, (s + 1) * gridDim.x);
+  }
+}
+
+template <typename T, int kUnits>
+int seq_bwd_launch(const SeqPlan& p, const void* dout, const void* dh_last,
+                   const void* dc_last, const void* gates, const void* cs,
+                   const void* c0, const void* w, void* dgates, void* dh0,
+                   void* dc0, void* counter, int steps, int n_rows,
+                   int hidden, int reverse, cudaStream_t stream) {
+  const T* dout_t = static_cast<const T*>(dout);
+  const T* dh_last_t = static_cast<const T*>(dh_last);
+  const T* dc_last_t = static_cast<const T*>(dc_last);
+  const float* gates_t = static_cast<const float*>(gates);
+  const T* cs_t = static_cast<const T*>(cs);
+  const T* c0_t = static_cast<const T*>(c0);
+  const T* w_t = static_cast<const T*>(w);
+  float* dgates_t = static_cast<float*>(dgates);
+  T* dh0_t = static_cast<T*>(dh0);
+  T* dc0_t = static_cast<T*>(dc0);
+  unsigned* counter_t = static_cast<unsigned*>(counter);
+  int chunk = p.chunk;
+  void* args[] = {&dout_t,   &dh_last_t, &dc_last_t, &gates_t, &cs_t,
+                  &c0_t,     &w_t,       &dgates_t,  &dh0_t,   &dc0_t,
+                  &counter_t, &steps,    &n_rows,    &hidden,  &chunk,
+                  &reverse};
+  return cooperative_launch(lstm_seq_bwd_kernel<T, kUnits>, p, args, stream);
+}
+
+template <typename T>
+int seq_bwd_dispatch(const SeqPlan& p, const void* dout, const void* dh_last,
+                     const void* dc_last, const void* gates, const void* cs,
+                     const void* c0, const void* w, void* dgates, void* dh0,
+                     void* dc0, void* counter, int steps, int n_rows,
+                     int hidden, int reverse, cudaStream_t stream) {
+#define MXT_BWD_UNITS(U)                                                    \
+  case U:                                                                   \
+    return seq_bwd_launch<T, U>(p, dout, dh_last, dc_last, gates, cs, c0,   \
+                                w, dgates, dh0, dc0, counter, steps,        \
+                                n_rows, hidden, reverse, stream);
+  switch (p.units) {
+    MXT_BWD_UNITS(1)
+    MXT_BWD_UNITS(2)
+    MXT_BWD_UNITS(3)
+    MXT_BWD_UNITS(4)
+    MXT_BWD_UNITS(5)
+    MXT_BWD_UNITS(6)
+    MXT_BWD_UNITS(7)
+    MXT_BWD_UNITS(8)
+    MXT_BWD_UNITS(9)
+    MXT_BWD_UNITS(10)
+  }
+#undef MXT_BWD_UNITS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// gates_out: (N, 4H) fp32 for the activated gates, or null.
 int lstm_cell_forward(const void* xproj, const void* h, const void* c,
-                      const void* w, void* h_out, void* c_out, int n_rows,
-                      int hidden, int dtype, void* stream) {
+                      const void* w, void* h_out, void* c_out,
+                      void* gates_out, int n_rows, int hidden, int dtype,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(xproj, h, c, w, h_out, c_out, n_rows, hidden, s);
+    return launch<float>(xproj, h, c, w, h_out, c_out, gates_out, n_rows,
+                         hidden, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(xproj, h, c, w, h_out, c_out, n_rows, hidden,
-                                 s);
+    return launch<__nv_bfloat16>(xproj, h, c, w, h_out, c_out, gates_out,
+                                 n_rows, hidden, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -570,12 +965,15 @@ int lstm_sequence_shared_bytes(int n_rows, int hidden, int sm_count) {
 }
 
 // One layer and direction over T steps in one cooperative launch planned on
-// sm_count SMs; counter is one zeroed uint32 for the grid barrier. dtype:
-// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// sm_count SMs; counter is one zeroed uint32 for the grid barrier. In
+// training gates_out (T, N, 4H) fp32 and c_all (T, N, H) keep what the
+// backward reads; inference passes null for both. dtype: 0 = float32,
+// 1 = bfloat16. Returns the cudaError_t of the launch.
 int lstm_sequence_forward(const void* xproj, const void* h0, const void* c0,
                           const void* w, void* out, void* h_last, void* c_last,
-                          void* counter, int steps, int n_rows, int hidden,
-                          int dtype, int reverse, int sm_count, void* stream) {
+                          void* gates_out, void* c_all, void* counter,
+                          int steps, int n_rows, int hidden, int dtype,
+                          int reverse, int sm_count, void* stream) {
   SeqPlan p;
   if (steps < 1 || !seq_plan(n_rows, hidden, sm_count, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -584,12 +982,13 @@ int lstm_sequence_forward(const void* xproj, const void* h0, const void* c0,
   const int rev = reverse ? 1 : 0;
   if (dtype == 0) {
     return seq_dispatch<float>(p, xproj, h0, c0, w, out, h_last, c_last,
-                               counter, steps, n_rows, hidden, rev, s);
+                               gates_out, c_all, counter, steps, n_rows,
+                               hidden, rev, s);
   }
   if (dtype == 1) {
     return seq_dispatch<__nv_bfloat16>(p, xproj, h0, c0, w, out, h_last,
-                                       c_last, counter, steps, n_rows, hidden,
-                                       rev, s);
+                                       c_last, gates_out, c_all, counter,
+                                       steps, n_rows, hidden, rev, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -606,6 +1005,69 @@ int lstm_sequence_barriers(void* counter, int steps, int n_rows, int hidden,
   void* args[] = {&counter_t, &steps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return cooperative_launch(lstm_barrier_kernel, p, args, s);
+}
+
+// One step of the backward (lstm_cell_bwd_kernel): dg_next (N, 4H) fp32 or
+// null at the first step, w_t = w_h2h^T (H, 4H), gates (N, 4H) fp32 or null
+// to write only dh_out, c_prev, dy, dh_in, dc_in, dc_out, dh_out (N, H),
+// dg_out (N, 4H) fp32. dc_in and dc_out may be one buffer. dtype: 0 =
+// float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+int lstm_cell_backward(const void* dg_next, const void* w_t, const void* gates,
+                       const void* c_prev, const void* dy, const void* dh_in,
+                       const void* dc_in, void* dg_out, void* dc_out,
+                       void* dh_out, int n_rows, int hidden, int dtype,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return cell_bwd_launch<float>(dg_next, w_t, gates, c_prev, dy, dh_in,
+                                  dc_in, dg_out, dc_out, dh_out, n_rows,
+                                  hidden, s);
+  }
+  if (dtype == 1) {
+    return cell_bwd_launch<__nv_bfloat16>(dg_next, w_t, gates, c_prev, dy,
+                                          dh_in, dc_in, dg_out, dc_out,
+                                          dh_out, n_rows, hidden, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared bytes a block of the backward sequence kernel takes
+// for N rows of H units on sm_count SMs, or -1 when the columns do not fit.
+int lstm_sequence_backward_shared_bytes(int n_rows, int hidden, int sm_count) {
+  SeqPlan p;
+  return bwd_plan(n_rows, hidden, sm_count, &p) ? static_cast<int>(p.smem)
+                                                : -1;
+}
+
+// The backward of one layer and direction over T steps in one cooperative
+// launch: dout (T, N, H), dh_last, dc_last, c0 (N, H), gates (T, N, 4H) fp32
+// and cs (T, N, H) from the training forward, w (4H, H); writes dgates
+// (T, N, 4H) fp32, dh0 and dc0 (N, H). counter is one zeroed uint32. dtype:
+// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+int lstm_sequence_backward(const void* dout, const void* dh_last,
+                           const void* dc_last, const void* gates,
+                           const void* cs, const void* c0, const void* w,
+                           void* dgates, void* dh0, void* dc0, void* counter,
+                           int steps, int n_rows, int hidden, int dtype,
+                           int reverse, int sm_count, void* stream) {
+  SeqPlan p;
+  if (steps < 1 || !bwd_plan(n_rows, hidden, sm_count, &p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rev = reverse ? 1 : 0;
+  if (dtype == 0) {
+    return seq_bwd_dispatch<float>(p, dout, dh_last, dc_last, gates, cs, c0,
+                                   w, dgates, dh0, dc0, counter, steps,
+                                   n_rows, hidden, rev, s);
+  }
+  if (dtype == 1) {
+    return seq_bwd_dispatch<__nv_bfloat16>(p, dout, dh_last, dc_last, gates,
+                                           cs, c0, w, dgates, dh0, dc0,
+                                           counter, steps, n_rows, hidden,
+                                           rev, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* lstm_cell_error_string(int err) {

@@ -10,7 +10,7 @@ it had when another array was derived from it, as with the JAX package's
 immutable arrays.
 
 Left out, raising :class:`MXNetError`: autograd (``attach_grad``,
-``backward``, ``grad``; the training slice), sparse storage (``tostype``
+``backward``, ``grad``; queue A8), sparse storage (``tostype``
 to csr/row_sparse; queue A9) and ``imdecode`` (queue A10). numpy has no
 bfloat16, so a bf16 array's ``dtype`` is :data:`bfloat16` and its
 ``asnumpy()`` is the exact float32 widening.
@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as _np
 import torch
 
+from .. import random as _random
 from ..base import MXNetError, numeric_types
 from ..context import Context, context_of, current_context
 from ..dtypes import bfloat16, dtype_name, is_bf16, numpy_dtype, torch_dtype
@@ -102,14 +103,15 @@ def _negative_step_index(t: torch.Tensor, key):
 
 
 def _autograd_is_training() -> bool:
-    """Train mode comes with autograd in the training slice; until then
-    every imperative call runs in eval mode."""
+    """Train mode comes with the imperative autograd of queue A8; until
+    then every imperative call runs in eval mode."""
     return False
 
 
 def _training_slice(what):
-    raise MXNetError(f"{what} needs autograd, which comes with the training "
-                     "slice of mxnet_tpu_torch")
+    raise MXNetError(f"{what} needs the imperative autograd of queue A8, "
+                     "not ported yet (symbolic training runs through "
+                     "Executor.backward and Module)")
 
 
 class NDArray:
@@ -221,7 +223,7 @@ class NDArray:
         raise MXNetError(f"storage type {stype!r} needs the sparse NDArrays "
                          "of queue A9, not ported yet")
 
-    # -- autograd (training slice) ------------------------------------------
+    # -- autograd (queue A8) ------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         _training_slice("attach_grad")
 
@@ -516,17 +518,12 @@ def _ctx_from_attr(ctx) -> Optional[Context]:
 
 def imperative_invoke(op_name, inputs, attrs, out=None):
     """Run one op on NDArrays. Outputs are new NDArrays, or with ``out=``
-    written (cast to each target's dtype) behind the given ones. Calls that
-    draw randomness (``opdef.uses_rng``) raise until ``random`` is ported
-    (queue A9); an op that takes a key but does not draw with these attrs
-    gets ``None`` for it. The autograd tape comes with the training
-    slice."""
+    written (cast to each target's dtype) behind the given ones. A call
+    that may draw randomness (``opdef.uses_rng``) gets the device's
+    ``random.generator``; an op that takes one but does not draw with these
+    attrs gets ``None``. The autograd tape is queue A8."""
     opdef = get_op(op_name) if isinstance(op_name, str) else op_name
     parsed = opdef.parse_attrs(attrs or {})
-    if opdef.uses_rng(parsed):
-        raise MXNetError(f"operator {opdef.name} draws random numbers: the "
-                         "imperative path runs it once `random` is ported "
-                         "(ROADMAP queue A9)")
     first = next((x for x in inputs if isinstance(x, NDArray)), None)
     device = (first._data.device if first is not None
               else (_ctx_from_attr(parsed.get("ctx"))
@@ -541,7 +538,8 @@ def imperative_invoke(op_name, inputs, attrs, out=None):
     if opdef.needs_is_train:
         call_attrs["_is_train"] = is_train
     if opdef.needs_rng:
-        vals = [None] + vals
+        vals = [_random.generator(device) if opdef.uses_rng(parsed)
+                else None] + vals
     outputs = opdef.fn(*vals, **call_attrs)
     if not isinstance(outputs, tuple):
         outputs = (outputs,)

@@ -5,8 +5,10 @@ whole sequence is one ``torch.matmul`` outside the time loop, as the JAX
 package leaves it to XLA. The LSTM's time loop (``lax.scan`` over the fused
 cell there) is one call of ``lstm_sequence_fused`` (``ops/cuda/lstm.py``) a
 layer and direction, which on CUDA tensors launches one persistent Hopper
-kernel for all T steps. GRU and the plain RNN modes are plain torch, a
-Python loop over the steps taking the place of ``lax.scan``.
+kernel for all T steps; in training it runs through that module's
+autograd Function, whose backward is a kernel too, while autograd
+differentiates the input projection. GRU and the plain RNN modes are plain
+torch, a Python loop over the steps taking the place of ``lax.scan``.
 
 Weight packing follows the cuDNN convention bit for bit: all layer weights
 first (per layer, per direction: i2h (G*H, in) then h2h (G*H, H), row-major),
@@ -19,6 +21,7 @@ import functools
 
 import torch
 
+from .. import random as _random
 from ..base import AttrSpec, MXNetError
 from ..dtypes import torch_dtype
 from .cuda.lstm import lstm_sequence_fused
@@ -134,16 +137,11 @@ def _run_direction(x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h, mode, H,
     return torch.stack(outs), carry[0], None
 
 
-def _rnn_impl(data, parameters, state, state_cell, state_size, num_layers,
-              mode, bidirectional, p, _is_train):
+def _rnn_impl(rng, data, parameters, state, state_cell, state_size,
+              num_layers, mode, bidirectional, p, _is_train):
     T, N, input_size = data.shape
     H = state_size
     D = _num_directions(bidirectional)
-    if p > 0 and _is_train and num_layers > 1:
-        # the reference draws a dropout mask between layers
-        raise MXNetError("RNN inter-layer dropout in training draws random "
-                         "numbers: it runs once `random` is ported (ROADMAP "
-                         "queue A1)")
     pieces = _unpack(parameters, num_layers, input_size, H, mode,
                      bidirectional)
     x = data
@@ -162,6 +160,12 @@ def _rnn_impl(data, parameters, state, state_cell, state_size, num_layers,
             if mode == "lstm":
                 c_states.append(cT)
         x = outs[0] if D == 1 else torch.cat(outs, dim=-1)
+        if p > 0 and _is_train and layer < num_layers - 1:
+            # the reference draws a dropout mask between layers
+            gen = rng if rng is not None else _random.generator(x.device)
+            keep = torch.empty(x.shape, device=x.device).bernoulli_(
+                1 - p, generator=gen)
+            x = torch.where(keep.bool(), x / (1 - p), 0).to(x.dtype)
     hy = torch.stack(h_states)
     if mode == "lstm":
         return x, hy, torch.stack(c_states)
@@ -227,9 +231,12 @@ def _rnn(rng, *inputs, state_size, num_layers, mode="lstm",
          lstm_state_clip_min=None, lstm_state_clip_max=None,
          _is_train=False):
     """Fused multi-layer RNN (reference rnn-inl.h; cuDNN-equivalent).
-    ``rng`` is unused: inter-layer dropout, the op's only randomness, is
-    drawn only in training between layers, and raises there until
-    ``random`` is ported. A one-layer op with p > 0 draws nothing."""
+    ``rng`` is the ``torch.Generator`` of the data's device (None: the
+    package's, ``random.generator``) for inter-layer dropout, the op's only
+    randomness, drawn only in training between layers: a one-layer op with
+    p > 0 draws nothing. The mask keeps each element with probability
+    1 - p and scales it by 1 / (1 - p); it cannot match ``jax.random``'s
+    bits."""
     if mode not in _GATES:
         raise MXNetError(f"unknown RNN mode {mode}")
     if mode == "lstm":
@@ -244,5 +251,5 @@ def _rnn(rng, *inputs, state_size, num_layers, mode="lstm",
         state_cell = None
     # hidden outputs are always produced; the registry's num_outputs picks
     # the visible prefix (out [, hy [, cy]])
-    return _rnn_impl(data, parameters, state, state_cell, state_size,
+    return _rnn_impl(rng, data, parameters, state, state_cell, state_size,
                      num_layers, mode, bidirectional, p, _is_train)

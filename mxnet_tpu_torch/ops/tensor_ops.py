@@ -200,16 +200,23 @@ def _crop(*args, num_args=1, offset=(0, 0), h_w=(0, 0), center_crop=False):
 
 @register("Embedding",
           num_inputs=2, input_names=["data", "weight"],
+          needs_is_train=True,
           param_shapes=lambda attrs, shapes: [
               shapes[0], (int(attrs["input_dim"]), int(attrs["output_dim"]))],
           attrs=AttrSpec(input_dim=("int",), output_dim=("int",),
                          dtype=("str", "float32"),
                          sparse_grad=("bool", False)))
 def _embedding(data, weight, input_dim, output_dim, dtype="float32",
-               sparse_grad=False):
+               sparse_grad=False, _is_train=False):
     """Table lookup. Token ids arrive as float32 (the predict ABI carries
     float32 only) and are cast to integers before the lookup. Ids outside
-    [0, input_dim) raise, where a CUDA gather would assert on the device."""
+    [0, input_dim) raise, where a CUDA gather would assert on the device:
+    the check reads one bool back to the host, once a call. The weight's
+    gradient is autograd's, dense; ``sparse_grad`` in training raises until
+    the row_sparse arrays of queue A9."""
+    if sparse_grad and _is_train:
+        raise MXNetError("Embedding(sparse_grad=True) in training needs the "
+                         "row_sparse gradients of queue A9, not ported yet")
     idx = data.to(torch.int64)
     if idx.device.type != "meta" and bool(
             ((idx < 0) | (idx >= weight.shape[0])).any()):

@@ -14,6 +14,7 @@ from .symbol import (  # noqa: F401
     Symbol,
     SymbolNode,
     Variable,
+    load,
     load_json,
     symbol_invoke,
     var,

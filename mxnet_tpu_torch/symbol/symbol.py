@@ -14,11 +14,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import random as _random
 from ..base import MXNetError, __version__, _parse_tuple
 from ..ndarray.ndarray import torch_dtype
 from ..ops.registry import OpDef, get_op
 
-__all__ = ["Symbol", "SymbolNode", "Variable", "var", "Group", "load_json", "symbol_invoke", "NameManager", "Prefix", "AttrScope"]
+__all__ = ["Symbol", "SymbolNode", "Variable", "var", "Group", "load_json",
+           "load", "symbol_invoke", "NameManager", "Prefix", "AttrScope"]
 
 
 class _NameManagerMeta(type):
@@ -285,22 +287,54 @@ class Symbol:
         out_shapes = [tuple(vals[(id(n), i)].shape) for n, i in self._outputs]
         return var_shapes, out_shapes
 
+    def attr_dict(self):
+        """{node name: its attributes as strings}, op attributes and user
+        attributes together (reference symbol.py attr_dict)."""
+        out = {}
+        for node in self._topo_nodes():
+            d = dict(node.scope_attrs)
+            if node.op is not None:
+                d.update(node.op.attr_spec.serialize(node.attrs))
+            else:
+                d.update({k: str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
+    def _arg_layouts(self):
+        """{weight variable name: its consumer op's ``layout`` attr}, which
+        initializers read for the fan-in and fan-out of channel-last
+        weights."""
+        out = {}
+        for node in self._topo_nodes():
+            layout = None if node.op is None else node.attrs.get("layout")
+            if not layout or str(layout) == "None":
+                continue
+            for p, _ in node.inputs:
+                if p.is_variable and p.name.endswith("weight"):
+                    out[p.name] = str(layout)
+        return out
+
     # -- binding -------------------------------------------------------------
+    def _grad_req_dict(self, grad_req):
+        names = self.list_arguments()
+        if isinstance(grad_req, str):
+            return {n: grad_req for n in names}
+        if isinstance(grad_req, (list, tuple)):
+            return dict(zip(names, grad_req))
+        return {n: grad_req.get(n, "null") for n in names}
+
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     **kwargs):
         """Infer shapes, allocate zero arrays on ``ctx`` (default: the
-        current context) and return a bound forward-only Executor."""
+        current context), a gradient array for each argument whose
+        ``grad_req`` (one string, a list in argument order, or a dict) is
+        ``write`` or ``add``, and return the bound Executor (reference:
+        symbol.py:1250)."""
         from ..context import current_context
         from ..executor import Executor
         from ..ndarray import zeros as nd_zeros
 
-        reqs = ({grad_req} if isinstance(grad_req, str)
-                else set(grad_req.values() if isinstance(grad_req, dict)
-                         else grad_req))
-        if reqs - {"null"}:
-            raise MXNetError("this executor runs forward only; gradients come "
-                             "with the training slice (bind with "
-                             "grad_req='null')")
         ctx = ctx or current_context()
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         type_dict = type_dict or {}
@@ -311,7 +345,44 @@ class Symbol:
                               dtype=type_dict.get(name, "float32"))
                for name, shape in zip(self.list_auxiliary_states(),
                                       aux_shapes)}
-        return Executor(self, ctx, args, aux)
+        reqs = self._grad_req_dict(grad_req)
+        grads = {name: nd_zeros(args[name].shape, ctx=ctx,
+                                dtype=args[name].dtype)
+                 for name, req in reqs.items() if req != "null"}
+        return Executor(self, ctx, args, grads, reqs, aux)
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        """Bind the caller's arrays (lists in argument order, or dicts):
+        gradients land in ``args_grad``, allocated as zeros where it is
+        None (reference: symbol.py:1514)."""
+        from ..context import current_context
+        from ..executor import Executor
+        from ..ndarray import zeros as nd_zeros
+
+        ctx = ctx or current_context()
+        arg_names = self.list_arguments()
+        aux_names = self.list_auxiliary_states()
+        if isinstance(args, (list, tuple)):
+            args = dict(zip(arg_names, args))
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(arg_names, args_grad))
+        if isinstance(aux_states, (list, tuple)):
+            aux_states = dict(zip(aux_names, aux_states))
+        args = dict(args or {})
+        missing = set(arg_names) - set(args)
+        if missing:
+            raise MXNetError(f"bind missing arguments: {sorted(missing)}")
+        reqs = self._grad_req_dict(grad_req)
+        if args_grad is None:
+            args_grad = {n: nd_zeros(args[n].shape, ctx=ctx,
+                                     dtype=args[n].dtype)
+                         for n, r in reqs.items() if r != "null"}
+        aux_states = dict(aux_states or {})
+        for n in aux_names:
+            if n not in aux_states:
+                raise MXNetError(f"bind missing auxiliary state {n}")
+        return Executor(self, ctx, args, dict(args_grad), reqs, aux_states)
 
     # -- serialization (MXNet graph-JSON structure) ---------------------------
     def tojson(self) -> str:
@@ -343,6 +414,10 @@ class Symbol:
         }
         return json.dumps(graph, indent=2)
 
+    def save(self, fname: str):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
 
 def _call_op(node: SymbolNode, ins, is_train: bool, device):
     """Run one op node on its input tensors; returns a tuple of outputs.
@@ -352,8 +427,14 @@ def _call_op(node: SymbolNode, ins, is_train: bool, device):
         attrs["_is_train"] = is_train
     if node.op.key_var_num_args and not attrs.get(node.op.key_var_num_args):
         attrs[node.op.key_var_num_args] = len(ins)
-    # the op's randomness (RNN dropout) runs only in training
-    args = ((None,) + tuple(ins)) if node.op.needs_rng else ins
+    # the op's randomness (RNN dropout) runs only in training, from the
+    # device's generator
+    if node.op.needs_rng:
+        gen = (_random.generator(device)
+               if is_train and node.op.uses_rng(node.attrs) else None)
+        args = (gen,) + tuple(ins)
+    else:
+        args = ins
     out = node.op.fn(*args, **attrs)
     out = out if isinstance(out, tuple) else (out,)
     if not ins:
@@ -460,3 +541,9 @@ def load_json(json_str: str) -> Symbol:
         nodes.append(node)
     heads = [(nodes[nid], idx) for nid, idx, *_ in graph["heads"]]
     return Symbol(heads)
+
+
+def load(fname: str) -> Symbol:
+    """Load a symbol JSON file (``Symbol.save``'s, or the JAX package's)."""
+    with open(fname) as f:
+        return load_json(f.read())

@@ -145,8 +145,9 @@ def test_cell_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(MXNetError):  # not contiguous
         lstm_cell_fused(args[0], args[1], args[2], args[3].t().contiguous().t())
     w = args[3].clone().requires_grad_()
-    with pytest.raises(MXNetError):  # no backward yet
-        lstm_cell_fused(args[0], args[1], args[2], w)
+    h, c = lstm_cell_fused(args[0], args[1], args[2], w)  # a gradient flows
+    (dw,) = torch.autograd.grad((h.sum() + c.sum(),), (w,))
+    assert dw.shape == w.shape and torch.isfinite(dw).all()
 
 
 def _rnn_inputs(mode, layers, bidirectional, T=4, N=3, I=5, H=6, seed=0):
@@ -225,23 +226,48 @@ def test_rnn_op_entry_matches_jax(ref, path, mode):
 
 
 @pytest.mark.parametrize("layers", [1, 2])
-def test_rnn_op_dropout_in_training(layers):
+def test_rnn_op_dropout_in_training(layers, monkeypatch):
     """The reference draws dropout only between layers: a one-layer op
-    with p > 0 in training equals the p = 0 result; a deeper one would
-    draw, and raises until ``random`` is ported."""
+    with p > 0 in training equals the p = 0 result. A deeper one draws
+    its mask from the given generator (the same seed, the same mask): the
+    second layer's input is the first layer's output, each element kept
+    with probability 1 - p and scaled by 1 / (1 - p), or zeroed. The mask
+    cannot match jax.random's bits, so the keep rate is held to a
+    binomial bound."""
     arrays, attrs = _toy_rnn("lstm", layers)
     fn = mxt.OP_TABLE["RNN"].fn
     ins = [torch.from_numpy(a) for a in arrays]
     assert mxt.OP_TABLE["RNN"].uses_rng({"p": 0.5})
     assert not mxt.OP_TABLE["RNN"].uses_rng({"p": 0.0})
-    if layers == 2:
-        with pytest.raises(MXNetError):
-            fn(None, *ins, p=0.5, _is_train=True, **attrs)
+    if layers == 1:
+        want = fn(None, *ins, p=0.0, _is_train=True, **attrs)
+        got = fn(None, *ins, p=0.5, _is_train=True, **attrs)
+        for w, g in zip(want, got, strict=True):
+            assert torch.equal(w, g)
         return
-    want = fn(None, *ins, p=0.0, _is_train=True, **attrs)
-    got = fn(None, *ins, p=0.5, _is_train=True, **attrs)
-    for w, g in zip(want, got, strict=True):
-        assert torch.equal(w, g)
+    p = 0.3
+    seen = []
+    run = port_rnn_ops._run_direction
+
+    def spy(x, *args, **kwargs):
+        out = run(x, *args, **kwargs)
+        seen.append((x, out[0]))
+        return out
+
+    monkeypatch.setattr(port_rnn_ops, "_run_direction", spy)
+    arrays, hdim = _rnn_inputs("lstm", 2, False, T=4, N=50, I=4, H=5, seed=3)
+    ins = [torch.from_numpy(a) for a in arrays]
+    attrs = dict(attrs, state_size=hdim)
+    outs = [fn(torch.Generator().manual_seed(7), *ins, p=p, _is_train=True,
+               **attrs) for _ in range(2)]
+    for a, b in zip(*outs, strict=True):
+        assert torch.equal(a, b)  # one seed, one mask
+    first_out, second_in = seen[0][1], seen[1][0]  # layer 0 out, 1 in
+    kept = second_in != 0
+    torch.testing.assert_close(second_in[kept], first_out[kept] / (1 - p))
+    keep_rate = kept.float().mean().item()
+    assert abs(keep_rate - (1 - p)) <= 4 * math.sqrt(p * (1 - p)
+                                                     / kept.numel())
 
 
 @pytest.mark.parametrize("bidirectional", [False, True])
@@ -573,8 +599,9 @@ def test_sequence_kernel_rejects_what_it_does_not_take(card):
         lstm_sequence_fused(args[0], args[1], args[2],
                             args[3].t().contiguous().t())
     w = args[3].clone().requires_grad_()
-    with pytest.raises(MXNetError):  # no backward yet
-        lstm_sequence_fused(args[0], args[1], args[2], w)
+    out, _, _ = lstm_sequence_fused(args[0], args[1], args[2], w)
+    (dw,) = torch.autograd.grad((out.sum(),), (w,))  # a gradient flows
+    assert dw.shape == w.shape and torch.isfinite(dw).all()
 
 
 @pytest.mark.cuda

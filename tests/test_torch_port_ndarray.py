@@ -554,10 +554,18 @@ def test_left_out_parts_raise():
             with pytest.raises(MXNetError):
                 call()
         assert a.tostype("default") is a and a.detach().shape == (2,)
-    # a call that draws random numbers (RNN's dropout at p > 0)
-    with pytest.raises(MXNetError, match="A9"):
-        mxt.nd.imperative_invoke("RNN", [], {"state_size": 2, "num_layers": 1,
-                                             "p": 0.5})
+    # a call that may draw random numbers (RNN's dropout at p > 0) gets
+    # the device's generator; imperative calls run in eval mode (autograd
+    # is queue A8), where dropout draws nothing
+    rng = np.random.RandomState(0)
+    ins = [rng.normal(0, 1, (3, 2, 4)), rng.uniform(-0.3, 0.3, (460,)),
+           np.zeros((2, 2, 5)), np.zeros((2, 2, 5))]
+    attrs = {"state_size": 5, "num_layers": 2, "mode": "lstm"}
+    with mxt.cpu():
+        arrays = [pnd.array(a) for a in ins]
+        want = mxt.nd.imperative_invoke("RNN", arrays, attrs)[0]
+        got = mxt.nd.imperative_invoke("RNN", arrays, dict(attrs, p=0.5))[0]
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
 
 
 def test_default_context_is_the_card():

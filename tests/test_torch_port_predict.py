@@ -311,11 +311,22 @@ def test_gpu_without_card_raises(lm, ask):
 
 
 def test_executor_is_forward_only(lm):
+    """An executor bound with grad_req='null' (the predict path's) is
+    forward only: it holds no gradient array, and backward raises until a
+    training forward has run. With grad_req 'write' it trains
+    (tests/test_torch_port_train.py)."""
     net = build_lm(mxt)
-    with pytest.raises(MXNetError):
-        net.simple_bind(mxt.cpu(), data=(1, T))  # grad_req 'write'
     ex = net.simple_bind(mxt.cpu(), grad_req="null", data=(1, T))
+    assert ex.grad_dict == {} and set(ex.grad_arrays) == {None}
     with pytest.raises(MXNetError):
-        ex.forward(is_train=True)
+        ex.backward()
     (out,) = ex.forward()
     assert out.shape == (T, V) and out.context == mxt.cpu()
+    with pytest.raises(MXNetError):  # an inference forward records nothing
+        ex.backward()
+    (train_out,) = ex.forward(is_train=True)
+    np.testing.assert_array_equal(train_out.asnumpy(), out.asnumpy())
+    ex.backward()
+    assert ex.grad_dict == {}
+    trainable = net.simple_bind(mxt.cpu(), data=(1, T))  # grad_req 'write'
+    assert sorted(trainable.grad_dict) == sorted(net.list_arguments())
