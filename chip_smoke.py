@@ -9,8 +9,8 @@ It exits non-zero, and prints no result line, when there is no CUDA card or
 no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 
 1. device: the card's name, capability, name and power limit; TF32 off;
-2. build: every kernel library built from ``mxnet_tpu_torch/csrc`` by
-   concurrent ``nvcc`` processes, with ``-Xptxas -v`` output, and the
+2. build: every kernel library (four) built from ``mxnet_tpu_torch/csrc``
+   by concurrent ``nvcc`` processes, with ``-Xptxas -v`` output, and the
    wgmma attention kernel's registers, spills, wgmma serialization and
    shared memory a block;
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
@@ -87,11 +87,34 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    LM through the per-step kernels (T and T + 1 launches); the backward
    kernel's time against its bound and the plain loop, and the port's
    whole layer backward against cuDNN's LSTM backward on the same inputs,
-   at T=128, N=1 and 16, and at the bench shape.
+   at T=128, N=1 and 16, and at the bench shape;
+12. transformer training: (a) the attention backward kernels
+   (``csrc/flash_attention_bwd.cu``) through the autograd Functions
+   against the plain backward versions on the card's tensors, fp32 and
+   bf16: dense at the model's (4,8,2048,64) causal, (2,3,1000,1000,64)
+   non-causal, (2,2,77,200,128) causal Sq < Sk, (2,8,500,500,64) as
+   (B,S,H,D) views, (1,2,77,77,40) fp32 (the CUDA-core variant) and one
+   token; masked with ATT_LENGTHS and with packed segments at the model's
+   shape and one fp32 case, the gradients of rows and keys the mask leaves
+   alone exact 0; then the masked core's training path (a packed and a
+   length-masked batch through the public ``flash_attention`` and
+   ``torch.autograd.grad``); (b) one ``lm_loss`` gradient of the
+   full-width LM in fp32 (B=2, S=128, ``init_params(0, cfg)``) on the card
+   and on the port's CPU path, each gradient within 1e-5 of its own
+   largest; (c) ``TransformerLM(TransformerConfig(), seed=0)`` on the
+   default context, 10 ``train_step``s on one batch of (4, 2049) tokens
+   at lr 1e-3: 4 dense forward and 4 dense backward launches a step, every
+   loss and parameter finite, the loss falling; (d) ms per step (CUDA
+   events, median of 7), tokens/s against the step's bound, peak memory,
+   one profiled step; (e) one backward call at the model's shape, dense
+   and with ATT_LENGTHS: its time, each of its three kernels', its bound,
+   its plain version and ``scaled_dot_product_attention``'s autograd
+   backward on the same inputs.
 
-Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM) sets its kernels' launch counts
-to 0 just before it runs and reads them just after, and fails if a kernel
-of the path was not launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
+training path and 12c) sets its kernels' launch counts to 0 just before it
+runs and reads them just after, and fails if a kernel of the path was not
+launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -2076,6 +2099,455 @@ def rtc_record(rtc_k, imp):
     }
 
 
+# -- transformer training (phase 12) -------------------------------------------
+
+# the backward kernels against their plain versions on the card's tensors,
+# each gradient relative to its largest magnitude (at least ATT_BWD_FLOOR:
+# with one token dq is 0 by math, P = 1 and dS = dP - delta, and only
+# summation order shows): fp32 only the summation order differs; bf16
+# rounds P and dS to bf16 as the A operand of the dV, dK and dQ mma
+# products (and each gradient once, as the plain version does)
+ATT_BWD_FP32_TOL = 2e-5
+ATT_BWD_BF16_TOL = 2.0 ** -6
+ATT_BWD_FLOOR = 2.0 ** -10
+# (B, H, Sq, Sk, D) of the transformer's attention at its largest bucket
+ATT_SHAPE5 = ATT_SHAPE[:3] + ATT_SHAPE[2:]
+# (label, (B, H, Sq, Sk, D), causal, lengths, packed segments, layout,
+# dtype): the model's shape, ragged tiles, causal Sq < Sk at D = 128, the
+# transformer's (B, S, H, D) views, the CUDA-core variant (fp32, D = 40),
+# one token; the masked core with ATT_LENGTHS (batch 3 sees no key) and
+# packed segments (pad tokens), and one fp32 masked case
+ATT_BWD_CASES = [
+    ("model", ATT_SHAPE5, True, None, False, "bhsd",
+     torch.bfloat16),
+    ("ragged", (2, 3, 1000, 1000, 64), False, None, False, "bhsd",
+     torch.bfloat16),
+    ("causal Sq<Sk D=128", (2, 2, 77, 200, 128), True, None, False, "bhsd",
+     torch.bfloat16),
+    ("views (B,S,H,D)", (2, 8, 500, 500, 64), True, None, False, "bshd",
+     torch.bfloat16),
+    ("fp32 D=40", (1, 2, 77, 77, 40), True, None, False, "bhsd",
+     torch.float32),
+    ("one token", (1, 1, 1, 1, 64), False, None, False, "bhsd",
+     torch.bfloat16),
+    ("lengths", ATT_SHAPE5, True, ATT_LENGTHS, False,
+     "bhsd", torch.bfloat16),
+    ("packed", ATT_SHAPE5, True, None, True, "bhsd",
+     torch.bfloat16),
+    ("fp32 masked", (2, 2, 300, 300, 64), True, [300, 111], True, "bhsd",
+     torch.float32),
+]
+# the transformer trained: TransformerConfig() on the default context,
+# tokens (B, S + 1) from RandomState(0), plain SGD at this learning rate
+# (TransformerLM.train_step's default)
+TF_TRAIN_B, TF_TRAIN_S = 4, 2048
+TF_TRAIN_STEPS = 10
+TF_TRAIN_LR = 1e-3
+# one lm_loss gradient of the fp32 LM, card against the port's CPU path,
+# each held relative to its own largest magnitude: summation order only
+TF_GRAD_B, TF_GRAD_S = 2, 128
+TF_GRAD_TOL = 1e-5
+
+
+def attention_counts():
+    """(dense, masked, dense backward, masked backward) launches."""
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
+    return (fa.launches, fa.masked_launches, fa.backward_launches,
+            fa.masked_backward_launches)
+
+
+def zero_attention_counts():
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
+    for name in ("launches", "masked_launches", "wgmma_launches",
+                 "backward_launches", "masked_backward_launches",
+                 "mma_backward_launches"):
+        setattr(fa, name, 0)
+
+
+def attention_grad_inputs(b, h, sq, sk, d, dtype, seed, layout="bhsd"):
+    """q, k, v and an output cotangent on the card; with layout "bshd",
+    (B, H, S, D) views of (B, S, H, D) memory."""
+    rng = np.random.RandomState(seed)
+
+    def make(s):
+        if layout == "bshd":
+            return torch.tensor(rng.normal(0, 1, (b, s, h, d)), dtype=dtype,
+                                device=CARD).transpose(1, 2)
+        return torch.tensor(rng.normal(0, 1, (b, h, s, d)), dtype=dtype,
+                            device=CARD)
+    return make(sq), make(sk), make(sk), make(sq)
+
+
+def phase_attention_backward_kernels():
+    """(a) The backward kernels (csrc/flash_attention_bwd.cu) through the
+    autograd Functions against the plain backward versions on the same
+    card tensors; the route each takes (the mma.sync variant for bf16 at
+    D = 64 or 128 over aligned views); rows that see no key with dq exact
+    0 and keys no row sees with dk and dv exact 0. Then the masked core's
+    training path: a packed and a length-masked batch through the public
+    flash_attention, differentiated by torch.autograd.grad, as a caller
+    training on packed rows does. Returns the worst errors by kernel, and
+    the masked path's launches."""
+    from mxnet_tpu_torch.ops.cuda.attention import (
+        _combined_mask, attention_backward_plain, flash_attention,
+        masked_attention_backward_plain)
+    errs = {name: {"fp32_rel": 0.0, "bf16_rel": 0.0, "max_abs": 0.0}
+            for name in ("flash_attention_backward",
+                         "flash_attention_masked_backward")}
+    for i, (label, shape, causal, lengths, packed, layout, dtype) in \
+            enumerate(ATT_BWD_CASES):
+        b, h, sq, sk, d = shape
+        q, k, v, do = attention_grad_inputs(b, h, sq, sk, d, dtype,
+                                            seed=300 + i, layout=layout)
+        lens = (None if lengths is None else
+                torch.tensor(lengths, dtype=torch.int32, device=CARD))
+        seg = packed_segments(b, sk) if packed else None
+        masked = lens is not None or seg is not None
+        name = ("flash_attention_masked_backward" if masked
+                else "flash_attention_backward")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=causal, lengths=lens,
+                              segment_ids=seg)
+        before = (attention_counts(), flash_attention.mma_backward_launches)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        moved = (tuple(a - c for a, c in zip(attention_counts(), before[0])),
+                 flash_attention.mma_backward_launches - before[1])
+        mma = dtype == torch.bfloat16 and d in (64, 128)
+        if moved != ((0, 0, int(not masked), int(masked)), int(mma)):
+            raise RuntimeError(f"{name} {label}: the counters moved {moved}")
+        if masked:
+            want = masked_attention_backward_plain(q, k, v, do, lens, seg,
+                                                   causal=causal)
+        else:
+            want = attention_backward_plain(q, k, v, out.detach(), do,
+                                            causal=causal)
+        tol = ATT_BWD_FP32_TOL if dtype == torch.float32 else ATT_BWD_BF16_TOL
+        rel = []
+        for gname, g, w in zip(("dq", "dk", "dv"), grads, want):
+            if g.dtype != dtype or g.shape != w.shape:
+                raise RuntimeError(f"{name} {label} {gname}: {g.dtype} "
+                                   f"{tuple(g.shape)}")
+            diff = (g.float() - w.float()).abs().max().item()
+            rel.append(diff / max(ATT_BWD_FLOOR,
+                                  w.float().abs().max().item()))
+            errs[name]["max_abs"] = max(errs[name]["max_abs"], diff)
+            if not rel[-1] <= tol:
+                raise RuntimeError(f"{name} {label} {gname} disagrees with "
+                                   f"the plain backward: {rel[-1]} > {tol}")
+        key = "fp32_rel" if dtype == torch.float32 else "bf16_rel"
+        errs[name][key] = max(errs[name][key], *rel)
+        dead = ""
+        if masked:
+            mask = _combined_mask(sq, sk, causal, lens, seg, q.device)
+            mask = mask.expand(b, h, sq, sk)
+            dead_q, dead_k = ~mask.any(-1), ~mask.any(-2)
+            if not (bool(dead_q.any())
+                    and bool((grads[0][dead_q] == 0).all())
+                    and bool((grads[1][dead_k] == 0).all())
+                    and bool((grads[2][dead_k] == 0).all())):
+                raise RuntimeError(f"{name} {label}: the gradients of rows "
+                                   "and keys the mask leaves alone are not "
+                                   "exact 0")
+            if lengths is not None and lengths[-1] == 0 and not all(
+                    bool((g[-1] == 0).all()) for g in grads):
+                raise RuntimeError(f"{name} {label}: the length-0 batch's "
+                                   "gradients are not exact 0")
+            dead = (f"; {int(dead_q.sum())} rows and {int(dead_k.sum())} "
+                    "keys unseen, their gradients exact 0")
+        log(f"[train-attention] {name} {label} {shape} {str(dtype)[6:]}"
+            f"{' (mma.sync)' if mma else ' (CUDA cores)'}: dq, dk, dv "
+            f"max|d| / max|plain| "
+            + ", ".join(f"{e:.3e}" for e in rel) + f" (tol {tol}){dead}")
+
+    # the masked core's training path
+    b, h, s, d = ATT_SHAPE
+    q, k, v, do = attention_grad_inputs(b, h, s, s, d, torch.bfloat16,
+                                        seed=399)
+    seg = packed_segments(b, s)
+    lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=CARD)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    zero_attention_counts()  # the masked training path's run starts here
+    grads = [torch.autograd.grad(
+        flash_attention(*leaves, causal=True, **kw), leaves, do)
+        for kw in ({"segment_ids": seg}, {"lengths": lens})]
+    torch.cuda.synchronize()
+    path = attention_counts()  # and ends here
+    log(f"[train-attention] masked training path, packed and length-masked "
+        f"batches {ATT_SHAPE} bf16: (dense, masked, dense backward, masked "
+        f"backward) launches {path}")
+    if path != (0, 2, 0, 2):
+        raise RuntimeError(f"the masked training path launched {path}")
+    if not all(bool(torch.isfinite(g).all()) for gs in grads for g in gs):
+        raise RuntimeError("non-finite masked gradients")
+    return errs, path[3]
+
+
+def phase_tf_train_card_vs_cpu():
+    """(b) One lm_loss gradient of the full-width LM in fp32 (TF32 off),
+    B=TF_GRAD_B, S=TF_GRAD_S, parameters from init_params(0, cfg), on the
+    card and on the port's CPU path: every gradient within TF_GRAD_TOL of
+    its own largest magnitude."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    init_params,
+                                                    lm_loss_and_grads)
+    cfg = TransformerConfig(dtype="float32")
+    toks = np.random.RandomState(12).randint(
+        0, cfg.vocab_size, (TF_GRAD_B, TF_GRAD_S + 1))
+    before = attention_counts()
+    loss_card, card = lm_loss_and_grads(init_params(0, cfg, ctx=mx.gpu(0)),
+                                        torch.tensor(toks, device=CARD), cfg)
+    torch.cuda.synchronize()
+    moved = tuple(a - c for a, c in zip(attention_counts(), before))
+    loss_cpu, cpu = lm_loss_and_grads(init_params(0, cfg, ctx=mx.cpu()),
+                                      torch.tensor(toks), cfg)
+    if moved != (cfg.num_layers, 0, cfg.num_layers, 0):
+        raise RuntimeError(f"the fp32 gradient launched {moved}")
+    errs, scales = {}, {}
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        scales[name] = float(want.abs().max())
+        errs[name] = float((got - want).abs().max()) / scales[name]
+        if not bool(torch.isfinite(got).all()) or not errs[name] <= \
+                TF_GRAD_TOL:
+            raise RuntimeError(f"transformer gradient {name}: card against "
+                               f"CPU {errs[name]} > {TF_GRAD_TOL}")
+    loss_err = abs(float(loss_card) - float(loss_cpu))
+    log(f"[train-tf] fp32 LM B={TF_GRAD_B} S={TF_GRAD_S}: loss card "
+        f"{float(loss_card):.6f}, CPU {float(loss_cpu):.6f}; gradients card "
+        f"against CPU, max|d| / max|cpu|: "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (tol {TF_GRAD_TOL}); max|cpu| "
+        + ", ".join(f"{n} {v:.3g}" for n, v in scales.items()))
+    if not loss_err <= TF_GRAD_TOL * abs(float(loss_cpu)):
+        raise RuntimeError(f"loss card against CPU: {loss_err}")
+    return {"grad_rel_err": errs, "loss_abs_err": loss_err}
+
+
+def train_step_bound_ms(cfg, tokens, live_pairs):
+    """Least time of one training step: the fp32 head's three products
+    (forward, and its two gradients; TF32 off) at the fp32 peak, the bf16
+    block products (q, k, v, o, gate, up, down: forward and two gradients)
+    and attention (4*D operations a live pair forward, 10*D backward) at
+    the bf16 tensor-core peak, one after another."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    head = 6 * d * cfg.vocab_size * tokens
+    blocks = 6 * L * (4 * d * d + 3 * d * f) * tokens
+    att = 14 * cfg.head_dim * live_pairs * L
+    return (head / FP32_FLOPS + (blocks + att) / BF16_TENSOR_FLOPS) * 1e3, {
+        "head_gflop": head / 1e9, "block_gflop": blocks / 1e9,
+        "attention_gflop": att / 1e9}
+
+
+def phase_tf_train():
+    """(c) The slice: TransformerLM(TransformerConfig(), seed=0) on the
+    default context, TF_TRAIN_STEPS train_steps on one repeated batch of
+    tokens (B, S + 1) at TF_TRAIN_LR; each step 4 dense forward and 4
+    dense backward launches and no masked one; every loss and parameter
+    finite; the loss falls. (d) Then ms per step (CUDA events, median of
+    7 after a warm-up), tokens/s, peak device memory and one profiled
+    step."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM, _leaves)
+    cfg = TransformerConfig()
+    toks = torch.tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TF_TRAIN_B, TF_TRAIN_S + 1)), device=CARD)
+    torch.cuda.reset_peak_memory_stats()
+    zero_attention_counts()  # the main path's run starts here
+    lm = TransformerLM(cfg, seed=0)  # the default context, gpu(0)
+    losses, per_step, prev = [], [], attention_counts()
+    for _ in range(TF_TRAIN_STEPS):
+        losses.append(lm.train_step(toks, lr=TF_TRAIN_LR))
+        now = attention_counts()
+        per_step.append(tuple(a - c for a, c in zip(now, prev)))
+        prev = now
+    launches = attention_counts()  # the main path's run ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = (cfg.num_layers, 0, cfg.num_layers, 0)
+    log(f"[train-tf] TransformerLM {cfg.vocab_size} vocab, "
+        f"{cfg.num_layers} x {cfg.d_model}, {cfg.dtype}, tokens "
+        f"{tuple(toks.shape)}: {TF_TRAIN_STEPS} train_steps at lr "
+        f"{TF_TRAIN_LR}, loss {losses}; (dense, masked, dense backward, "
+        f"masked backward) launches per step {per_step[0]}, total "
+        f"{launches}; peak device memory {peak} bytes")
+    if any(c != want for c in per_step):
+        raise RuntimeError(f"launches per step {per_step}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite loss: {losses}")
+    for name, p in _leaves(lm.params):
+        if not bool(torch.isfinite(p).all()):
+            raise RuntimeError(f"parameter {name} not finite")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall at lr {TF_TRAIN_LR}: "
+                           f"{losses}")
+
+    event_ms, host_ms = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        lm.train_step(toks, lr=TF_TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+    event_ms, host_ms = event_ms[1:], host_ms[1:]  # the first warms up
+    ms = statistics.median(event_ms)
+    tokens = TF_TRAIN_B * TF_TRAIN_S
+    live = TF_TRAIN_B * cfg.num_heads * TF_TRAIN_S * (TF_TRAIN_S + 1) // 2
+    bound_ms, parts = train_step_bound_ms(cfg, tokens, live)
+    log(f"[train-tf] one train_step ({TF_TRAIN_B} x {TF_TRAIN_S} tokens): "
+        f"median {ms:.3f} ms (CUDA events) of "
+        f"{[round(x, 3) for x in event_ms]}, host clock median "
+        f"{statistics.median(host_ms):.3f} ms; {tokens / ms * 1e3:.1f} "
+        f"tokens/s; bound {bound_ms:.3f} ms ({parts}), "
+        f"{tokens / bound_ms * 1e3:.1f} tokens/s at most")
+    profile = profile_device(f"one train_step {TF_TRAIN_B} x {TF_TRAIN_S}",
+                             lambda: lm.train_step(toks, lr=TF_TRAIN_LR))
+    return {"launches": launches, "per_step": per_step[0], "losses": losses,
+            "lr": TF_TRAIN_LR, "step_ms": ms, "step_runs_ms": event_ms,
+            "step_host_ms": statistics.median(host_ms),
+            "tokens_per_s": tokens / ms * 1e3, "bound_ms": bound_ms,
+            "bound_parts_gflop": parts,
+            "bound_tokens_per_s": tokens / bound_ms * 1e3,
+            "peak_device_bytes": peak, "profile": profile}
+
+
+def attention_backward_bound_ms(live_pairs, b, h, sq, sk, d, elem_bytes):
+    """Least time of one backward on an H100: q, k, v, o and dO read once
+    and dq, dk, dv written once, against 10*D operations per live pair
+    (S, dP, dV, dK, dQ) at the bf16 tensor-core peak."""
+    nbytes = elem_bytes * b * h * d * (4 * sq + 4 * sk)
+    flops = 10 * d * live_pairs
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def phase_attention_backward_timing():
+    """(e) One backward call (K0, K1, K2) at the transformer's shape, bf16
+    causal, dense and with ATT_LENGTHS: CUDA events over back-to-back
+    calls; each kernel's device time from the profiler; its bound, the
+    plain version and the library's backward: the autograd backward of
+    scaled_dot_product_attention on the same inputs (is_causal, or the
+    mask as a bool tensor), timed only."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda.attention import (
+        _backward_launch, _combined_mask, attention_backward_plain,
+        attention_plain, masked_attention_backward_plain,
+        masked_attention_plain)
+    b, h, s, d = ATT_SHAPE
+    scale = 1.0 / d ** 0.5
+    q, k, v, do = attention_grad_inputs(b, h, s, s, d, torch.bfloat16,
+                                        seed=401)
+    lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=CARD)
+    mask = _combined_mask(s, s, True, lens, None, q.device)
+    out = attention_plain(q, k, v, causal=True)
+    out_len = masked_attention_plain(q, k, v, lens, causal=True)
+    rows = {}
+    for name, kernel, plain, sdpa_kw, live in (
+            ("flash_attention_backward",
+             lambda: _backward_launch(q, k, v, out, do, True, scale, None,
+                                      None),
+             lambda: attention_backward_plain(q, k, v, out, do, causal=True),
+             {"is_causal": True}, b * h * s * (s + 1) // 2),
+            ("flash_attention_masked_backward",
+             lambda: _backward_launch(q, k, v, out_len, do, True, scale,
+                                      lens, None),
+             lambda: masked_attention_backward_plain(q, k, v, do, lens,
+                                                     causal=True),
+             {"attn_mask": mask}, h * int(mask.sum().item()))):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+
+        def library():
+            return torch.autograd.grad(y, leaves, do, retain_graph=True)
+
+        turns = {"kernel": [], "library": []}
+        for turn in ("kernel", "library", "library", "kernel"):
+            turns[turn].append(time_on_stream(
+                kernel if turn == "kernel" else library, iters=20))
+        row = {"kernel_ms": statistics.mean(turns["kernel"]),
+               "kernel_turns_ms": turns["kernel"],
+               "library_ms": statistics.mean(turns["library"]),
+               "library_turns_ms": turns["library"],
+               "plain_ms": time_on_stream(plain, iters=3),
+               "live_pairs": live}
+        row["bound_ms"], row["bound_by"] = attention_backward_bound_ms(
+            live, b, h, s, s, d, 2)
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        row["tflops"] = 10 * d * live / row["kernel_ms"] / 1e9
+        prof = profile_device(f"10 backward calls, {name}",
+                              lambda: [kernel() for _ in range(10)])
+        # device us per launch of each kernel, over the launches the
+        # profiler recorded (it may drop a record of a window)
+        row["stages_us"] = {
+            stage: sum(us for key, us, _ in prof["top"] if tag in key)
+            / max(1, sum(n for key, _, n in prof["top"] if tag in key))
+            for stage, tag in (("K0 prep", "flash_bwd_prep"),
+                               ("K1 dk dv", "flash_bwd_dkdv"),
+                               ("K2 dq", "flash_bwd_dq"))}
+        rows[name] = row
+        log(f"[train-timing] {name} {ATT_SHAPE} bf16 causal"
+            f"{' lengths=' + str(ATT_LENGTHS) if 'masked' in name else ''}: "
+            f"kernels {row['kernel_ms'] * 1e3:.3f} us a call (turns "
+            f"{[round(t * 1e3, 3) for t in turns['kernel']]}; by stage "
+            f"{ {k: round(u, 3) for k, u in row['stages_us'].items()} } us), "
+            f"{row['tflops']:.2f} TFLOP/s on {live} live pairs, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} (share "
+            f"{row['share_of_bound']:.4f}); plain {row['plain_ms'] * 1e3:.1f}"
+            f" us; scaled_dot_product_attention's autograd backward "
+            f"(library) {row['library_ms'] * 1e3:.3f} us (turns "
+            f"{[round(t * 1e3, 3) for t in turns['library']]})")
+    return rows
+
+
+def attention_backward_records(kerrs, masked_path_launches, tf_train,
+                               timing):
+    """The flash_attention_backward and flash_attention_masked_backward
+    entries of the kernels line."""
+    records = []
+    for name, line, launches, path in (
+            ("flash_attention_backward", 158, tf_train["launches"][2],
+             f"{TF_TRAIN_STEPS} train_steps of the transformer LM "
+             "(phase 12c)"),
+            ("flash_attention_masked_backward", 261, masked_path_launches,
+             "the masked training path, a packed and a length-masked batch "
+             "(phase 12a); 0 on the transformer's")):
+        t = timing[name]
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"mxnet_tpu/ops/pallas/attention.py:{line}",
+            "launches": launches,
+            "launches_path": path,
+            "max_abs_err": kerrs[name]["max_abs"],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "autograd backward of torch.nn.functional."
+                       "scaled_dot_product_attention on the same inputs",
+            "shape": f"(B,H,S,D)={ATT_SHAPE} bf16 causal" + (
+                f" lengths={ATT_LENGTHS}" if "masked" in name else ""),
+            "max_rel_err_fp32": kerrs[name]["fp32_rel"],
+            "max_rel_err_bf16": kerrs[name]["bf16_rel"],
+            "share_of_bound": t["share_of_bound"],
+            "tflops": t["tflops"],
+            "live_pairs": t["live_pairs"],
+            "stages_us": t["stages_us"],
+            "kernel_turns_ms": t["kernel_turns_ms"],
+            "library_turns_ms": t["library_turns_ms"],
+        })
+    records[0]["transformer_training"] = tf_train
+    return records
+
+
 def main():
     phase_device()
     wgmma_build = phase_build()
@@ -2099,6 +2571,11 @@ def main():
     bench = phase_train_bench()
     wide_train_launches = phase_train_wide()
     train_timing = phase_train_timing()
+    att_bwd_errs, masked_bwd_launches = phase_attention_backward_kernels()
+    tf_grads = phase_tf_train_card_vs_cpu()
+    tf_train = phase_tf_train()
+    tf_train["gradients_card_vs_cpu"] = tf_grads
+    att_bwd_timing = phase_attention_backward_timing()
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -2197,6 +2674,8 @@ def main():
     records.append(rtc_record(rtc_k, imp))
     records += train_records(train_kerrs, grad_errs, bench,
                              wide_train_launches, train_timing)
+    records += attention_backward_records(att_bwd_errs, masked_bwd_launches,
+                                          tf_train, att_bwd_timing)
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "mxnet_tpu_torch"
 # library name -> source file under csrc/
 SOURCES = {"lstm_cell": "lstm_cell.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "rtc_runtime": "rtc_runtime.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

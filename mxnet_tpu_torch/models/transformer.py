@@ -6,8 +6,11 @@ positions, pre-norm blocks, SwiGLU MLP, an untied head. Attention runs
 ``causal=True``, which on the card launches the Hopper kernel
 (``csrc/flash_attention.cu``) once per layer. The products are
 ``torch.matmul`` (cuBLAS), as the JAX package left them to XLA, with the
-bf16 casts where the JAX code puts them. The loss, the gradient and
-``train_step`` come with the training slice; sequence parallelism
+bf16 casts where the JAX code puts them. :func:`lm_loss` is the next-token
+cross entropy; ``TransformerLM.train_step`` takes its gradient through
+autograd (attention's backward launches the Hopper kernels of
+``csrc/flash_attention_bwd.cu`` once per layer) and takes a plain SGD step
+on the fp32 master tensors in place. Sequence parallelism
 (``mesh``/``seq_axis``) comes with the mesh.
 """
 from __future__ import annotations
@@ -23,7 +26,8 @@ from ..context import Context, current_context
 from ..ndarray.ndarray import torch_dtype
 from ..ops.cuda.attention import flash_attention
 
-__all__ = ["TransformerConfig", "init_params", "forward", "TransformerLM"]
+__all__ = ["TransformerConfig", "init_params", "forward", "lm_loss",
+           "lm_loss_and_grads", "TransformerLM"]
 
 
 class TransformerConfig:
@@ -148,6 +152,48 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
     return x.float() @ params["head"]
 
 
+def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None,
+            seq_axis: Optional[str] = None, seq_mode: str = "auto"):
+    """Next-token cross entropy, a 0-d fp32 tensor; tokens (B, S+1) int on
+    the params' device: the mean over B*S of -log_softmax(logits of
+    tokens[:, :-1]) at tokens[:, 1:]. Target ids are read by the
+    embedding's rule (:func:`token_rows`), so that none is out of range on
+    the card."""
+    logits = forward(params, tokens[:, :-1], cfg, mesh, seq_axis, seq_mode)
+    targets = token_rows(tokens[:, 1:], cfg.vocab_size)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])
+    return torch.mean(nll)
+
+
+def _leaves(params, prefix=""):
+    """(name, tensor) of every tensor in the nested parameter dict."""
+    for key, val in params.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, val
+
+
+def _rebuild(params, values, prefix=""):
+    """``params``' nesting with each tensor replaced by ``values[name]``."""
+    return {key: (_rebuild(val, values, f"{prefix}{key}.")
+                  if isinstance(val, dict) else values[prefix + key])
+            for key, val in params.items()}
+
+
+def lm_loss_and_grads(params, tokens, cfg: TransformerConfig):
+    """The port's ``jax.value_and_grad(lm_loss)``: (the loss, {name:
+    gradient}) with names like ``"blocks.wq"``, through
+    ``torch.autograd.grad`` on leaves that share the parameters' memory;
+    the parameters themselves are left as they are."""
+    names, masters = zip(*_leaves(params))
+    leaves = [p.detach().requires_grad_() for p in masters]
+    loss = lm_loss(_rebuild(params, dict(zip(names, leaves))), tokens, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip(names, grads))
+
+
 class TransformerLM(torch.nn.Module):
     """The functional model with its parameters on one device (``ctx``,
     default ``gpu(0)``; ``ctx=cpu()`` runs the plain attention).
@@ -168,10 +214,31 @@ class TransformerLM(torch.nn.Module):
     def forward(self, tokens):
         return forward(self.params, tokens, self.cfg)
 
+    def _on_device(self, tokens):
+        return torch.as_tensor(np.asarray(tokens) if not isinstance(
+            tokens, torch.Tensor) else tokens).to(self.device)
+
+    def loss(self, tokens):
+        """tokens (B, S+1) ints, host or device -> the 0-d fp32 loss on the
+        model's device (no gradient)."""
+        with torch.no_grad():
+            return lm_loss(self.params, self._on_device(tokens), self.cfg)
+
+    def train_step(self, tokens, lr=1e-3):
+        """One plain-SGD step on tokens (B, S+1): the gradient of
+        :func:`lm_loss` over every parameter (:func:`lm_loss_and_grads`),
+        then ``p -= lr * g`` on the fp32 masters in place. Returns the
+        step's loss as a float: one host read a step."""
+        loss, grads = lm_loss_and_grads(self.params, self._on_device(tokens),
+                                        self.cfg)
+        with torch.no_grad():
+            for name, p in _leaves(self.params):
+                p.sub_(grads[name] * lr)
+        return float(loss)
+
     def logits(self, tokens):
         """tokens (B, S) ints, host or device -> fp32 logits (B, S, vocab)
         on the model's device."""
-        tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
-            tokens, torch.Tensor) else tokens).to(self.device)
+        tokens = self._on_device(tokens)
         with torch.inference_mode():
             return forward(self.params, tokens, self.cfg)

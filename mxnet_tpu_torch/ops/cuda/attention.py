@@ -16,19 +16,29 @@ whose ids cannot meet), other aligned bf16 views the mma.sync one, fp32
 and unaligned views the CUDA-core one. On CPU and ``meta`` tensors
 they run :func:`attention_plain` and
 :func:`masked_attention_plain`, the torch transcriptions of
-``_attn_reference`` and ``_masked_reference``. The backward
-(``_blockwise_bwd`` there) comes with the training slice.
+``_attn_reference`` and ``_masked_reference``.
+
+Both cores are differentiable: ``_DenseAttention`` and ``_MaskedAttention``
+are ``torch.autograd.Function``s whose backward, on CUDA tensors, launches
+the hand-written kernels of ``csrc/flash_attention_bwd.cu`` (the
+counterpart of ``_blockwise_bwd`` and of the VJP of ``_masked_reference``;
+counted in ``flash_attention.backward_launches`` and
+``flash_attention.masked_backward_launches``) or raises, and on CPU and
+``meta`` tensors runs :func:`attention_backward_plain` and
+:func:`masked_attention_backward_plain`.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ... import _build
 from ...base import MXNetError
 
-__all__ = ["flash_attention", "attention_plain", "masked_attention_plain"]
+__all__ = ["flash_attention", "attention_plain", "masked_attention_plain",
+           "attention_backward_plain", "masked_attention_backward_plain"]
 
 _NEG = -1e30
 
@@ -96,6 +106,59 @@ def masked_attention_plain(q, k, v, lengths=None, segment_ids=None,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def attention_backward_plain(q, k, v, out, do, causal=False, scale=None):
+    """``_blockwise_bwd``: the dense core's gradients (dq, dk, dv) for the
+    output cotangent ``do``, in fp32 throughout. lse = m + log(max(l,
+    1e-30)) over the scores of ``q * scale``; delta = rowsum(dO * O) from
+    the forward's output as stored; ds = p * (dp - delta) * scale; dk pairs
+    ds with the unscaled q; each gradient is cast to its input's dtype
+    once, at the end."""
+    scale = _default_scale(q.shape[-1], scale)
+    qf = q.float() * scale
+    dof = do.float()
+    delta = torch.sum(dof * out.float(), dim=-1)  # (B, H, Sq)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
+    if causal:
+        sq, sk = s.shape[-2:]
+        s = torch.where(_causal_mask(sq, sk, s.device), s, _NEG)
+    m = torch.amax(s, dim=-1)
+    l = torch.sum(torch.exp(s - m[..., None]), dim=-1)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    p = torch.exp(s - lse[..., None])  # normalized probabilities
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def masked_attention_backward_plain(q, k, v, do, lengths=None,
+                                    segment_ids=None, causal=False,
+                                    scale=None):
+    """The VJP of ``_masked_reference`` written out, in fp32: p is the
+    softmax of the masked scores, zeroed where the mask is false; the
+    cotangent of p is zeroed there too, so a fully masked row (a length of
+    0, a pad token) gives exact-zero dq and adds nothing to dk or dv."""
+    scale = _default_scale(q.shape[-1], scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _combined_mask(s.shape[-2], s.shape[-1], causal, lengths,
+                          segment_ids, s.device)
+    if mask is None:  # nothing masks
+        mask = torch.ones((), dtype=torch.bool, device=s.device)
+    soft = torch.softmax(torch.where(mask, s, _NEG), dim=-1)
+    p = torch.where(mask, soft, 0.0)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.where(mask, torch.einsum("bhqd,bhkd->bhqk", dof, v.float()),
+                     0.0)
+    ds = soft * (dp - torch.sum(soft * dp, dim=-1, keepdim=True))
+    ds = torch.where(mask, ds, 0.0) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q, k, v, causal, lengths, segment_ids):
     """The JAX package's ValueErrors, and the shapes every path needs."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -134,6 +197,13 @@ def _check(q, k, v, causal, lengths, segment_ids):
 _WGMMA = 2
 
 
+def _int32_on(device, *ids):
+    """Each of ``ids`` (lengths, segment ids, or None) as a contiguous
+    int32 tensor on ``device``, as the kernels read them."""
+    return tuple(None if t is None else torch.as_tensor(
+        t, dtype=torch.int32, device=device).contiguous() for t in ids)
+
+
 def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
     """``route`` 0 lets the library pick the variant; 1 takes the mma.sync
     variant (see :func:`_mma_sync`)."""
@@ -143,9 +213,6 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
         raise MXNetError(f"flash_attention kernel takes one dtype of "
                          f"{sorted(map(str, _KERNEL_DTYPES))} for q, k and "
                          f"v, got {sorted(map(str, dtypes))}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise MXNetError("flash_attention on CUDA has no backward yet: its "
-                         "gradient comes with the training slice")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if d > MAX_HEAD_DIM:
@@ -159,14 +226,10 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
     if min(b, h, sq, sk, d) == 0:  # no keys: zeros, as the plain version
         return out.zero_()
     masked = lengths is not None or segment_ids is not None
-    if lengths is not None:
-        lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                  device=q.device).contiguous()
+    lengths, segment_ids = _int32_on(q.device, lengths, segment_ids)
     lib = _lib()
     scratch = None
     if segment_ids is not None:
-        segment_ids = torch.as_tensor(segment_ids, dtype=torch.int32,
-                                      device=q.device).contiguous()
         # the wgmma variant's padded ids and their ranges (a fresh
         # allocation is 16-byte aligned, as the bulk copy needs)
         scratch = torch.empty(
@@ -255,17 +318,144 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
     if segment_ids is not None and not isinstance(segment_ids, torch.Tensor):
         segment_ids = torch.as_tensor(segment_ids)
     _check(q, k, v, causal, lengths, segment_ids)
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise MXNetError(f"flash_attention: no kernel for device {q.device}")
     scale = _default_scale(q.shape[-1], scale)
+    if lengths is None and segment_ids is None:
+        return _DenseAttention.apply(q, k, v, causal, scale)
+    return _MaskedAttention.apply(q, k, v, lengths, segment_ids, causal,
+                                  scale)
+
+
+def _forward(q, k, v, causal, scale, lengths, segment_ids):
+    """The kernel on CUDA tensors, the plain versions on CPU and meta
+    ones."""
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale, lengths, segment_ids)
-    if q.device.type in ("cpu", "meta"):
-        if lengths is None and segment_ids is None:
-            return attention_plain(q, k, v, causal, scale)
-        return masked_attention_plain(q, k, v, lengths, segment_ids, causal,
-                                      scale)
-    raise MXNetError(f"flash_attention: no kernel for device {q.device}")
+    if lengths is None and segment_ids is None:
+        return attention_plain(q, k, v, causal, scale)
+    return masked_attention_plain(q, k, v, lengths, segment_ids, causal,
+                                  scale)
+
+
+class _DenseAttention(torch.autograd.Function):
+    """B2 with its gradient: on CUDA tensors the backward kernels, on CPU
+    and meta tensors :func:`attention_backward_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = _forward(q, k, v, causal, scale, None, None)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        if q.device.type == "cuda":
+            grads = _backward_launch(q, k, v, out, do, ctx.causal, ctx.scale,
+                                     None, None)
+        else:
+            grads = attention_backward_plain(q, k, v, out, do, ctx.causal,
+                                             ctx.scale)
+        return (*grads, None, None)
+
+
+class _MaskedAttention(torch.autograd.Function):
+    """B3 with its gradient: on CUDA tensors the backward kernels, on CPU
+    and meta tensors :func:`masked_attention_backward_plain`. ``lengths``
+    and ``segment_ids`` are not differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, segment_ids, causal, scale):
+        out = _forward(q, k, v, causal, scale, lengths, segment_ids)
+        ctx.save_for_backward(q, k, v, out, lengths, segment_ids)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lengths, segment_ids = ctx.saved_tensors
+        if q.device.type == "cuda":
+            grads = _backward_launch(q, k, v, out, do, ctx.causal, ctx.scale,
+                                     lengths, segment_ids)
+        else:
+            grads = masked_attention_backward_plain(
+                q, k, v, do, lengths, segment_ids, ctx.causal, ctx.scale)
+        return (*grads, None, None, None, None)
+
+
+def _backward_launch(q, k, v, out, do, causal, scale, lengths, segment_ids):
+    """dq, dk, dv from ``csrc/flash_attention_bwd.cu``: three launches on
+    the current stream (K0: lse and delta = rowsum(dO * O) in fp32; K1: dk
+    and dv, a block a K tile; K2: dq, a block a Q tile), no atomics. A
+    head dim that is not contiguous (an expanded cotangent, say) is copied
+    with ``.contiguous()`` first; the gradients keep their input's
+    layout."""
+    do = do.to(q.dtype)
+    q, k, v, out, do = (t if t.stride(3) == 1 else t.contiguous()
+                        for t in (q, k, v, out, do))
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    masked = lengths is not None or segment_ids is not None
+    if min(b, h, sq, sk, d) == 0:
+        return tuple(g.zero_() for g in grads)
+    lengths, segment_ids = _int32_on(q.device, lengths, segment_ids)
+    lse, delta = (torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    tensors = (q, k, v, out, do, *grads)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in tensors for s in t.stride()[:3]))
+    variant = ctypes.c_int(-1)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_backward(
+            *(t.data_ptr() for t in tensors), lse.data_ptr(),
+            delta.data_ptr(),
+            lengths.data_ptr() if lengths is not None else None,
+            segment_ids.data_ptr() if segment_ids is not None else None,
+            strides, b, h, sq, sk, d, ctypes.c_float(scale), int(causal),
+            _KERNEL_DTYPES[q.dtype], ctypes.byref(variant), stream)
+    if err != 0:
+        msg = lib.flash_attention_backward_error_string(err).decode()
+        raise MXNetError(f"flash_attention backward kernel launch failed: "
+                         f"{msg} ({err})")
+    if masked:
+        flash_attention.masked_backward_launches += 1
+    else:
+        flash_attention.backward_launches += 1
+    if variant.value == _MMA_SYNC:
+        flash_attention.mma_backward_launches += 1
+    return tuple(grads)
+
+
+# the variant number the backward library reports for its mma.sync
+# kernels (0 is the CUDA-core one)
+_MMA_SYNC = 1
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    if lib.flash_attention_backward.argtypes is None:
+        lib.flash_attention_backward.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int),
+                                    ctypes.c_void_p])
+        lib.flash_attention_backward.restype = ctypes.c_int
+        lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 flash_attention.launches = 0         # dense core (B2) launches
 flash_attention.masked_launches = 0  # masked core (B3) launches
 flash_attention.wgmma_launches = 0   # of those, the wgmma/TMA variant's
+flash_attention.backward_launches = 0         # dense core (B2) backwards
+flash_attention.masked_backward_launches = 0  # masked core (B3) backwards
+flash_attention.mma_backward_launches = 0     # of those, the mma.sync one's

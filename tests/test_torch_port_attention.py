@@ -3,12 +3,16 @@
 The same numpy inputs, made from a seed, go through ``mxnet_tpu`` and
 ``mxnet_tpu_torch``: ``flash_attention`` dense and masked (the port's plain
 versions on the CPU against the JAX package's jnp path, and against its
-Pallas kernels in interpret mode), ``MultiHeadAttention`` and the
-``_contrib_flash_attention`` op. Tests marked ``cuda`` hold the Hopper
-kernel (``csrc/flash_attention.cu``) to its plain version and skip without
-a card; they need neither JAX nor the JAX package, so on a card they run
-with ``python -m pytest --noconftest -m cuda
-tests/test_torch_port_attention.py``.
+Pallas kernels in interpret mode), its gradients (the port's plain
+backward versions and its autograd Functions against ``jax.vjp`` of the
+JAX package's ``flash_attention``, whose dense core runs
+``_blockwise_bwd``), ``MultiHeadAttention`` and the
+``_contrib_flash_attention`` op, forward and gradients through the
+executor. Tests marked ``cuda`` hold the Hopper kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) to their
+plain versions and skip without a card; they need neither JAX nor the JAX
+package, so on a card they run with ``python -m pytest --noconftest -m
+cuda tests/test_torch_port_attention.py``.
 """
 import types
 
@@ -19,14 +23,22 @@ import torch
 import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention_ops as port_attention_ops
-from mxnet_tpu_torch.ops.cuda.attention import (_mma_sync, attention_plain,
-                                                flash_attention,
-                                                masked_attention_plain)
+from mxnet_tpu_torch.ops.cuda.attention import (
+    _combined_mask, _mma_sync, attention_backward_plain, attention_plain,
+    flash_attention, masked_attention_backward_plain, masked_attention_plain)
 
 # fp32 on both sides: only the summation order differs
 RTOL, ATOL = 1e-5, 1e-6
 # bf16 output: both round the same fp32 value, one bf16 ulp apart at most
 BF16_ATOL = 1e-2
+# gradients in fp32, relative to each gradient's largest magnitude: only the
+# summation order differs
+GRAD_TOL = 1e-5
+# bf16 gradients against JAX's: both sum in fp32 and round each gradient
+# once at the end (measured equal bit for bit at these shapes); a sum that
+# lands on the other side of a rounding is one bf16 ulp of the gradient's
+# largest magnitude
+BF16_GRAD_TOL = 2.0 ** -8
 
 
 @pytest.fixture(scope="module")
@@ -95,9 +107,41 @@ def _mha_inputs(sq, sk, seed):
 
 
 BF16_CASES = ["dense_causal", "lengths_causal"]
+# name -> (case of CASES, block_k): the gradient cases; a block_k below Sk
+# makes _blockwise_bwd scan several K blocks
+GRAD_CASES = {
+    "dense": ("dense", 512),
+    "dense_causal": ("dense_causal", 512),
+    "causal_sq_lt_sk": ("causal_sq_lt_sk", 512),
+    "dense_causal_4_blocks": ("dense_causal", 4),
+    "lengths_causal": ("lengths_causal", 512),
+    "segments": ("segments", 512),
+    "segments_lengths_causal": ("segments_lengths_causal", 512),
+}
+BF16_GRAD_CASES = ["dense_causal", "lengths_causal"]
 PALLAS_CASES = ["dense_causal", "segments_lengths_causal"]
 # (causal, Sq, Sk) of MultiHeadAttention
 MHA_CASES = [(False, 6, 6), (True, 6, 6), (True, 4, 9), (True, 9, 4)]
+
+
+def _grad_case(name, seed=11):
+    """The inputs of GRAD_CASES[name] and an output cotangent."""
+    case, block_k = GRAD_CASES[name]
+    q, k, v, causal, lens, seg = _case(case, seed=seed)
+    do = np.random.RandomState(seed + 1).normal(0, 1, q.shape).astype(
+        np.float32)
+    return q, k, v, do, causal, lens, seg, block_k
+
+
+def _jax_grads(ref, q, k, v, do, causal, lens, seg, block_k, dtype=None):
+    """jax.vjp of the JAX package's flash_attention; fp32 results."""
+    import jax
+    cast = (lambda a: a) if dtype is None else (lambda a: a.astype(dtype))
+    _, vjp = jax.vjp(
+        lambda q, k, v: ref.attention.flash_attention(
+            q, k, v, causal=causal, block_k=block_k, lengths=lens,
+            segment_ids=seg), cast(q), cast(k), cast(v))
+    return [g.astype(ref.jnp.float32) for g in vjp(cast(do))]
 
 
 def _jax_flash(ref, q, k, v, causal, lens, seg, dtype=None, **kw):
@@ -121,7 +165,15 @@ def jax_out(ref):
         "mha": {c: _mha_inputs(c[1], c[2], seed=c[1] * 10 + c[2])
                 for c in MHA_CASES},
         "op": _case("causal_sq_lt_sk", seed=9)[:3],
+        "grad": {n: _grad_case(n)[:4] for n in GRAD_CASES},
+        "grad_bf16": {n: _grad_case(n, seed=13)[:4] for n in BF16_GRAD_CASES},
+        "op_grad": _grad_case("causal_sq_lt_sk", seed=17)[:4],
     }
+
+    def grads(arrays, name, dtype=None):
+        causal, lens, seg, block_k = _grad_case(name)[4:]
+        return _jax_grads(ref, *arrays[name], causal, lens, seg, block_k,
+                          dtype=dtype)
 
     def run(arrays):
         out = {
@@ -141,11 +193,19 @@ def jax_out(ref):
                 for c in MHA_CASES},
             "op": ref.attention._flash_attention_op(*arrays["op"],
                                                     causal=True, scale=0.25),
+            "grad": {n: grads(arrays["grad"], n) for n in GRAD_CASES},
+            "grad_bf16": {n: grads(arrays["grad_bf16"], n, jnp.bfloat16)
+                          for n in BF16_GRAD_CASES},
+            "op_grad": jax.vjp(
+                lambda q, k, v: ref.attention._flash_attention_op(
+                    q, k, v, causal=True, scale=0.25),
+                *arrays["op_grad"][:3])[1](arrays["op_grad"][3]),
         }
         return out
 
-    arrays = jax.tree.map(jnp.asarray, inputs)
-    return jax.tree.map(np.asarray, jax.device_get(jax.jit(run)(arrays)))
+    with jax.enable_x64(False):
+        arrays = jax.tree.map(jnp.asarray, inputs)
+        return jax.tree.map(np.asarray, jax.device_get(jax.jit(run)(arrays)))
 
 
 def _port_flash(q, k, v, causal, lens, seg, dtype=torch.float32):
@@ -301,6 +361,112 @@ def test_contrib_flash_attention_op_matches_jax(jax_out):
                                atol=ATOL)
 
 
+def _port_grads(q, k, v, do, causal, lens, seg, dtype=torch.float32):
+    """dq, dk, dv through the port's autograd Function (on the CPU its
+    plain backward), as fp32 numpy."""
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_()
+              for a in (q, k, v)]
+    out = flash_attention(
+        *leaves, causal=causal,
+        lengths=None if lens is None else torch.from_numpy(lens),
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do).to(dtype))
+    assert all(g.dtype == dtype for g in grads)
+    return [g.float().numpy() for g in grads]
+
+
+def _assert_grads_close(got, want, tol):
+    """Each gradient within ``tol`` of its reference's largest magnitude."""
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        bound = tol * max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(g - w).max())
+        assert err <= bound, f"{name}: {err} > {bound}"
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_backward_matches_jax_vjp(jax_out, name):
+    """The Function's CPU backward and the plain backward versions called
+    directly (attention_backward_plain for the dense core, the written-out
+    VJP of _masked_reference for the masked one) against jax.vjp of the
+    JAX package's flash_attention, in fp32."""
+    q, k, v, do, causal, lens, seg, _ = _grad_case(name)
+    want = jax_out["grad"][name]
+    _assert_grads_close(_port_grads(q, k, v, do, causal, lens, seg), want,
+                        GRAD_TOL)
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    if lens is None and seg is None:
+        out = attention_plain(*t[:3], causal=causal)
+        plain = attention_backward_plain(*t[:3], out, t[3], causal=causal)
+    else:
+        plain = masked_attention_backward_plain(
+            *t, lengths=None if lens is None else torch.from_numpy(lens),
+            segment_ids=None if seg is None else torch.from_numpy(seg),
+            causal=causal)
+    _assert_grads_close([g.numpy() for g in plain], want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", BF16_GRAD_CASES)
+def test_backward_bf16_matches_jax_vjp(jax_out, name):
+    q, k, v, do, causal, lens, seg, _ = _grad_case(name, seed=13)
+    _assert_grads_close(
+        _port_grads(q, k, v, do, causal, lens, seg, dtype=torch.bfloat16),
+        jax_out["grad_bf16"][name], BF16_GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", ["lengths_causal", "segments",
+                                  "segments_lengths_causal"])
+def test_fully_masked_rows_get_exact_zero_gradients(jax_out, name):
+    """A query row that sees no key (a length of 0, a pad token) has dq
+    exact 0, and a key no row sees has dk and dv exact 0, in both
+    packages."""
+    q, k, v, do, causal, lens, seg, _ = _grad_case(name)
+    dead_q = np.zeros(q.shape[:3], bool)
+    dead_k = np.zeros(k.shape[:3], bool)
+    if lens is not None:
+        dead_q |= (lens == 0)[:, None, None]
+        dead_k |= (np.arange(k.shape[2])[None] >= lens[:, None])[:, None]
+    if seg is not None:
+        dead_q |= (seg == 0)[:, None, :]
+        dead_k |= (seg == 0)[:, None, :]
+    assert dead_q.any() and dead_k.any()
+    for dq, dk, dv in (_port_grads(q, k, v, do, causal, lens, seg),
+                       jax_out["grad"][name]):
+        assert np.all(dq[dead_q] == 0.0)
+        assert np.all(dk[dead_k] == 0.0) and np.all(dv[dead_k] == 0.0)
+        # (a causal row that sees one key has dq = 0 as well: no per-row
+        # check of the live rows)
+        assert np.abs(dq[~dead_q]).sum() > 0.0
+
+
+def test_cpu_backward_runs_plain_and_counts_no_launch():
+    q, k, v, do, causal, lens, seg, _ = _grad_case("segments_lengths_causal")
+    counts = (flash_attention.backward_launches,
+              flash_attention.masked_backward_launches)
+    _port_grads(q, k, v, do, causal, None, None)
+    _port_grads(q, k, v, do, causal, lens, seg)
+    assert (flash_attention.backward_launches,
+            flash_attention.masked_backward_launches) == counts
+
+
+def test_contrib_flash_attention_op_gradients_through_executor(jax_out):
+    """The op's gradients through the port's executor (simple_bind,
+    forward(is_train=True), backward with the head gradient) against
+    jax.vjp of the JAX package's registered op, the program its executor
+    differentiates."""
+    q, k, v, do = _grad_case("causal_sq_lt_sk", seed=17)[:4]
+    net = mxt.sym._contrib_flash_attention(
+        *(mxt.sym.var(n) for n in "qkv"), causal=True, scale=0.25)
+    ex = net.simple_bind(mxt.cpu(), grad_req="write", q=q.shape, k=k.shape,
+                         v=v.shape)
+    for name, arr in zip("qkv", (q, k, v)):
+        ex.arg_dict[name][:] = mxt.nd.array(arr, ctx=mxt.cpu())
+    ex.forward(is_train=True)
+    ex.backward(mxt.nd.array(do, ctx=mxt.cpu()))
+    for name, want in zip("qkv", jax_out["op_grad"]):
+        np.testing.assert_allclose(ex.grad_dict[name].asnumpy(), want,
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+
+
 # (B, H, Sq, Sk, D, causal, lengths, segments) on the card
 KERNEL_CASES = [
     (2, 8, 512, 512, 64, True, None, False),
@@ -347,7 +513,11 @@ def test_kernel_matches_plain(card, case, dtype, tol):
 @pytest.mark.parametrize("offset", [0, 1])
 def test_kernel_takes_strided_views_and_refuses_grad(card, offset):
     """(B, S, H, D) transposed views as the transformer makes them; with an
-    offset no row is 16-byte aligned and the CUDA-core variant runs."""
+    offset no row is 16-byte aligned and the CUDA-core variants run. The
+    gradients on the same views come from the backward kernels (the
+    mma.sync variant for aligned rows), each within two bf16 ulps of its
+    largest magnitude of the plain backward; a head dim over 128 is
+    refused."""
     x = torch.randn(2, 64, 8, 64 + offset, device=card,
                     dtype=torch.bfloat16)[..., offset:]
     q = x.transpose(1, 2)  # (B, H, S, D), not contiguous
@@ -356,10 +526,114 @@ def test_kernel_takes_strided_views_and_refuses_grad(card, offset):
     if offset == 0:  # the output keeps a dense input's layout
         assert out.stride() == q.stride()
     assert (out.float() - want.float()).abs().max().item() <= 1.6e-2
-    with pytest.raises(MXNetError):
-        flash_attention(q.detach().requires_grad_(), q, q)
+    leaves = [q.detach().requires_grad_() for _ in range(3)]
+    # the cotangent as the transformer hands it back: a (B, H, S, D) view
+    # of (B, S, H, D) memory
+    do = torch.randn_like(want).transpose(1, 2).contiguous().transpose(1, 2)
+    before = (flash_attention.backward_launches,
+              flash_attention.mma_backward_launches)
+    grads = torch.autograd.grad(flash_attention(*leaves, causal=True),
+                                leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.backward_launches,
+            flash_attention.mma_backward_launches) == (
+        before[0] + 1, before[1] + (offset == 0))
+    for g, p in zip(grads, attention_backward_plain(q, q, q, want, do,
+                                                    causal=True)):
+        assert g.shape == p.shape and g.dtype == torch.bfloat16
+        assert (g.float() - p.float()).abs().max().item() <= \
+            2.0 ** -6 * p.float().abs().max().item()
     with pytest.raises(MXNetError):
         flash_attention(*(torch.zeros(1, 1, 4, 160, device=card),) * 3)
+
+
+# (label, (B, H, Sq, Sk, D), causal, lengths, segments, layout, dtype) of
+# the backward kernels' checks: the tensor-core variant (bf16, D = 64 and
+# 128, tile edges, Sq < Sk, (B, S, H, D) views) and the CUDA-core one
+# (fp32, and bf16 at D = 48), dense and masked, lengths of 0
+BACKWARD_CASES = [
+    ("causal", (2, 4, 256, 256, 64), True, None, None, "bhsd",
+     torch.bfloat16),
+    ("ragged", (2, 3, 100, 100, 64), False, None, None, "bhsd",
+     torch.bfloat16),
+    ("causal Sq<Sk D=128", (2, 2, 77, 200, 128), True, None, None, "bhsd",
+     torch.bfloat16),
+    ("views", (2, 8, 100, 100, 64), True, None, None, "bshd",
+     torch.bfloat16),
+    ("fp32 D=40", (1, 2, 77, 77, 40), True, None, None, "bhsd",
+     torch.float32),
+    ("fp32 Sq<Sk D=128", (2, 2, 77, 200, 128), True, None, None, "bhsd",
+     torch.float32),
+    ("one token", (1, 1, 1, 1, 64), False, None, None, "bhsd",
+     torch.bfloat16),
+    ("lengths", (4, 2, 256, 256, 64), True, [256, 150, 70, 0], None, "bhsd",
+     torch.bfloat16),
+    ("segments", (2, 4, 256, 256, 64), True, None, _segments, "bhsd",
+     torch.bfloat16),
+    ("fp32 lengths segments", (2, 2, 50, 50, 32), False, [50, 31],
+     _segments, "bhsd", torch.float32),
+    ("D=128 lengths views", (2, 4, 333, 333, 128), True, [0, 300], None,
+     "bshd", torch.bfloat16),
+    ("causal Sq<Sk lengths", (2, 2, 77, 200, 64), True, [150, 0], None,
+     "bhsd", torch.bfloat16),
+    ("bf16 D=48 segments", (2, 2, 130, 130, 48), True, None, _segments,
+     "bhsd", torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BACKWARD_CASES, ids=lambda c: c[0])
+def test_backward_kernel_matches_plain(card, case):
+    """dq, dk and dv from the backward kernels against the plain backward
+    versions on the same card tensors, each relative to its largest
+    magnitude, at least 2**-10 (with one token dq is 0 by math: P = 1, so
+    dS = dP - delta vanishes up to summation order): fp32 2e-5 (summation
+    order), bf16 2**-6 (P and dS rounded to bf16 as mma operands). Rows that see no key have dq exact 0, keys no row sees dk
+    and dv exact 0."""
+    _, (b, h, sq, sk, d), causal, lengths, segments, layout, dtype = case
+    rng = np.random.RandomState(sq + sk + d)
+
+    def make(s):
+        if layout == "bshd":
+            return torch.tensor(rng.normal(0, 1, (b, s, h, d)), dtype=dtype,
+                                device=card).transpose(1, 2)
+        return torch.tensor(rng.normal(0, 1, (b, h, s, d)), dtype=dtype,
+                            device=card)
+    q, k, v, do = make(sq), make(sk), make(sk), make(sq)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=card))
+    seg = (None if segments is None
+           else torch.tensor(segments(b, sk), device=card))
+    masked = lens is not None or seg is not None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, lengths=lens,
+                          segment_ids=seg)
+    before = (flash_attention.backward_launches,
+              flash_attention.masked_backward_launches)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.backward_launches,
+            flash_attention.masked_backward_launches) == (
+        before[0] + (not masked), before[1] + masked)
+    if masked:
+        want = masked_attention_backward_plain(q, k, v, do, lens, seg,
+                                               causal=causal)
+    else:
+        want = attention_backward_plain(q, k, v, out.detach(), do,
+                                        causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= \
+            tol * max(2.0 ** -10, w.float().abs().max().item())
+    if masked:
+        mask = _combined_mask(sq, sk, causal, lens, seg, card)
+        mask = mask.expand(b, h, sq, sk)
+        dead_q, dead_k = ~mask.any(-1), ~mask.any(-2)
+        assert bool(dead_q.any())
+        assert bool((grads[0][dead_q] == 0).all())
+        assert bool((grads[1][dead_k] == 0).all())
+        assert bool((grads[2][dead_k] == 0).all())
 
 
 # (B, H, Sq, Sk, D, causal, layout) for the wgmma/TMA variant: tile edges
