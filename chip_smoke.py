@@ -11,8 +11,8 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 1. device: the card's name, capability, name and power limit; TF32 off;
 2. build: every kernel library (four) built from ``mxnet_tpu_torch/csrc``
    by concurrent ``nvcc`` processes, with ``-Xptxas -v`` output, and the
-   wgmma attention kernel's registers, spills, wgmma serialization and
-   shared memory a block;
+   wgmma attention kernels' (forward and backward) registers, spills,
+   wgmma serialization and shared memory a block;
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
    version at its path's shapes and ragged ones, fp32 and bf16; the LSTM
    sequence kernel over T=128 steps at N=1 and 16 (H=1024) and T=7, N=3,
@@ -91,25 +91,33 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 12. transformer training: (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) through the autograd Functions
    against the plain backward versions on the card's tensors, fp32 and
-   bf16: dense at the model's (4,8,2048,64) causal, (2,3,1000,1000,64)
-   non-causal, (2,2,77,200,128) causal Sq < Sk, (2,8,500,500,64) as
-   (B,S,H,D) views, (1,2,77,77,40) fp32 (the CUDA-core variant) and one
-   token; masked with ATT_LENGTHS and with packed segments at the model's
-   shape and one fp32 case, the gradients of rows and keys the mask leaves
-   alone exact 0; then the masked core's training path (a packed and a
-   length-masked batch through the public ``flash_attention`` and
-   ``torch.autograd.grad``); (b) one ``lm_loss`` gradient of the
+   bf16, every bf16 case on the wgmma/TMA variant (by its counter): dense
+   at the model's (4,8,2048,64) causal, (2,3,1000,1000,64) non-causal,
+   (2,2,77,200,128) causal Sq < Sk, (2,8,500,500,64) as (B,S,H,D) views,
+   (1,2,77,77,40) fp32 (the CUDA-core variant) and one token; masked with
+   ATT_LENGTHS and with packed segments at the model's shape, packed at
+   D = 128 and one fp32 case, the gradients of rows and keys the mask
+   leaves alone exact 0; each case's forward row logsumexps (the Hopper,
+   mma.sync and CUDA-core forwards) against ``attention_lse_plain``; every
+   bf16 case at D = 64 or 128 also through the earlier mma.sync backward
+   (``_mma_sync_backward``, given the forward's lse) against the same
+   plain result, tolerance and exact zeros; then the masked core's
+   training path (a packed and a length-masked batch
+   through the public ``flash_attention`` and ``torch.autograd.grad``,
+   both backwards on the wgmma/TMA variant); (b) one ``lm_loss`` gradient of the
    full-width LM in fp32 (B=2, S=128, ``init_params(0, cfg)``) on the card
    and on the port's CPU path, each gradient within 1e-5 of its own
    largest; (c) ``TransformerLM(TransformerConfig(), seed=0)`` on the
    default context, 10 ``train_step``s on one batch of (4, 2049) tokens
-   at lr 1e-3: 4 dense forward and 4 dense backward launches a step, every
-   loss and parameter finite, the loss falling; (d) ms per step (CUDA
-   events, median of 7), tokens/s against the step's bound, peak memory,
-   one profiled step; (e) one backward call at the model's shape, dense
-   and with ATT_LENGTHS: its time, each of its three kernels', its bound,
-   its plain version and ``scaled_dot_product_attention``'s autograd
-   backward on the same inputs.
+   at lr 1e-3: 4 dense forward and 4 dense backward launches a step, the
+   backwards on the wgmma/TMA variant, every loss and parameter finite,
+   the loss falling; (d) ms per step (CUDA events, median of 7), tokens/s
+   against the step's bound, peak memory, one profiled step; (e) one
+   backward call at the model's shape, dense, with ATT_LENGTHS and with
+   packed segments, in turns: the wgmma/TMA variant, the earlier mma.sync
+   variant and ``scaled_dot_product_attention``'s autograd backward on the
+   same inputs; each variant's kernels by stage, the bound, the plain
+   version; and the forward with and without the lse kept, in turns.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
 training path and 12c) sets its kernels' launch counts to 0 just before it
@@ -205,19 +213,24 @@ def phase_build():
         for line in res.log.strip().splitlines():
             log(f"[build]   {line}")
     log(f"[build] NVRTC {nvrtc_version()}")
-    return wgmma_build_summary(results["flash_attention"].log)
+    from mxnet_tpu_torch.ops.cuda.attention import (
+        wgmma_backward_shared_bytes, wgmma_shared_bytes)
+    return (wgmma_build_summary(results["flash_attention"].log,
+                                "flash_fwd_wgmma_kernel", wgmma_shared_bytes),
+            wgmma_build_summary(results["flash_attention_bwd"].log,
+                                "flash_bwd_wgmma_kernel",
+                                wgmma_backward_shared_bytes))
 
 
-def wgmma_build_summary(log_text):
-    """ptxas's registers and spills for each instantiation of the Hopper
-    attention kernel, any wgmma serialization it reports, and the shared
-    memory a block of it takes."""
-    from mxnet_tpu_torch.ops.cuda.attention import wgmma_shared_bytes
+def wgmma_build_summary(log_text, kernel, shared_bytes):
+    """ptxas's registers and spills for each instantiation of a Hopper
+    attention kernel (``kernel``, the forward's or the backward's), any
+    wgmma serialization its library reports, and the shared memory a
+    block of it takes (``shared_bytes(d)``)."""
     out, current = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
-            current = line.split("'")[1] if "flash_fwd_wgmma_kernel" in line \
-                else None
+            current = line.split("'")[1] if kernel in line else None
         elif current and "spill stores" in line:
             out.setdefault(current, {})["spills"] = line.strip()
         elif current and "Used" in line and "registers" in line:
@@ -225,13 +238,13 @@ def wgmma_build_summary(log_text):
                 line.split("Used")[1].split("registers")[0])
     serialized = [line.strip() for line in log_text.splitlines()
                   if "wgmma" in line and "serialized" in line]
-    smem = {d: wgmma_shared_bytes(d) for d in (64, 128)}
+    smem = {d: shared_bytes(d) for d in (64, 128)}
     for name, info in out.items():
         log(f"[build] wgmma kernel {name}: {info}")
-    log(f"[build] wgmma kernel shared memory a block: {smem} bytes (D: "
+    log(f"[build] {kernel} shared memory a block: {smem} bytes (D: "
         f"bytes); wgmma serialized: {serialized or 'none reported'}")
     if not out:
-        raise RuntimeError("no wgmma kernel in the flash_attention build log")
+        raise RuntimeError(f"no {kernel} in its library's build log")
     return {"ptxas": out, "serialized": serialized, "smem_bytes": smem}
 
 
@@ -499,6 +512,19 @@ def time_on_stream(fn, iters=50):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=20):
+    """Host microseconds to enqueue one call of ``fn`` (host clock over
+    ``iters`` calls, no synchronisation inside), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def cell_bound_ms(n, hdim, elem_bytes):
@@ -2116,7 +2142,8 @@ ATT_SHAPE5 = ATT_SHAPE[:3] + ATT_SHAPE[2:]
 # dtype): the model's shape, ragged tiles, causal Sq < Sk at D = 128, the
 # transformer's (B, S, H, D) views, the CUDA-core variant (fp32, D = 40),
 # one token; the masked core with ATT_LENGTHS (batch 3 sees no key) and
-# packed segments (pad tokens), and one fp32 masked case
+# packed segments (pad tokens), one fp32 masked case, packed at D = 128.
+# Every bf16 case runs the wgmma/TMA variant
 ATT_BWD_CASES = [
     ("model", ATT_SHAPE5, True, None, False, "bhsd",
      torch.bfloat16),
@@ -2136,7 +2163,13 @@ ATT_BWD_CASES = [
      torch.bfloat16),
     ("fp32 masked", (2, 2, 300, 300, 64), True, [300, 111], True, "bhsd",
      torch.float32),
+    ("packed D=128", (2, 4, 1000, 1000, 128), True, None, True, "bhsd",
+     torch.bfloat16),
 ]
+# the forward's row logsumexps (kept for the backward) against
+# attention_lse_plain, absolute, on rows that see a key: fp32 sums in
+# another order, the Hopper variants through exp2 and log2
+ATT_LSE_TOL = 1e-5
 # the transformer trained: TransformerConfig() on the default context,
 # tokens (B, S + 1) from RandomState(0), plain SGD at this learning rate
 # (TransformerLM.train_step's default)
@@ -2147,6 +2180,11 @@ TF_TRAIN_LR = 1e-3
 # each held relative to its own largest magnitude: summation order only
 TF_GRAD_B, TF_GRAD_S = 2, 128
 TF_GRAD_TOL = 1e-5
+
+
+def wgmma_backward_count():
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
+    return fa.wgmma_backward_launches
 
 
 def attention_counts():
@@ -2160,7 +2198,7 @@ def zero_attention_counts():
     from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
     for name in ("launches", "masked_launches", "wgmma_launches",
                  "backward_launches", "masked_backward_launches",
-                 "mma_backward_launches"):
+                 "mma_backward_launches", "wgmma_backward_launches"):
         setattr(fa, name, 0)
 
 
@@ -2181,17 +2219,25 @@ def attention_grad_inputs(b, h, sq, sk, d, dtype, seed, layout="bhsd"):
 def phase_attention_backward_kernels():
     """(a) The backward kernels (csrc/flash_attention_bwd.cu) through the
     autograd Functions against the plain backward versions on the same
-    card tensors; the route each takes (the mma.sync variant for bf16 at
-    D = 64 or 128 over aligned views); rows that see no key with dq exact
-    0 and keys no row sees with dk and dv exact 0. Then the masked core's
-    training path: a packed and a length-masked batch through the public
-    flash_attention, differentiated by torch.autograd.grad, as a caller
-    training on packed rows does. Returns the worst errors by kernel, and
-    the masked path's launches."""
+    card tensors; the route each takes (the wgmma/TMA variant for bf16 at
+    D = 64 or 128 over views TMA can describe, CUDA cores for fp32); rows
+    that see no key with dq exact 0 and keys no row sees with dk and dv
+    exact 0; each case's forward row logsumexps, as the Hopper and the
+    CUDA-core forward keep them (and the mma.sync forward, for bf16),
+    against attention_lse_plain; for every bf16 case at D = 64 or 128,
+    the earlier mma.sync backward (through _mma_sync_backward, given the
+    forward's lse) against the same plain result, under the same
+    tolerance and the same exact-zero checks. Then the masked core's
+    training path: a
+    packed and a length-masked batch through the public flash_attention,
+    differentiated by torch.autograd.grad, as a caller training on packed
+    rows does. Returns the worst errors by kernel, and the masked path's
+    launches (all and the wgmma/TMA variant's)."""
     from mxnet_tpu_torch.ops.cuda.attention import (
-        _combined_mask, attention_backward_plain, flash_attention,
-        masked_attention_backward_plain)
-    errs = {name: {"fp32_rel": 0.0, "bf16_rel": 0.0, "max_abs": 0.0}
+        _combined_mask, _launch, _mma_sync_backward, attention_backward_plain,
+        attention_lse_plain, flash_attention, masked_attention_backward_plain)
+    errs = {name: {"fp32_rel": 0.0, "bf16_rel": 0.0, "max_abs": 0.0,
+                   "lse_abs": 0.0, "mma_sync_bf16_rel": 0.0}
             for name in ("flash_attention_backward",
                          "flash_attention_masked_backward")}
     for i, (label, shape, causal, lengths, packed, layout, dtype) in \
@@ -2208,57 +2254,106 @@ def phase_attention_backward_kernels():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = flash_attention(*leaves, causal=causal, lengths=lens,
                               segment_ids=seg)
-        before = (attention_counts(), flash_attention.mma_backward_launches)
+        before = (attention_counts(), flash_attention.mma_backward_launches,
+                  wgmma_backward_count())
         grads = torch.autograd.grad(out, leaves, do)
         torch.cuda.synchronize()
         moved = (tuple(a - c for a, c in zip(attention_counts(), before[0])),
-                 flash_attention.mma_backward_launches - before[1])
-        mma = dtype == torch.bfloat16 and d in (64, 128)
-        if moved != ((0, 0, int(not masked), int(masked)), int(mma)):
+                 flash_attention.mma_backward_launches - before[1],
+                 wgmma_backward_count() - before[2])
+        wgmma = dtype == torch.bfloat16 and d in (64, 128)
+        if moved != ((0, 0, int(not masked), int(masked)), 0, int(wgmma)):
             raise RuntimeError(f"{name} {label}: the counters moved {moved}")
+        # the row logsumexps each forward variant keeps for the backward
+        lse_want = attention_lse_plain(q, k, v, causal, lengths=lens,
+                                       segment_ids=seg)
+        live = lse_want > -1e29
+        lse_errs, lses = [], []
+        for route in ((0, 1) if wgmma else (0,)):
+            lses.append(torch.empty((b, h, sq), dtype=torch.float32,
+                                    device=CARD))
+            _launch(q, k, v, causal, 1.0 / d ** 0.5, lens, seg, route=route,
+                    lse=lses[-1])
+            lse_errs.append((lses[-1] - lse_want)[live].abs().max().item())
+            if not lse_errs[-1] <= ATT_LSE_TOL:
+                raise RuntimeError(f"{name} {label}: the forward's lse "
+                                   f"(route {route}) {lse_errs[-1]} from "
+                                   f"attention_lse_plain")
+        errs[name]["lse_abs"] = max(errs[name]["lse_abs"], *lse_errs)
         if masked:
             want = masked_attention_backward_plain(q, k, v, do, lens, seg,
                                                    causal=causal)
+            mask = _combined_mask(sq, sk, causal, lens, seg, q.device)
+            mask = mask.expand(b, h, sq, sk)
+            dead_q, dead_k = ~mask.any(-1), ~mask.any(-2)
         else:
             want = attention_backward_plain(q, k, v, out.detach(), do,
                                             causal=causal)
         tol = ATT_BWD_FP32_TOL if dtype == torch.float32 else ATT_BWD_BF16_TOL
-        rel = []
-        for gname, g, w in zip(("dq", "dk", "dv"), grads, want):
-            if g.dtype != dtype or g.shape != w.shape:
-                raise RuntimeError(f"{name} {label} {gname}: {g.dtype} "
-                                   f"{tuple(g.shape)}")
-            diff = (g.float() - w.float()).abs().max().item()
-            rel.append(diff / max(ATT_BWD_FLOOR,
-                                  w.float().abs().max().item()))
-            errs[name]["max_abs"] = max(errs[name]["max_abs"], diff)
-            if not rel[-1] <= tol:
-                raise RuntimeError(f"{name} {label} {gname} disagrees with "
-                                   f"the plain backward: {rel[-1]} > {tol}")
+
+        def check(grads, variant):
+            """Each gradient's largest error over the plain one's largest
+            magnitude; raises past tol, or where a row or key the mask
+            leaves alone has a nonzero gradient."""
+            rel = []
+            for gname, g, w in zip(("dq", "dk", "dv"), grads, want):
+                if g.dtype != dtype or g.shape != w.shape:
+                    raise RuntimeError(f"{name} {label} {variant} {gname}: "
+                                       f"{g.dtype} {tuple(g.shape)}")
+                diff = (g.float() - w.float()).abs().max().item()
+                rel.append(diff / max(ATT_BWD_FLOOR,
+                                      w.float().abs().max().item()))
+                errs[name]["max_abs"] = max(errs[name]["max_abs"], diff)
+                if not rel[-1] <= tol:
+                    raise RuntimeError(
+                        f"{name} {label} {variant} {gname} disagrees with "
+                        f"the plain backward: {rel[-1]} > {tol}")
+            if masked:
+                if not (bool(dead_q.any())
+                        and bool((grads[0][dead_q] == 0).all())
+                        and bool((grads[1][dead_k] == 0).all())
+                        and bool((grads[2][dead_k] == 0).all())):
+                    raise RuntimeError(
+                        f"{name} {label} {variant}: the gradients of rows "
+                        "and keys the mask leaves alone are not exact 0")
+                if lengths is not None and lengths[-1] == 0 and not all(
+                        bool((g[-1] == 0).all()) for g in grads):
+                    raise RuntimeError(f"{name} {label} {variant}: the "
+                                       "length-0 batch's gradients are not "
+                                       "exact 0")
+            return rel
+
+        rel = check(grads, "wgmma/TMA" if wgmma else "CUDA cores")
         key = "fp32_rel" if dtype == torch.float32 else "bf16_rel"
         errs[name][key] = max(errs[name][key], *rel)
+        mma_rel = []
+        if wgmma:  # the earlier mma.sync variant on the same inputs
+            mma_before = flash_attention.mma_backward_launches
+            mma_grads = _mma_sync_backward(q, k, v, out.detach(), do, causal,
+                                           lengths=lens, segment_ids=seg,
+                                           lse=lses[0])
+            torch.cuda.synchronize()
+            if flash_attention.mma_backward_launches != mma_before + 1:
+                raise RuntimeError(f"{name} {label}: _mma_sync_backward "
+                                   "did not launch the mma.sync variant")
+            mma_rel = check(mma_grads, "mma.sync")
+            errs[name]["mma_sync_bf16_rel"] = max(
+                errs[name]["mma_sync_bf16_rel"], *mma_rel)
         dead = ""
         if masked:
-            mask = _combined_mask(sq, sk, causal, lens, seg, q.device)
-            mask = mask.expand(b, h, sq, sk)
-            dead_q, dead_k = ~mask.any(-1), ~mask.any(-2)
-            if not (bool(dead_q.any())
-                    and bool((grads[0][dead_q] == 0).all())
-                    and bool((grads[1][dead_k] == 0).all())
-                    and bool((grads[2][dead_k] == 0).all())):
-                raise RuntimeError(f"{name} {label}: the gradients of rows "
-                                   "and keys the mask leaves alone are not "
-                                   "exact 0")
-            if lengths is not None and lengths[-1] == 0 and not all(
-                    bool((g[-1] == 0).all()) for g in grads):
-                raise RuntimeError(f"{name} {label}: the length-0 batch's "
-                                   "gradients are not exact 0")
             dead = (f"; {int(dead_q.sum())} rows and {int(dead_k.sum())} "
                     "keys unseen, their gradients exact 0")
         log(f"[train-attention] {name} {label} {shape} {str(dtype)[6:]}"
-            f"{' (mma.sync)' if mma else ' (CUDA cores)'}: dq, dk, dv "
+            f"{' (wgmma/TMA)' if wgmma else ' (CUDA cores)'}: dq, dk, dv "
             f"max|d| / max|plain| "
-            + ", ".join(f"{e:.3e}" for e in rel) + f" (tol {tol}){dead}")
+            + ", ".join(f"{e:.3e}" for e in rel)
+            + ("; mma.sync variant " + ", ".join(f"{e:.3e}" for e in mma_rel)
+               if mma_rel else "")
+            + f" (tol {tol}){dead}; "
+            f"forward lse max|d| on live rows "
+            + ", ".join(f"{e:.2e}" for e in lse_errs)
+            + f" ({'wgmma, mma.sync' if wgmma else 'CUDA cores'}; tol "
+            f"{ATT_LSE_TOL})")
 
     # the masked core's training path
     b, h, s, d = ATT_SHAPE
@@ -2273,14 +2368,17 @@ def phase_attention_backward_kernels():
         for kw in ({"segment_ids": seg}, {"lengths": lens})]
     torch.cuda.synchronize()
     path = attention_counts()  # and ends here
+    wgmma_path = wgmma_backward_count()
     log(f"[train-attention] masked training path, packed and length-masked "
         f"batches {ATT_SHAPE} bf16: (dense, masked, dense backward, masked "
-        f"backward) launches {path}")
-    if path != (0, 2, 0, 2):
-        raise RuntimeError(f"the masked training path launched {path}")
+        f"backward) launches {path}, of the backwards {wgmma_path} on the "
+        "wgmma/TMA variant")
+    if path != (0, 2, 0, 2) or wgmma_path != 2:
+        raise RuntimeError(f"the masked training path launched {path}, "
+                           f"{wgmma_path} wgmma backwards")
     if not all(bool(torch.isfinite(g).all()) for gs in grads for g in gs):
         raise RuntimeError("non-finite masked gradients")
-    return errs, path[3]
+    return errs, path[3], wgmma_path
 
 
 def phase_tf_train_card_vs_cpu():
@@ -2356,21 +2454,25 @@ def phase_tf_train():
     torch.cuda.reset_peak_memory_stats()
     zero_attention_counts()  # the main path's run starts here
     lm = TransformerLM(cfg, seed=0)  # the default context, gpu(0)
-    losses, per_step, prev = [], [], attention_counts()
+    losses, per_step = [], []
+    prev = (*attention_counts(), wgmma_backward_count())
     for _ in range(TF_TRAIN_STEPS):
         losses.append(lm.train_step(toks, lr=TF_TRAIN_LR))
-        now = attention_counts()
+        now = (*attention_counts(), wgmma_backward_count())
         per_step.append(tuple(a - c for a, c in zip(now, prev)))
         prev = now
     launches = attention_counts()  # the main path's run ends here
+    wgmma_launches = wgmma_backward_count()
     peak = torch.cuda.max_memory_allocated()
-    want = (cfg.num_layers, 0, cfg.num_layers, 0)
+    # (dense, masked, dense backward, masked backward, wgmma/TMA backward)
+    want = (cfg.num_layers, 0, cfg.num_layers, 0, cfg.num_layers)
     log(f"[train-tf] TransformerLM {cfg.vocab_size} vocab, "
         f"{cfg.num_layers} x {cfg.d_model}, {cfg.dtype}, tokens "
         f"{tuple(toks.shape)}: {TF_TRAIN_STEPS} train_steps at lr "
         f"{TF_TRAIN_LR}, loss {losses}; (dense, masked, dense backward, "
-        f"masked backward) launches per step {per_step[0]}, total "
-        f"{launches}; peak device memory {peak} bytes")
+        f"masked backward, wgmma/TMA backward) launches per step "
+        f"{per_step[0]}, total {launches}, {wgmma_launches} backwards on the "
+        f"wgmma/TMA variant; peak device memory {peak} bytes")
     if any(c != want for c in per_step):
         raise RuntimeError(f"launches per step {per_step}, expected {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -2407,7 +2509,8 @@ def phase_tf_train():
         f"{tokens / bound_ms * 1e3:.1f} tokens/s at most")
     profile = profile_device(f"one train_step {TF_TRAIN_B} x {TF_TRAIN_S}",
                              lambda: lm.train_step(toks, lr=TF_TRAIN_LR))
-    return {"launches": launches, "per_step": per_step[0], "losses": losses,
+    return {"launches": launches, "wgmma_backward_launches": wgmma_launches,
+            "per_step": per_step[0], "losses": losses,
             "lr": TF_TRAIN_LR, "step_ms": ms, "step_runs_ms": event_ms,
             "step_host_ms": statistics.median(host_ms),
             "tokens_per_s": tokens / ms * 1e3, "bound_ms": bound_ms,
@@ -2428,93 +2531,142 @@ def attention_backward_bound_ms(live_pairs, b, h, sq, sk, d, elem_bytes):
 
 
 def phase_attention_backward_timing():
-    """(e) One backward call (K0, K1, K2) at the transformer's shape, bf16
-    causal, dense and with ATT_LENGTHS: CUDA events over back-to-back
-    calls; each kernel's device time from the profiler; its bound, the
-    plain version and the library's backward: the autograd backward of
+    """(e) One backward call at the transformer's shape, bf16 causal, dense,
+    with ATT_LENGTHS and with packed segments, as CUDA events over
+    back-to-back calls in turns (wgmma/TMA, mma.sync, library, library,
+    mma.sync, wgmma): the Hopper variant (the main path's, given the
+    forward's lse), the earlier mma.sync variant (through _mma_sync_backward)
+    and the library's backward: the autograd backward of
     scaled_dot_product_attention on the same inputs (is_causal, or the
-    mask as a bool tensor), timed only."""
+    mask as a bool tensor), timed only; each one's host time to enqueue a
+    call. Each kernel's device time by stage from the profiler, the bound,
+    the plain version; then the forward with and without the lse kept, in
+    turns."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.cuda.attention import (
-        _backward_launch, _combined_mask, attention_backward_plain,
-        attention_plain, masked_attention_backward_plain,
-        masked_attention_plain)
+        _backward_launch, _combined_mask, _launch, _mma_sync_backward,
+        attention_backward_plain, masked_attention_backward_plain)
     b, h, s, d = ATT_SHAPE
     scale = 1.0 / d ** 0.5
     q, k, v, do = attention_grad_inputs(b, h, s, s, d, torch.bfloat16,
                                         seed=401)
     lens = torch.tensor(ATT_LENGTHS, dtype=torch.int32, device=CARD)
-    mask = _combined_mask(s, s, True, lens, None, q.device)
-    out = attention_plain(q, k, v, causal=True)
-    out_len = masked_attention_plain(q, k, v, lens, causal=True)
+    seg = packed_segments(b, s)
     rows = {}
-    for name, kernel, plain, sdpa_kw, live in (
-            ("flash_attention_backward",
-             lambda: _backward_launch(q, k, v, out, do, True, scale, None,
-                                      None),
-             lambda: attention_backward_plain(q, k, v, out, do, causal=True),
-             {"is_causal": True}, b * h * s * (s + 1) // 2),
-            ("flash_attention_masked_backward",
-             lambda: _backward_launch(q, k, v, out_len, do, True, scale,
-                                      lens, None),
-             lambda: masked_attention_backward_plain(q, k, v, do, lens,
-                                                     causal=True),
-             {"attn_mask": mask}, h * int(mask.sum().item()))):
+    for name, lengths, segs, plain_kw in (
+            ("flash_attention_backward", None, None, None),
+            ("flash_attention_masked_backward", lens, None, {"lengths": lens}),
+            ("packed", None, seg, {"segment_ids": seg})):
+        mask = _combined_mask(s, s, True, lengths, segs, q.device)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=CARD)
+        out = _launch(q, k, v, True, scale, lengths, segs, lse=lse)
+        fns = {
+            "wgmma": lambda: _backward_launch(q, k, v, out, do, True, scale,
+                                              lengths, segs, lse),
+            "mma_sync": lambda: _mma_sync_backward(
+                q, k, v, out, do, True, scale, lengths, segs, lse=lse)}
+        if plain_kw is None:
+            plain = lambda: attention_backward_plain(  # noqa: E731
+                q, k, v, out, do, causal=True)
+            sdpa_kw, live = {"is_causal": True}, b * h * s * (s + 1) // 2
+        else:
+            plain = lambda: masked_attention_backward_plain(  # noqa: E731
+                q, k, v, do, causal=True, **plain_kw)
+            sdpa_kw, live = {"attn_mask": mask}, h * int(mask.sum().item())
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         y = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
-
-        def library():
-            return torch.autograd.grad(y, leaves, do, retain_graph=True)
-
-        turns = {"kernel": [], "library": []}
-        for turn in ("kernel", "library", "library", "kernel"):
-            turns[turn].append(time_on_stream(
-                kernel if turn == "kernel" else library, iters=20))
-        row = {"kernel_ms": statistics.mean(turns["kernel"]),
-               "kernel_turns_ms": turns["kernel"],
-               "library_ms": statistics.mean(turns["library"]),
+        fns["library"] = lambda: torch.autograd.grad(y, leaves, do,
+                                                     retain_graph=True)
+        turns = {n: [] for n in fns}
+        for turn in ("wgmma", "mma_sync", "library", "library", "mma_sync",
+                     "wgmma"):
+            turns[turn].append(time_on_stream(fns[turn], iters=20))
+        bound_ms, bound_by = attention_backward_bound_ms(live, b, h, s, s, d,
+                                                         2)
+        variants = {}
+        for n, ms in turns.items():
+            mean = statistics.mean(ms)
+            variants[n] = {"ms": mean, "turns_ms": ms,
+                           "tflops": 10 * d * live / mean / 1e9,
+                           "share_of_bound": bound_ms / mean,
+                           "host_us": host_us(fns[n])}
+        row = {"kernel_ms": variants["wgmma"]["ms"],
+               "kernel_turns_ms": turns["wgmma"],
+               "library_ms": variants["library"]["ms"],
                "library_turns_ms": turns["library"],
                "plain_ms": time_on_stream(plain, iters=3),
-               "live_pairs": live}
-        row["bound_ms"], row["bound_by"] = attention_backward_bound_ms(
-            live, b, h, s, s, d, 2)
-        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
-        row["tflops"] = 10 * d * live / row["kernel_ms"] / 1e9
-        prof = profile_device(f"10 backward calls, {name}",
-                              lambda: [kernel() for _ in range(10)])
-        # device us per launch of each kernel, over the launches the
+               "live_pairs": live, "bound_ms": bound_ms,
+               "bound_by": bound_by, "variants": variants}
+        row["share_of_bound"] = bound_ms / row["kernel_ms"]
+        row["tflops"] = variants["wgmma"]["tflops"]
+        # device us per launch of each stage, over the launches the
         # profiler recorded (it may drop a record of a window)
-        row["stages_us"] = {
-            stage: sum(us for key, us, _ in prof["top"] if tag in key)
-            / max(1, sum(n for key, _, n in prof["top"] if tag in key))
-            for stage, tag in (("K0 prep", "flash_bwd_prep"),
-                               ("K1 dk dv", "flash_bwd_dkdv"),
-                               ("K2 dq", "flash_bwd_dq"))}
+        row["stages_us"] = {}
+        for variant, tags in (
+                ("wgmma", (("K0 delta", "flash_bwd_delta"),
+                           ("segment ranges", "seg_ranges"),
+                           ("main dk dv dq", "flash_bwd_wgmma"),
+                           ("K2 dq store", "flash_bwd_dq_store"))),
+                ("mma_sync", (("K0 delta", "flash_bwd_delta_rows"),
+                              ("K1 dk dv", "flash_bwd_dkdv"),
+                              ("K2 dq", "flash_bwd_dq_mma")))):
+            fn = fns[variant]
+            prof = profile_device(f"10 backward calls, {name} {variant}",
+                                  lambda: [fn() for _ in range(10)])
+            row["stages_us"][variant] = {
+                stage: sum(us for key, us, _ in prof["top"] if tag in key)
+                / max(1, sum(n for key, _, n in prof["top"] if tag in key))
+                for stage, tag in tags
+                if any(tag in key for key, _, _ in prof["top"])}
         rows[name] = row
         log(f"[train-timing] {name} {ATT_SHAPE} bf16 causal"
-            f"{' lengths=' + str(ATT_LENGTHS) if 'masked' in name else ''}: "
-            f"kernels {row['kernel_ms'] * 1e3:.3f} us a call (turns "
-            f"{[round(t * 1e3, 3) for t in turns['kernel']]}; by stage "
-            f"{ {k: round(u, 3) for k, u in row['stages_us'].items()} } us), "
-            f"{row['tflops']:.2f} TFLOP/s on {live} live pairs, bound "
-            f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} (share "
-            f"{row['share_of_bound']:.4f}); plain {row['plain_ms'] * 1e3:.1f}"
-            f" us; scaled_dot_product_attention's autograd backward "
-            f"(library) {row['library_ms'] * 1e3:.3f} us (turns "
-            f"{[round(t * 1e3, 3) for t in turns['library']]})")
+            f"{' lengths=' + str(ATT_LENGTHS) if lengths is not None else ''}"
+            f"{' packed segments' if segs is not None else ''}: "
+            + "; ".join(f"{n} {v_['ms'] * 1e3:.3f} us (turns "
+                        f"{[round(t * 1e3, 3) for t in v_['turns_ms']]}, "
+                        f"{v_['tflops']:.2f} TFLOP/s, share "
+                        f"{v_['share_of_bound']:.4f}; host "
+                        f"{v_['host_us']:.1f} us a call to enqueue)"
+                        for n, v_ in variants.items())
+            + f"; by stage {row['stages_us']} us; {live} live pairs, bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by}; plain "
+            f"{row['plain_ms'] * 1e3:.1f} us; library = autograd backward "
+            "of scaled_dot_product_attention")
+    rows["flash_attention_masked_backward"]["packed"] = rows.pop("packed")
+    # what keeping lse costs the forward (the training path's), in turns
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=CARD)
+    fwd = {"without lse": lambda: _launch(q, k, v, True, scale, None, None),
+           "with lse": lambda: _launch(q, k, v, True, scale, None, None,
+                                       lse=lse)}
+    fturns = {n: [] for n in fwd}
+    for turn in ("without lse", "with lse", "with lse", "without lse",
+                 "without lse", "with lse"):
+        fturns[turn].append(time_on_stream(fwd[turn], iters=50))
+    cost = {n: statistics.mean(t) for n, t in fturns.items()}
+    cost["added_us"] = (cost["with lse"] - cost["without lse"]) * 1e3
+    cost["turns_ms"] = fturns
+    cost["host_us"] = {n: host_us(f) for n, f in fwd.items()}
+    log(f"[train-timing] B2 forward {ATT_SHAPE} causal: without lse "
+        f"{cost['without lse'] * 1e3:.3f} us, with lse "
+        f"{cost['with lse'] * 1e3:.3f} us (turns {fturns}); keeping lse "
+        f"adds {cost['added_us']:.3f} us; host us a call to enqueue "
+        f"{cost['host_us']}")
+    rows["flash_attention_backward"]["forward_lse_cost"] = cost
     return rows
 
 
-def attention_backward_records(kerrs, masked_path_launches, tf_train,
-                               timing):
+def attention_backward_records(kerrs, masked_path, tf_train, timing,
+                               wgmma_build):
     """The flash_attention_backward and flash_attention_masked_backward
-    entries of the kernels line."""
+    entries of the kernels line; ``masked_path`` is the masked training
+    path's (backward launches, of them the wgmma/TMA variant's)."""
     records = []
-    for name, line, launches, path in (
+    for name, line, launches, wgmma, path in (
             ("flash_attention_backward", 158, tf_train["launches"][2],
+             tf_train["wgmma_backward_launches"],
              f"{TF_TRAIN_STEPS} train_steps of the transformer LM "
              "(phase 12c)"),
-            ("flash_attention_masked_backward", 261, masked_path_launches,
+            ("flash_attention_masked_backward", 261, *masked_path,
              "the masked training path, a packed and a length-masked batch "
              "(phase 12a); 0 on the transformer's")):
         t = timing[name]
@@ -2537,20 +2689,28 @@ def attention_backward_records(kerrs, masked_path_launches, tf_train,
                 f" lengths={ATT_LENGTHS}" if "masked" in name else ""),
             "max_rel_err_fp32": kerrs[name]["fp32_rel"],
             "max_rel_err_bf16": kerrs[name]["bf16_rel"],
+            "max_rel_err_bf16_mma_sync": kerrs[name]["mma_sync_bf16_rel"],
             "share_of_bound": t["share_of_bound"],
             "tflops": t["tflops"],
             "live_pairs": t["live_pairs"],
             "stages_us": t["stages_us"],
             "kernel_turns_ms": t["kernel_turns_ms"],
             "library_turns_ms": t["library_turns_ms"],
+            "variants": t["variants"],
+            "wgmma_backward_launches": wgmma,
+            "max_lse_abs_err": kerrs[name]["lse_abs"],
         })
     records[0]["transformer_training"] = tf_train
+    records[0]["forward_lse_cost"] = timing["flash_attention_backward"][
+        "forward_lse_cost"]
+    records[0]["wgmma_build"] = wgmma_build
+    records[1]["packed"] = timing["flash_attention_masked_backward"]["packed"]
     return records
 
 
 def main():
     phase_device()
-    wgmma_build = phase_build()
+    wgmma_build, wgmma_bwd_build = phase_build()
     errs = phase_kernels()
     seq_errs = phase_sequence_kernel()
     att_errs = phase_attention_kernels()
@@ -2571,7 +2731,7 @@ def main():
     bench = phase_train_bench()
     wide_train_launches = phase_train_wide()
     train_timing = phase_train_timing()
-    att_bwd_errs, masked_bwd_launches = phase_attention_backward_kernels()
+    att_bwd_errs, *masked_bwd_launches = phase_attention_backward_kernels()
     tf_grads = phase_tf_train_card_vs_cpu()
     tf_train = phase_tf_train()
     tf_train["gradients_card_vs_cpu"] = tf_grads
@@ -2675,7 +2835,8 @@ def main():
     records += train_records(train_kerrs, grad_errs, bench,
                              wide_train_launches, train_timing)
     records += attention_backward_records(att_bwd_errs, masked_bwd_launches,
-                                          tf_train, att_bwd_timing)
+                                          tf_train, att_bwd_timing,
+                                          wgmma_bwd_build)
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,21 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``. No source includes
 PyTorch's headers, so a build takes seconds. Libraries go under
 ``build/mxnet_tpu_torch/`` beside the package, and each file name carries a
-hash of its source and its flags, so a changed source or flag builds anew.
-The sources of one call are compiled by concurrent ``nvcc`` processes.
-Flags are per library: ``rtc_runtime`` links NVRTC and the driver API
-(``-lnvrtc -lcuda``), ``flash_attention`` the driver API (``-lcuda``), the
-driver through the toolkit's ``lib64/stubs`` at link time and the
-installed driver at run time.
+hash of its source, of the ``csrc/`` headers the source includes
+(``#include "hopper_tma.cuh"``) and of its flags, so a changed source,
+header or flag builds anew. The sources of one call are compiled by
+concurrent ``nvcc`` processes. Flags are per library: ``rtc_runtime``
+links NVRTC and the driver API (``-lnvrtc -lcuda``), ``flash_attention``
+and ``flash_attention_bwd`` the driver API (``-lcuda``, for
+``cuTensorMapEncodeTiled``), the driver through the toolkit's
+``lib64/stubs`` at link time and the installed driver at run time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,13 +45,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # library name -> libraries it links beyond the CUDA runtime
 LINKS = {"rtc_runtime": ("-lnvrtc", "-lcuda"),
-         "flash_attention": ("-lcuda",)}
+         "flash_attention": ("-lcuda",),
+         "flash_attention_bwd": ("-lcuda",)}
 
 
 def link_flags(name: str) -> tuple:
     """The flags library ``name`` adds after its source on nvcc's line:
-    ``rtc_runtime`` links NVRTC and the CUDA driver API, ``flash_attention``
-    the driver API (``cuTensorMapEncodeTiled``)."""
+    ``rtc_runtime`` links NVRTC and the CUDA driver API, the two attention
+    libraries the driver API (``cuTensorMapEncodeTiled``)."""
     if name not in LINKS:
         return ()
     lib = os.path.join(os.path.dirname(os.path.dirname(_nvcc())), "lib64")
@@ -76,10 +80,28 @@ def _nvcc() -> str:
                      "mxnet_tpu_torch are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def included_headers(path: Path) -> list:
+    """The files under ``csrc/`` that ``path`` includes with ``#include
+    "..."``, and theirs in turn, each once, in the order first met."""
+    found, todo = [], [path]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop(0).read_bytes()):
+            header = CSRC / name.decode()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    source = CSRC / SOURCES[name]
+    text = b"".join(p.read_bytes()
+                    for p in [source, *included_headers(source)])
     flags = NVCC_FLAGS + link_flags(name)
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -11,7 +11,10 @@
 // causal diagonal at kpos <= qpos + (Sk - Sq), per-batch key lengths
 // (kpos < len), packed segment ids (seg_q == seg_k and seg_q > 0), p zeroed
 // where the mask is false (so rows that see no key come out exact 0), the
-// normalizer floored at 1e-30, and the output in q's dtype.
+// normalizer floored at 1e-30, and the output in q's dtype. Asked for it
+// (training), each variant also writes every row's logsumexp
+// lse = m + log(max(l, 1e-30)), so that the backward
+// (flash_attention_bwd.cu) need not recompute it.
 //
 // Bound. A launch must read q, k and v once and write o once, and must do
 // 4*D operations for every (query, key) pair the mask keeps alive. At the
@@ -62,6 +65,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper_tma.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;                   // query rows of a block
@@ -72,12 +77,14 @@ constexpr int kRows = kBlockQ / kWarps;       // query rows of a warp
 constexpr int kMaxD = 128;
 constexpr size_t kMaxSharedBytes = 232448;    // 227 KB, the most a block may use
 constexpr float kNeg = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;  // lse from log2 units
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;           // (B, H, Sq) row logsumexps, contiguous, or null
   const int* lengths;   // (B,) key lengths, or null
   const int* seg;       // (B, S) segment ids, contiguous, or null
   long long q_sb, q_sh, q_ss;
@@ -301,6 +308,10 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + r0 + r;
     if (row >= p.Sq) continue;
     const float norm = fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && lane == 0) {  // natural log: q was scaled
+      p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
+          m[r] + logf(norm);
+    }
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int d = lane + 32 * c;
@@ -613,6 +624,11 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   const float norm_a = fmaxf(quad_sum(l_a), 1e-30f);
   const float norm_b = fmaxf(quad_sum(l_b), 1e-30f);
+  if (p.lse != nullptr && t == 0) {  // m is in log2 units
+    float* lse = p.lse + (static_cast<size_t>(b) * p.H + h) * p.Sq;
+    if (row_a < p.Sq) lse[row_a] = (m_a + log2f(norm_a)) * kLn2;
+    if (row_b < p.Sq) lse[row_b] = (m_b + log2f(norm_b)) * kLn2;
+  }
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
     const int col = nd * 8 + 2 * t;
@@ -691,7 +707,6 @@ constexpr int kConsumers = 3;    // consumer warpgroups, 64 query rows each
 constexpr int kWgThreads = 128 * (1 + kConsumers);  // and the producer
 constexpr int kWgBlockQ = 64 * kConsumers;  // query rows of a block
 constexpr int kStages = 3;       // K/V stages in the ring
-constexpr int kPanelBytes = 128; // a row of one 64-column bf16 panel
 
 template <int D>
 struct WgTile {
@@ -711,14 +726,10 @@ struct WgTile {
                                  BAR_BYTES + kStages * SEG_BYTES;
 };
 
-// Segment ids are summed up in chunks of this many positions (a Q tile of
-// a consumer, half or all of a K tile).
-constexpr int kSegChunk = 64;
-constexpr int kSegPad = 128;  // the padded id rows' length is a multiple
-
 struct WgParams {
   CUtensorMap tq, tk, tv;  // 4-D maps over q, k and v (see encode_map)
   void* o;
+  float* lse;              // (B, H, Sq) row logsumexps, or null
   const int* lengths;      // (B,) key lengths, or null
   const int* seg_pad;      // (B, s_pad) segment ids, zeros past S (HAS_SEG)
   const int4* seg_range;   // (B, s_pad / kSegChunk) of (lo, hi, uni, 0)
@@ -727,242 +738,6 @@ struct WgParams {
   int q_slots, k_slots, v_slots;  // where S, H and B sit in each map
   float scale_log2;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA box of `map` into shared memory at dst, completing on bar. The
-// map's dims 1-3 hold S, H and B in the order `slots` gives (2 bits each:
-// the map dim of S, of H, of B).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int slots, int col,
-                                         int row, int h, int b) {
-  int c[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    c[i] = (slots & 3) == i + 1 ? row : ((slots >> 2) & 3) == i + 1 ? h : b;
-  }
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(c[0]), "r"(c[1]),
-      "r"(c[2]), "r"(bar)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
-// memory at dst, completing on bar.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// A wgmma matrix descriptor of a 128-byte-swizzled tile in shared memory:
-// start address, leading and stride byte offsets (16-byte units) and the
-// swizzle mode (1 = 128B) in bits 62-63.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Orders the compiler's uses of an accumulator register after the wgmma
-// wait (and its writes before the next wgmma): the register is an operand
-// of an opaque statement that sits between them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (+)= A B for a 64 x 16 A and a 16 x 128 B, both read from shared memory
-// through descriptors (K-major), into a 64 x 128 fp32 accumulator.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                 uint64_t desc_a,
-                                                 uint64_t desc_b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (+)= A B for a 64 x 16 A and a 16 x 64 B, both read from shared memory
-// through descriptors (K-major), into a 64 x 64 fp32 accumulator.
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                 uint64_t desc_a,
-                                                 uint64_t desc_b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d += A B for a 64 x 16 bf16 A in registers (the mma.sync m16n8k16 A
-// fragment of each warp's 16 rows) and a 16 x 64 B read from shared
-// memory through a descriptor, MN-major (transposed), into 64 x 64 fp32.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
-}
-
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The segment ids of each row summed up in chunks of kSegChunk positions,
-// for the Hopper variant's tile skipping: per (b, chunk) the smallest and
-// the largest positive id (INT_MAX and 0 where it holds none) and the one
-// id that fills the whole chunk (0 where none does: two ids, a pad or a
-// position past S). Also writes the ids into rows of s_pad, zeros past S,
-// so that the producer can bulk-copy a K tile's ids (16-byte aligned, in
-// bounds). One warp per (chunk, b), two positions a lane.
-__global__ void __launch_bounds__(32)
-    seg_ranges_kernel(const int* __restrict__ seg, int S, int s_pad,
-                      int* __restrict__ seg_pad, int4* __restrict__ range) {
-  const int b = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int lane = threadIdx.x;
-  int lo = INT_MAX, hi = 0, mn = INT_MAX, mx = INT_MIN;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int pos = chunk * kSegChunk + lane + 32 * j;
-    const int id = pos < S ? seg[static_cast<size_t>(b) * S + pos] : 0;
-    seg_pad[static_cast<size_t>(b) * s_pad + pos] = id;
-    if (id > 0) {
-      lo = min(lo, id);
-      hi = max(hi, id);
-    }
-    mn = min(mn, id);
-    mx = max(mx, id);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  }
-  if (lane == 0) {
-    range[static_cast<size_t>(b) * (s_pad / kSegChunk) + chunk] =
-        make_int4(lo, hi, mn == mx && mn > 0 ? mn : 0, 0);
-  }
-}
-
-// Whether a query range (lo, hi) and a key range (lo, hi, ...) share a
-// positive id: a necessary condition for any pair of the two to attend.
-__device__ __forceinline__ bool ranges_meet(int2 q, int4 k) {
-  return max(q.x, k.x) <= min(q.y, k.y);
-}
 
 template <int D, bool CAUSAL, bool HAS_SEG>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -1400,6 +1175,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // oacc = 0: exact 0 over the floored normalizer
   const float norm_a = fmaxf(quad_sum(l_a), 1e-30f);
   const float norm_b = fmaxf(quad_sum(l_b), 1e-30f);
+  if (p.lse != nullptr && t4 == 0) {  // m is in log2 units
+    float* lse = p.lse + static_cast<size_t>(blockIdx.x) * p.Sq;
+    if (row_a < p.Sq) lse[row_a] = (m_a + log2f(norm_a)) * kLn2;
+    if (row_b < p.Sq) lse[row_b] = (m_b + log2f(norm_b)) * kLn2;
+  }
   bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int pn = 0; pn < T::PANELS; ++pn) {
@@ -1493,61 +1273,6 @@ bool mma_aligned(const Params& p) {
          p.o_ss % 2 == 0;
 }
 
-// CUresults of the tensor-map encoding come back offset by kCuBase, apart
-// from cudaError_t's.
-constexpr int kCuBase = 100000;
-
-// A 4-D TMA map over one bf16 operand of (B, H, S, D) shape with element
-// strides sb, sh, ss (the head dim contiguous), boxes of 64 columns (one
-// 128-byte swizzled panel) by `box_rows` rows. The outer dims go to the
-// map in increasing stride order, a dim of size 1 last with a stride of
-// its own (its coordinate is always 0); `slots` records where S, H and B
-// went. Out-of-range rows of a box read as zeros.
-int encode_map(CUtensorMap* map, int* slots, const void* base, int D, int S,
-               int H, int B, long long ss, long long sh, long long sb,
-               int box_rows) {
-  struct Dim {
-    unsigned long long size, stride;
-    int which;  // 0 = S, 1 = H, 2 = B
-  };
-  Dim dims[3] = {{static_cast<unsigned long long>(S), 2ull * ss, 0},
-                 {static_cast<unsigned long long>(H), 2ull * sh, 1},
-                 {static_cast<unsigned long long>(B), 2ull * sb, 2}};
-  unsigned long long span = 2ull * D;
-  for (const Dim& d : dims) {
-    if (d.size > 1) span = d.size * d.stride > span ? d.size * d.stride : span;
-  }
-  for (Dim& d : dims) {
-    if (d.size == 1) d.stride = (span + 15) & ~15ull;
-  }
-  for (int i = 1; i < 3; ++i) {  // insertion sort, stable
-    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
-      const Dim t = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = t;
-    }
-  }
-  cuuint64_t size[4] = {static_cast<cuuint64_t>(D), dims[0].size,
-                        dims[1].size, dims[2].size};
-  cuuint64_t stride[3] = {dims[0].stride, dims[1].stride, dims[2].stride};
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  *slots = 0;
-  for (int i = 0; i < 3; ++i) {
-    if (dims[i].which == 0) box[i + 1] = static_cast<cuuint32_t>(box_rows);
-    *slots |= (i + 1) << (2 * dims[i].which);
-  }
-  const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), size,
-      stride, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kCuBase + static_cast<int>(r);
-}
-
-// The padded length of a row of segment ids that the Hopper variant's
-// tile skipping reads.
-int seg_pad_length(int S) { return (S + kSegPad - 1) / kSegPad * kSegPad; }
 
 // seg_scratch: flash_attention_seg_scratch_ints(B, Sk) int32 on the card,
 // 16-byte aligned, when p.seg is not null: the padded ids (B, s_pad), then
@@ -1570,20 +1295,18 @@ int launch_wgmma(const Params& p, int* seg_scratch, cudaStream_t stream) {
   }
   if (err != 0) return err;
   w.o = p.o;
+  w.lse = p.lse;
   w.lengths = p.lengths;
   w.seg_pad = nullptr;
   w.seg_range = nullptr;
   w.s_pad = 0;
   if constexpr (HAS_SEG) {
     w.s_pad = seg_pad_length(p.Sk);
-    int4* range = reinterpret_cast<int4*>(
-        seg_scratch + static_cast<size_t>(p.B) * w.s_pad);
     w.seg_pad = seg_scratch;
-    w.seg_range = range;
-    seg_ranges_kernel<<<dim3(w.s_pad / kSegChunk, p.B), 32, 0, stream>>>(
-        p.seg, p.Sk, w.s_pad, seg_scratch, range);
-    const cudaError_t pre = cudaGetLastError();
-    if (pre != cudaSuccess) return static_cast<int>(pre);
+    w.seg_range = reinterpret_cast<int4*>(
+        seg_scratch + static_cast<size_t>(p.B) * w.s_pad);
+    const int pre = launch_seg_ranges(p.seg, p.B, p.Sk, seg_scratch, stream);
+    if (pre != 0) return pre;
   }
   w.o_sb = p.o_sb, w.o_sh = p.o_sh, w.o_ss = p.o_ss;
   w.H = p.H, w.Sq = p.Sq, w.Sk = p.Sk;
@@ -1609,23 +1332,14 @@ int dispatch_wgmma(const Params& p, bool causal, int* seg_scratch,
                 : launch_wgmma<D, false, false>(p, nullptr, s);
 }
 
-// The Hopper variant reads q, k and v through TMA maps: 16-byte aligned
-// bases and strides of whole 16-byte units (8 bf16) in every dim of more
-// than one element, none of them 0 (a broadcast view). It writes o in
-// 4-byte pairs.
+// The Hopper variant reads q, k and v through TMA maps (tma_operand) and
+// writes o in 4-byte pairs.
 bool wgmma_aligned(const Params& p) {
-  const auto aligned = [](const void* ptr, unsigned bytes) {
-    return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
-  };
-  const auto unit = [](long long stride, int size) {
-    return size == 1 || (stride > 0 && stride % 8 == 0);
-  };
-  return aligned(p.q, 16) && aligned(p.k, 16) && aligned(p.v, 16) &&
-         aligned(p.o, 4) && unit(p.q_sb, p.B) && unit(p.q_sh, p.H) &&
-         unit(p.q_ss, p.Sq) && unit(p.k_sb, p.B) && unit(p.k_sh, p.H) &&
-         unit(p.k_ss, p.Sk) && unit(p.v_sb, p.B) && unit(p.v_sh, p.H) &&
-         unit(p.v_ss, p.Sk) && p.o_sb % 2 == 0 && p.o_sh % 2 == 0 &&
-         p.o_ss % 2 == 0;
+  return tma_operand(p.q, p.q_sb, p.q_sh, p.q_ss, p.B, p.H, p.Sq) &&
+         tma_operand(p.k, p.k_sb, p.k_sh, p.k_ss, p.B, p.H, p.Sk) &&
+         tma_operand(p.v, p.v_sb, p.v_sh, p.v_ss, p.B, p.H, p.Sk) &&
+         reinterpret_cast<uintptr_t>(p.o) % 4 == 0 && p.o_sb % 2 == 0 &&
+         p.o_sh % 2 == 0 && p.o_ss % 2 == 0;
 }
 
 }  // namespace
@@ -1633,7 +1347,11 @@ bool wgmma_aligned(const Params& p) {
 extern "C" {
 
 // strides: 12 element strides (batch, head, row) of q, k, v and o; the
-// head dim of each is contiguous. lengths (B,) and segment_ids (B, Sk)
+// head dim of each is contiguous. lse: null, or (B, H, Sq) fp32 on the
+// card, contiguous, into which every variant writes each row's logsumexp
+// m + log(max(l, 1e-30)) over the scores of q * scale (natural log; a row
+// that sees no key gets a large negative finite value, which the backward
+// does not read). lengths (B,) and segment_ids (B, Sk)
 // are int32 on the card, or null; with segment_ids, seg_scratch holds
 // flash_attention_seg_scratch_ints(B, Sk) int32 on the card, 16-byte
 // aligned (the Hopper variant's tile skipping writes it). dtype: 0 =
@@ -1644,7 +1362,7 @@ extern "C" {
 // mma.sync, 2 wgmma. Returns the cudaError_t of the launch, or kCuBase +
 // a CUresult of the TMA map encoding.
 int flash_attention_forward(const void* q, const void* k, const void* v,
-                            void* o, const void* lengths,
+                            void* o, void* lse, const void* lengths,
                             const void* segment_ids, void* seg_scratch,
                             const long long* strides, int B, int H, int Sq,
                             int Sk, int D, float scale, int causal, int dtype,
@@ -1659,6 +1377,7 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.lengths = static_cast<const int*>(lengths);
   p.seg = static_cast<const int*>(segment_ids);
   p.q_sb = strides[0], p.q_sh = strides[1], p.q_ss = strides[2];
@@ -1695,8 +1414,7 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
 
 // the int32 scratch the Hopper variant takes with segment ids
 size_t flash_attention_seg_scratch_ints(int B, int S) {
-  const size_t s_pad = static_cast<size_t>(seg_pad_length(S));
-  return static_cast<size_t>(B) * (s_pad + s_pad / kSegChunk * 4);
+  return seg_scratch_ints(B, S);
 }
 
 // the sizes of the Hopper variant's shared memory, D = 64 and 128
@@ -1705,16 +1423,7 @@ size_t flash_attention_wgmma_smem_bytes(int d) {
 }
 
 const char* flash_attention_error_string(int err) {
-  if (err >= kCuBase) {
-    const char* msg = nullptr;
-    if (cuGetErrorString(static_cast<CUresult>(err - kCuBase), &msg) !=
-            CUDA_SUCCESS ||
-        msg == nullptr) {
-      return "unknown CUDA driver error (tensor map encoding)";
-    }
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return error_string(err);
 }
 
 }  // extern "C"

@@ -25,7 +25,14 @@ counterpart of ``_blockwise_bwd`` and of the VJP of ``_masked_reference``;
 counted in ``flash_attention.backward_launches`` and
 ``flash_attention.masked_backward_launches``) or raises, and on CPU and
 ``meta`` tensors runs :func:`attention_backward_plain` and
-:func:`masked_attention_backward_plain`.
+:func:`masked_attention_backward_plain`. When a gradient is asked for, the
+forward kernel also keeps each row's logsumexp (:func:`attention_lse_plain`
+is its plain version), which every backward variant reads. The backward's
+wgmma/TMA variant (bf16, D = 64 or 128, TMA-able views; counted in
+``flash_attention.wgmma_backward_launches``) adds dq's partial
+sums by TMA bulk reduce-adds, atomic per element and in no fixed order, so
+dq may differ in its last bits from one call to the next; dk and dv are
+written once and repeat bit for bit.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ from ... import _build
 from ...base import MXNetError
 
 __all__ = ["flash_attention", "attention_plain", "masked_attention_plain",
-           "attention_backward_plain", "masked_attention_backward_plain"]
+           "attention_lse_plain", "attention_backward_plain",
+           "masked_attention_backward_plain"]
 
 _NEG = -1e30
 
@@ -106,24 +114,43 @@ def masked_attention_plain(q, k, v, lengths=None, segment_ids=None,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def attention_backward_plain(q, k, v, out, do, causal=False, scale=None):
-    """``_blockwise_bwd``: the dense core's gradients (dq, dk, dv) for the
-    output cotangent ``do``, in fp32 throughout. lse = m + log(max(l,
-    1e-30)) over the scores of ``q * scale``; delta = rowsum(dO * O) from
-    the forward's output as stored; ds = p * (dp - delta) * scale; dk pairs
-    ds with the unscaled q; each gradient is cast to its input's dtype
-    once, at the end."""
-    scale = _default_scale(q.shape[-1], scale)
-    qf = q.float() * scale
-    dof = do.float()
-    delta = torch.sum(dof * out.float(), dim=-1)  # (B, H, Sq)
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
-    if causal:
-        sq, sk = s.shape[-2:]
-        s = torch.where(_causal_mask(sq, sk, s.device), s, _NEG)
+def _scores(q, k, causal, scale, lengths=None, segment_ids=None):
+    """The fp32 scores of ``q * scale`` against k, _NEG where the mask
+    (:func:`_combined_mask`) is false."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    mask = _combined_mask(s.shape[-2], s.shape[-1], causal, lengths,
+                          segment_ids, s.device)
+    return s if mask is None else torch.where(mask, s, _NEG)
+
+
+def attention_lse_plain(q, k, v, causal=False, scale=None, lengths=None,
+                        segment_ids=None):
+    """Each query row's logsumexp over its scores, (B, H, Sq) fp32, as
+    ``_blockwise_bwd``'s first pass computes it: m + log(max(l, 1e-30))
+    over the scores of ``q * scale``, masked scores at -1e30 (so a row
+    that sees no key gets about -1e30, finite). The forward kernel keeps
+    the same values for the backward when a gradient is asked for. ``v``
+    is not read; it keeps the forward's signature."""
+    del v
+    s = _scores(q, k, causal, _default_scale(q.shape[-1], scale), lengths,
+                segment_ids)
     m = torch.amax(s, dim=-1)
     l = torch.sum(torch.exp(s - m[..., None]), dim=-1)
-    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def attention_backward_plain(q, k, v, out, do, causal=False, scale=None):
+    """``_blockwise_bwd``: the dense core's gradients (dq, dk, dv) for the
+    output cotangent ``do``, in fp32 throughout. lse from
+    :func:`attention_lse_plain`; delta = rowsum(dO * O) from the forward's
+    output as stored; ds = p * (dp - delta) * scale; dk pairs ds with the
+    unscaled q; each gradient is cast to its input's dtype once, at the
+    end."""
+    scale = _default_scale(q.shape[-1], scale)
+    dof = do.float()
+    delta = torch.sum(dof * out.float(), dim=-1)  # (B, H, Sq)
+    s = _scores(q, k, causal, scale)
+    lse = attention_lse_plain(q, k, v, causal, scale)
     p = torch.exp(s - lse[..., None])  # normalized probabilities
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
@@ -204,9 +231,11 @@ def _int32_on(device, *ids):
         t, dtype=torch.int32, device=device).contiguous() for t in ids)
 
 
-def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
+def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0, lse=None):
     """``route`` 0 lets the library pick the variant; 1 takes the mma.sync
-    variant (see :func:`_mma_sync`)."""
+    variant (see :func:`_mma_sync`). ``lse``: None, or a contiguous fp32
+    (B, H, Sq) tensor on q's card that the kernel fills with each row's
+    logsumexp."""
     tensors = (q, k, v)
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or q.dtype not in _KERNEL_DTYPES:
@@ -242,6 +271,7 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             lengths.data_ptr() if lengths is not None else None,
             segment_ids.data_ptr() if segment_ids is not None else None,
             scratch.data_ptr() if scratch is not None else None, strides,
@@ -278,7 +308,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_attention_forward.argtypes is None:
         lib.flash_attention_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int),
@@ -298,6 +328,15 @@ def wgmma_shared_bytes(d):
     (64 or 128): the Q tile, 3 K/V stages, the mbarriers, 3 K tiles'
     segment ids and the slack that aligns the tiles to 1024 bytes."""
     return int(_lib().flash_attention_wgmma_smem_bytes(d))
+
+
+def wgmma_backward_shared_bytes(d):
+    """Dynamic shared memory of a wgmma/TMA backward block at head dim
+    ``d`` (64 or 128): its K and V tiles, 3 stages of Q and dO tiles, each
+    consumer's dS^T tile and dQ staging tile, the stages' lse, delta and
+    id rows, the mbarriers and the slack that aligns the tiles to 1024
+    bytes."""
+    return int(_bwd_lib().flash_attention_backward_wgmma_smem_bytes(d))
 
 
 def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
@@ -327,15 +366,25 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=256,
                                   scale)
 
 
-def _forward(q, k, v, causal, scale, lengths, segment_ids):
-    """The kernel on CUDA tensors, the plain versions on CPU and meta
-    ones."""
+def _forward(q, k, v, causal, scale, lengths, segment_ids, lse=None):
+    """The kernel on CUDA tensors (filling ``lse`` if given), the plain
+    versions on CPU and meta ones."""
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, scale, lengths, segment_ids)
+        return _launch(q, k, v, causal, scale, lengths, segment_ids, lse=lse)
     if lengths is None and segment_ids is None:
         return attention_plain(q, k, v, causal, scale)
     return masked_attention_plain(q, k, v, lengths, segment_ids, causal,
                                   scale)
+
+
+def _lse_for(ctx, q):
+    """The fp32 (B, H, Sq) tensor the forward kernel fills with each row's
+    logsumexp, when a gradient is asked for of a CUDA forward (the
+    backward kernels read it); else None (the CPU backward recomputes lse,
+    as ``_blockwise_bwd`` does)."""
+    if q.device.type != "cuda" or not any(ctx.needs_input_grad[:3]):
+        return None
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
 
 
 class _DenseAttention(torch.autograd.Function):
@@ -344,18 +393,19 @@ class _DenseAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = _forward(q, k, v, causal, scale, None, None)
-        ctx.save_for_backward(q, k, v, out)
+        lse = _lse_for(ctx, q)
+        out = _forward(q, k, v, causal, scale, None, None, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if q.device.type == "cuda":
             grads = _backward_launch(q, k, v, out, do, ctx.causal, ctx.scale,
-                                     None, None)
+                                     None, None, lse)
         else:
             grads = attention_backward_plain(q, k, v, out, do, ctx.causal,
                                              ctx.scale)
@@ -369,28 +419,39 @@ class _MaskedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, segment_ids, causal, scale):
-        out = _forward(q, k, v, causal, scale, lengths, segment_ids)
-        ctx.save_for_backward(q, k, v, out, lengths, segment_ids)
+        lse = _lse_for(ctx, q)
+        out = _forward(q, k, v, causal, scale, lengths, segment_ids, lse)
+        ctx.save_for_backward(q, k, v, out, lengths, segment_ids, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, out, lengths, segment_ids = ctx.saved_tensors
+        q, k, v, out, lengths, segment_ids, lse = ctx.saved_tensors
         if q.device.type == "cuda":
             grads = _backward_launch(q, k, v, out, do, ctx.causal, ctx.scale,
-                                     lengths, segment_ids)
+                                     lengths, segment_ids, lse)
         else:
             grads = masked_attention_backward_plain(
                 q, k, v, do, lengths, segment_ids, ctx.causal, ctx.scale)
         return (*grads, None, None, None, None)
 
 
-def _backward_launch(q, k, v, out, do, causal, scale, lengths, segment_ids):
-    """dq, dk, dv from ``csrc/flash_attention_bwd.cu``: three launches on
-    the current stream (K0: lse and delta = rowsum(dO * O) in fp32; K1: dk
-    and dv, a block a K tile; K2: dq, a block a Q tile), no atomics. A
+def _backward_launch(q, k, v, out, do, causal, scale, lengths, segment_ids,
+                     lse, route=0):
+    """dq, dk, dv from ``csrc/flash_attention_bwd.cu`` on the current
+    stream. ``lse``: the forward's (B, H, Sq) fp32 row logsumexps
+    (:func:`_lse_for`), which every variant reads. The library picks the
+    variant by dtype, head dim and alignment: bf16 at D = 64 or 128 over
+    views TMA can describe takes the wgmma/TMA one (K0 delta = rowsum(dO *
+    O); the main kernel, a block per 64 or 128 keys, writing dk and dv
+    once and adding dq's partial sums into an fp32 accumulator by bulk
+    reduce-adds; K2 that accumulator into dq), other aligned bf16 views
+    the mma.sync one (three launches, no atomics: delta, dk and dv, dq),
+    fp32 and the rest the CUDA-core one (the same three). The fp32
+    scratch is sized for the variant the library will take. ``route`` 1 takes the
+    mma.sync variant wherever it applies (:func:`_mma_sync_backward`). A
     head dim that is not contiguous (an expanded cotangent, say) is copied
     with ``.contiguous()`` first; the gradients keep their input's
     layout."""
@@ -403,23 +464,35 @@ def _backward_launch(q, k, v, out, do, causal, scale, lengths, segment_ids):
     masked = lengths is not None or segment_ids is not None
     if min(b, h, sq, sk, d) == 0:
         return tuple(g.zero_() for g in grads)
+    if lse is None:
+        raise MXNetError("flash_attention backward kernel needs the "
+                         "forward's lse")
     lengths, segment_ids = _int32_on(q.device, lengths, segment_ids)
-    lse, delta = (torch.empty((b, h, sq), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
+    lib = _bwd_lib()
     tensors = (q, k, v, out, do, *grads)
+    ptrs = [t.data_ptr() for t in tensors]
     strides = (ctypes.c_longlong * 24)(
         *(s for t in tensors for s in t.stride()[:3]))
+    dtype = _KERNEL_DTYPES[q.dtype]
+    scratch = torch.empty(
+        int(lib.flash_attention_backward_scratch_floats(
+            *ptrs, strides, b, h, sq, sk, d, dtype, route)),
+        dtype=torch.float32, device=q.device)
+    seg_scratch = None
+    if segment_ids is not None:  # the same layout as the forward's
+        seg_scratch = torch.empty(
+            int(_lib().flash_attention_seg_scratch_ints(b, sk)),
+            dtype=torch.int32, device=q.device)
     variant = ctypes.c_int(-1)
-    lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_backward(
-            *(t.data_ptr() for t in tensors), lse.data_ptr(),
-            delta.data_ptr(),
+            *ptrs, lse.data_ptr(), scratch.data_ptr(),
+            seg_scratch.data_ptr() if seg_scratch is not None else None,
             lengths.data_ptr() if lengths is not None else None,
             segment_ids.data_ptr() if segment_ids is not None else None,
             strides, b, h, sq, sk, d, ctypes.c_float(scale), int(causal),
-            _KERNEL_DTYPES[q.dtype], ctypes.byref(variant), stream)
+            dtype, route, ctypes.byref(variant), stream)
     if err != 0:
         msg = lib.flash_attention_backward_error_string(err).decode()
         raise MXNetError(f"flash_attention backward kernel launch failed: "
@@ -430,11 +503,30 @@ def _backward_launch(q, k, v, out, do, causal, scale, lengths, segment_ids):
         flash_attention.backward_launches += 1
     if variant.value == _MMA_SYNC:
         flash_attention.mma_backward_launches += 1
+    elif variant.value == _WGMMA:
+        flash_attention.wgmma_backward_launches += 1
     return tuple(grads)
 
 
+def _mma_sync_backward(q, k, v, out, do, causal=False, scale=None,
+                       lengths=None, segment_ids=None, lse=None):
+    """The dense or masked core's gradients through the earlier mma.sync
+    variant, which bf16 no longer takes where TMA applies: for timing the
+    two side by side, or checking that variant, never on a model's path.
+    ``lse``: the forward's (B, H, Sq) fp32 row logsumexps, as
+    :func:`_launch` fills them. Counted as the backward counts. Raises
+    where that variant does not apply (not bf16, D not 64 or 128,
+    unaligned rows) and on tensors off the card."""
+    _check(q, k, v, causal, lengths, segment_ids)
+    if q.device.type != "cuda":
+        raise MXNetError("_mma_sync_backward takes CUDA tensors")
+    return _backward_launch(q, k, v, out, do, causal,
+                            _default_scale(q.shape[-1], scale), lengths,
+                            segment_ids, lse, route=1)
+
+
 # the variant number the backward library reports for its mma.sync
-# kernels (0 is the CUDA-core one)
+# kernels (0 is the CUDA-core one, 2 the wgmma/TMA one)
 _MMA_SYNC = 1
 
 
@@ -442,12 +534,20 @@ def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
     if lib.flash_attention_backward.argtypes is None:
         lib.flash_attention_backward.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_longlong)]
+            [ctypes.c_void_p] * 13 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int),
                                     ctypes.c_void_p])
         lib.flash_attention_backward.restype = ctypes.c_int
+        lib.flash_attention_backward_scratch_floats.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 7)
+        lib.flash_attention_backward_scratch_floats.restype = ctypes.c_size_t
+        lib.flash_attention_backward_wgmma_smem_bytes.argtypes = [
+            ctypes.c_int]
+        lib.flash_attention_backward_wgmma_smem_bytes.restype = (
+            ctypes.c_size_t)
         lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
     return lib
@@ -459,3 +559,4 @@ flash_attention.wgmma_launches = 0   # of those, the wgmma/TMA variant's
 flash_attention.backward_launches = 0         # dense core (B2) backwards
 flash_attention.masked_backward_launches = 0  # masked core (B3) backwards
 flash_attention.mma_backward_launches = 0     # of those, the mma.sync one's
+flash_attention.wgmma_backward_launches = 0   # and the wgmma/TMA one's

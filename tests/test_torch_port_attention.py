@@ -21,10 +21,12 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mxt
+from mxnet_tpu_torch import _build
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import attention_ops as port_attention_ops
 from mxnet_tpu_torch.ops.cuda.attention import (
-    _combined_mask, _mma_sync, attention_backward_plain, attention_plain,
+    _combined_mask, _launch, _mma_sync, _mma_sync_backward,
+    attention_backward_plain, attention_lse_plain, attention_plain,
     flash_attention, masked_attention_backward_plain, masked_attention_plain)
 
 # fp32 on both sides: only the summation order differs
@@ -119,6 +121,9 @@ GRAD_CASES = {
     "segments_lengths_causal": ("segments_lengths_causal", 512),
 }
 BF16_GRAD_CASES = ["dense_causal", "lengths_causal"]
+# the cases of attention_lse_plain against the JAX package's logsumexp:
+# dense, causal Sq < Sk, lengths with a 0, packed segments with pads
+LSE_CASES = ["dense", "causal_sq_lt_sk", "lengths", "segments"]
 PALLAS_CASES = ["dense_causal", "segments_lengths_causal"]
 # (causal, Sq, Sk) of MultiHeadAttention
 MHA_CASES = [(False, 6, 6), (True, 6, 6), (True, 4, 9), (True, 9, 4)]
@@ -152,6 +157,20 @@ def _jax_flash(ref, q, k, v, causal, lens, seg, dtype=None, **kw):
     return out.astype(ref.jnp.float32)
 
 
+def _jax_lse(ref, q, k, v, causal, lens, seg):
+    """Each row's logsumexp of the scaled scores (q * scale against k),
+    masked where the JAX package's _combined_mask (the mask
+    _masked_reference applies) is false."""
+    import jax
+    jnp = ref.jnp
+    s = jnp.einsum("bhqd,bhkd->bhqk", q * (1.0 / q.shape[-1] ** 0.5), k)
+    mask = ref.attention._combined_mask(q.shape[2], k.shape[2], causal, lens,
+                                        seg)
+    if mask is not None:
+        s = jnp.where(mask, s, -1e30)
+    return jax.nn.logsumexp(s, axis=-1)
+
+
 @pytest.fixture(scope="module")
 def jax_out(ref):
     """Every JAX reference output of this file, from one jit: one XLA
@@ -168,6 +187,7 @@ def jax_out(ref):
         "grad": {n: _grad_case(n)[:4] for n in GRAD_CASES},
         "grad_bf16": {n: _grad_case(n, seed=13)[:4] for n in BF16_GRAD_CASES},
         "op_grad": _grad_case("causal_sq_lt_sk", seed=17)[:4],
+        "lse": {n: _case(n, seed=19) for n in LSE_CASES},
     }
 
     def grads(arrays, name, dtype=None):
@@ -200,6 +220,9 @@ def jax_out(ref):
                 lambda q, k, v: ref.attention._flash_attention_op(
                     q, k, v, causal=True, scale=0.25),
                 *arrays["op_grad"][:3])[1](arrays["op_grad"][3]),
+            "lse": {n: _jax_lse(ref, *arrays["lse"][n][:3], CASES[n][5],
+                                *arrays["lse"][n][4:])
+                    for n in LSE_CASES},
         }
         return out
 
@@ -448,6 +471,86 @@ def test_cpu_backward_runs_plain_and_counts_no_launch():
             flash_attention.masked_backward_launches) == counts
 
 
+@pytest.mark.parametrize("name", LSE_CASES)
+def test_lse_plain_matches_jax_logsumexp(jax_out, name):
+    """attention_lse_plain (the values the forward kernel keeps for the
+    backward) against jax.nn.logsumexp of the JAX package's masked scaled
+    scores, fp32; rows that see no key are left out of the comparison and
+    are finite."""
+    q, k, v, causal, lens, seg = _case(name, seed=19)
+    got = attention_lse_plain(
+        *map(torch.from_numpy, (q, k, v)), causal,
+        lengths=None if lens is None else torch.from_numpy(lens),
+        segment_ids=None if seg is None else torch.from_numpy(seg)).numpy()
+    want = jax_out["lse"][name]
+    assert got.shape == q.shape[:3] and got.dtype == np.float32
+    live = np.ones(q.shape[:3], bool)
+    if lens is not None:
+        live &= (lens > 0)[:, None, None]
+    if seg is not None:
+        live &= (seg > 0)[:, None, :]
+    assert name in ("dense", "causal_sq_lt_sk") or not live.all()
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=1e-6)
+    assert np.isfinite(got).all()
+
+
+def test_cpu_functions_keep_no_lse_and_launch_nothing():
+    """On the CPU the autograd Functions save no lse (their backward
+    recomputes it, as _blockwise_bwd does) and launch no kernel; without
+    grad mode the forward builds no graph at all."""
+    q, k, v, do, causal, lens, seg, _ = _grad_case("segments_lengths_causal")
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    counts = (flash_attention.launches, flash_attention.masked_launches,
+              flash_attention.backward_launches,
+              flash_attention.masked_backward_launches,
+              flash_attention.wgmma_backward_launches)
+    for kw in ({}, {"lengths": torch.from_numpy(lens),
+                    "segment_ids": torch.from_numpy(seg)}):
+        out = flash_attention(*leaves, causal=causal, **kw)
+        assert out.grad_fn.saved_tensors[-1] is None  # no lse
+        torch.autograd.grad(out, leaves, torch.from_numpy(do))
+        with torch.no_grad():
+            assert flash_attention(*leaves, causal=causal, **kw).grad_fn is None
+    assert (flash_attention.launches, flash_attention.masked_launches,
+            flash_attention.backward_launches,
+            flash_attention.masked_backward_launches,
+            flash_attention.wgmma_backward_launches) == counts
+
+
+def test_mma_sync_backward_timing_route_takes_only_card_tensors():
+    """The forced mma.sync backward exists to time that variant beside
+    the wgmma/TMA one on the card; it checks shapes like the public entry
+    point and has no CPU path."""
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(MXNetError, match="CUDA"):
+        _mma_sync_backward(q, q, q, q, q, causal=True)
+    with pytest.raises(ValueError, match="seq_q <= seq_k"):
+        _mma_sync_backward(q, q[:, :, :4], q[:, :, :4], q, q, causal=True)
+
+
+def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """A library's file name hashes its source and the csrc/ headers the
+    source includes (and theirs): an edited header builds anew instead of
+    loading a stale library. Both attention sources include the shared
+    Hopper header."""
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert _build.included_headers(_build.CSRC / _build.SOURCES[name]) \
+            == [_build.CSRC / "hopper_tma.cuh"]
+    (tmp_path / "a.cuh").write_text("// a\n")
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "a.cuh"\n')
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "b.cuh"\n'
+                                   '#include "a.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setitem(_build.SOURCES, "probe", "k.cu")
+    assert _build.included_headers(tmp_path / "k.cu") == [
+        tmp_path / "b.cuh", tmp_path / "a.cuh"]
+    first = _build.library_path("probe")
+    assert _build.library_path("probe") == first
+    (tmp_path / "a.cuh").write_text("// a, edited\n")
+    assert _build.library_path("probe") != first
+    assert _build.LINKS["flash_attention_bwd"] == ("-lcuda",)
+
+
 def test_contrib_flash_attention_op_gradients_through_executor(jax_out):
     """The op's gradients through the port's executor (simple_bind,
     forward(is_train=True), backward with the head gradient) against
@@ -515,7 +618,7 @@ def test_kernel_takes_strided_views_and_refuses_grad(card, offset):
     """(B, S, H, D) transposed views as the transformer makes them; with an
     offset no row is 16-byte aligned and the CUDA-core variants run. The
     gradients on the same views come from the backward kernels (the
-    mma.sync variant for aligned rows), each within two bf16 ulps of its
+    wgmma/TMA variant for aligned rows), each within two bf16 ulps of its
     largest magnitude of the plain backward; a head dim over 128 is
     refused."""
     x = torch.randn(2, 64, 8, 64 + offset, device=card,
@@ -531,13 +634,15 @@ def test_kernel_takes_strided_views_and_refuses_grad(card, offset):
     # of (B, S, H, D) memory
     do = torch.randn_like(want).transpose(1, 2).contiguous().transpose(1, 2)
     before = (flash_attention.backward_launches,
-              flash_attention.mma_backward_launches)
+              flash_attention.mma_backward_launches,
+              flash_attention.wgmma_backward_launches)
     grads = torch.autograd.grad(flash_attention(*leaves, causal=True),
                                 leaves, do)
     torch.cuda.synchronize()
     assert (flash_attention.backward_launches,
-            flash_attention.mma_backward_launches) == (
-        before[0] + 1, before[1] + (offset == 0))
+            flash_attention.mma_backward_launches,
+            flash_attention.wgmma_backward_launches) == (
+        before[0] + 1, before[1], before[2] + (offset == 0))
     for g, p in zip(grads, attention_backward_plain(q, q, q, want, do,
                                                     causal=True)):
         assert g.shape == p.shape and g.dtype == torch.bfloat16
@@ -548,9 +653,10 @@ def test_kernel_takes_strided_views_and_refuses_grad(card, offset):
 
 
 # (label, (B, H, Sq, Sk, D), causal, lengths, segments, layout, dtype) of
-# the backward kernels' checks: the tensor-core variant (bf16, D = 64 and
-# 128, tile edges, Sq < Sk, (B, S, H, D) views) and the CUDA-core one
-# (fp32, and bf16 at D = 48), dense and masked, lengths of 0
+# the backward kernels' checks: the wgmma/TMA variant (bf16, D = 64 and
+# 128, tile edges, Sq < Sk, (B, S, H, D) views, packed segments at both D)
+# and the CUDA-core one (fp32, and bf16 at D = 48), dense and masked,
+# lengths of 0
 BACKWARD_CASES = [
     ("causal", (2, 4, 256, 256, 64), True, None, None, "bhsd",
      torch.bfloat16),
@@ -578,6 +684,14 @@ BACKWARD_CASES = [
      "bhsd", torch.bfloat16),
     ("bf16 D=48 segments", (2, 2, 130, 130, 48), True, None, _segments,
      "bhsd", torch.bfloat16),
+    ("D=128 segments", (2, 2, 300, 300, 128), True, None, _segments, "bhsd",
+     torch.bfloat16),
+    ("segments views", (2, 8, 200, 200, 64), False, None, _segments, "bshd",
+     torch.bfloat16),
+    ("D=128 segments lengths views", (2, 4, 333, 333, 128), False,
+     [333, 200], _segments, "bshd", torch.bfloat16),
+    ("ids out of order causal", (2, 2, 700, 700, 64), True, None,
+     lambda b, s: _runs_of_ids(b, s, seed=6), "bhsd", torch.bfloat16),
 ]
 
 
@@ -588,8 +702,10 @@ def test_backward_kernel_matches_plain(card, case):
     versions on the same card tensors, each relative to its largest
     magnitude, at least 2**-10 (with one token dq is 0 by math: P = 1, so
     dS = dP - delta vanishes up to summation order): fp32 2e-5 (summation
-    order), bf16 2**-6 (P and dS rounded to bf16 as mma operands). Rows that see no key have dq exact 0, keys no row sees dk
-    and dv exact 0."""
+    order), bf16 2**-6 (P and dS rounded to bf16 as mma operands). Rows
+    that see no key have dq exact 0, keys no row sees dk and dv exact 0.
+    Every bf16 case at D = 64 or 128 takes the wgmma/TMA variant, the
+    others the CUDA-core one."""
     _, (b, h, sq, sk, d), causal, lengths, segments, layout, dtype = case
     rng = np.random.RandomState(sq + sk + d)
 
@@ -609,12 +725,18 @@ def test_backward_kernel_matches_plain(card, case):
     out = flash_attention(*leaves, causal=causal, lengths=lens,
                           segment_ids=seg)
     before = (flash_attention.backward_launches,
-              flash_attention.masked_backward_launches)
+              flash_attention.masked_backward_launches,
+              flash_attention.wgmma_backward_launches,
+              flash_attention.mma_backward_launches)
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
+    wgmma = dtype == torch.bfloat16 and d in (64, 128)
     assert (flash_attention.backward_launches,
-            flash_attention.masked_backward_launches) == (
-        before[0] + (not masked), before[1] + masked)
+            flash_attention.masked_backward_launches,
+            flash_attention.wgmma_backward_launches,
+            flash_attention.mma_backward_launches) == (
+        before[0] + (not masked), before[1] + masked, before[2] + wgmma,
+        before[3])
     if masked:
         want = masked_attention_backward_plain(q, k, v, do, lens, seg,
                                                causal=causal)
@@ -793,3 +915,143 @@ def test_masked_wgmma_variant_matches_plain(card, case):
     dead = (want == 0).all(-1)
     assert bool(dead.any())  # every case has rows that see no key
     assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
+# (label, (B, H, Sq, Sk, D), causal, lengths, segments) of the forward's
+# row logsumexps: dense causal, Sq < Sk at D = 128, lengths with a 0,
+# packed segments with pads
+LSE_KERNEL_CASES = [
+    ("causal", (2, 4, 300, 300, 64), True, None, None),
+    ("causal Sq<Sk D=128", (2, 2, 77, 200, 128), True, None, None),
+    ("lengths", (3, 2, 256, 256, 64), False, [256, 100, 0], None),
+    ("segments", (2, 4, 256, 256, 64), True, None, _segments),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "mma_sync", "cuda_cores"])
+@pytest.mark.parametrize("case", LSE_KERNEL_CASES, ids=lambda c: c[0])
+def test_forward_lse_matches_plain(card, case, variant):
+    """Each forward variant (the Hopper one, mma.sync, the CUDA-core one in
+    fp32) keeps every row's logsumexp when asked, within 1e-5 of
+    attention_lse_plain on the rows that see a key (fp32 sums in another
+    order; the tensor-core variants go through exp2 and log2); the
+    output does not change."""
+    _, (b, h, sq, sk, d), causal, lengths, segments = case
+    dtype = torch.float32 if variant == "cuda_cores" else torch.bfloat16
+    q, k, v = (torch.tensor(a, dtype=dtype, device=card)
+               for a in _qkv(b, h, sq, sk, d, seed=sq + d))
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=card))
+    seg = (None if segments is None
+           else torch.tensor(segments(b, sk), device=card))
+    route = 1 if variant == "mma_sync" else 0
+    lse = torch.full((b, h, sq), float("nan"), device=card)
+    scale = 1.0 / d ** 0.5
+    before = flash_attention.wgmma_launches
+    out = _launch(q, k, v, causal, scale, lens, seg, route=route, lse=lse)
+    torch.cuda.synchronize()
+    assert flash_attention.wgmma_launches == before + (variant == "wgmma")
+    want = attention_lse_plain(q, k, v, causal, lengths=lens,
+                               segment_ids=seg)
+    live = want > -1e29
+    assert bool(torch.isfinite(lse).all())
+    assert (lse - want)[live].abs().max().item() <= 1e-5
+    assert torch.equal(out, _launch(q, k, v, causal, scale, lens, seg,
+                                    route=route))
+
+
+@pytest.mark.cuda
+def test_backward_routes_by_dtype_and_view(card):
+    """bf16 at D = 64 over views TMA can describe takes the wgmma/TMA
+    backward; a view TMA cannot take (k and v broadcast over the heads,
+    stride 0) the mma.sync one; fp32 and unaligned rows the CUDA-core one.
+    All agree with the plain backward."""
+    rng = np.random.RandomState(5)
+    base = [torch.tensor(rng.normal(0, 1, shape), dtype=torch.bfloat16,
+                         device=card)
+            for shape in ((2, 4, 200, 64), (2, 1, 200, 64), (2, 1, 200, 64))]
+    unaligned = torch.tensor(rng.normal(0, 1, (2, 4, 200, 65)),
+                             dtype=torch.bfloat16, device=card)[..., 1:]
+    cases = [("wgmma", base[0], base[0], base[0]),
+             ("mma", base[0], base[1].expand(2, 4, 200, 64),
+              base[2].expand(2, 4, 200, 64)),
+             ("cuda_cores", *(t.float() for t in (base[0],) * 3)),
+             ("cuda_cores", unaligned, unaligned, unaligned)]
+    for route, q, k, v in cases:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=True)
+        do = torch.randn_like(out)
+        before = (flash_attention.wgmma_backward_launches,
+                  flash_attention.mma_backward_launches)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert (flash_attention.wgmma_backward_launches,
+                flash_attention.mma_backward_launches) == (
+            before[0] + (route == "wgmma"), before[1] + (route == "mma"))
+        tol = 2e-5 if q.dtype == torch.float32 else 2.0 ** -6
+        for g, w in zip(grads, attention_backward_plain(
+                q, k, v, out.detach(), do, causal=True)):
+            assert (g.float() - w.float()).abs().max().item() <= \
+                tol * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_wgmma_backward_repeats(card, masked):
+    """Two backward calls on the same inputs: dk and dv are written once
+    by one block each and repeat bit for bit; dq's partial sums arrive by
+    atomics in an order that may change, so each element of dq repeats
+    within one bf16 ulp of itself."""
+    b, h, s, d = 2, 4, 512, 64
+    rng = np.random.RandomState(8)
+    q, k, v, do = (torch.tensor(rng.normal(0, 1, (b, h, s, d)),
+                                dtype=torch.bfloat16, device=card)
+                   for _ in range(4))
+    kw = ({"lengths": torch.tensor([512, 300], device=card),
+           "segment_ids": torch.tensor(_segments(b, s), device=card)}
+          if masked else {})
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    runs = []
+    for _ in range(2):
+        before = flash_attention.wgmma_backward_launches
+        runs.append(torch.autograd.grad(
+            flash_attention(*leaves, causal=True, **kw), leaves, do))
+        torch.cuda.synchronize()
+        assert flash_attention.wgmma_backward_launches == before + 1
+    (dq1, dk1, dv1), (dq2, dk2, dv2) = runs
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    _, exp = torch.frexp(torch.maximum(dq1.float().abs(), dq2.float().abs()))
+    ulp = torch.ldexp(torch.ones_like(dq1, dtype=torch.float32), exp - 8)
+    assert bool(((dq1.float() - dq2.float()).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+def test_mma_sync_backward_matches_plain(card):
+    """The timing route to the mma.sync backward, dense and masked, given
+    the rows' lse, agrees with the plain backward as the main route does;
+    without an lse it raises."""
+    b, h, s, d = 2, 2, 300, 64
+    rng = np.random.RandomState(9)
+    q, k, v, do = (torch.tensor(rng.normal(0, 1, (b, h, s, d)),
+                                dtype=torch.bfloat16, device=card)
+                   for _ in range(4))
+    out = attention_plain(q, k, v, causal=True)
+    lens = torch.tensor([300, 123], dtype=torch.int32, device=card)
+    out_len = masked_attention_plain(q, k, v, lens, causal=True)
+    before = flash_attention.mma_backward_launches
+    with pytest.raises(MXNetError, match="lse"):
+        _mma_sync_backward(q, k, v, out, do, causal=True)
+    for got, want in (
+            (_mma_sync_backward(q, k, v, out, do, causal=True,
+                                lse=attention_lse_plain(q, k, v, True)),
+             attention_backward_plain(q, k, v, out, do, causal=True)),
+            (_mma_sync_backward(q, k, v, out_len, do, causal=True,
+                                lengths=lens, lse=attention_lse_plain(
+                                    q, k, v, True, lengths=lens)),
+             masked_attention_backward_plain(q, k, v, do, lens,
+                                             causal=True))):
+        for g, w in zip(got, want):
+            assert (g.float() - w.float()).abs().max().item() <= \
+                2.0 ** -6 * w.float().abs().max().item()
+    assert flash_attention.mma_backward_launches == before + 2
