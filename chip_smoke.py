@@ -12,7 +12,11 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
 2. build: every kernel library (four) built from ``mxnet_tpu_torch/csrc``
    by concurrent ``nvcc`` processes, with ``-Xptxas -v`` output, and the
    wgmma attention kernels' (forward and backward) registers, spills,
-   wgmma serialization and shared memory a block;
+   wgmma serialization and shared memory a block; the register LSTM
+   backward kernel's registers and spills (none allowed at
+   ``<float, 8>``, the main path's), and beside them its two probe builds
+   (``tools/probe_lstm_bwd.py``: without products, without copies) for
+   phase 11's stage breakdown;
 3. kernels: each kernel's wrapper on the card against its plain PyTorch
    version at its path's shapes and ragged ones, fp32 and bf16; the LSTM
    sequence kernel over T=128 steps at N=1 and 16 (H=1024) and T=7, N=3,
@@ -70,24 +74,36 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    plain version, axpy's against ``torch.add``, and peak memory;
 11. training: the training forward (gates and c kept) and the backward
    kernels against their plain versions on the card's tensors, fp32 and
-   bf16, both directions: the sequence backward kernel at (T,N,H) =
-   (128,1,1024), (128,16,1024), the main path's (256,64,1024), (7,3,200)
-   and (7,37,200), the per-step one at (8,1,1536);
+   bf16, both directions, each shape held to the kernel its plan must
+   take: the register backward kernel (``lstm_seq_bwd_reg_kernel``,
+   counted in ``lstm_sequence_backward.register_launches``) at (T,N,H) =
+   (128,1,1024), (128,16,1024), the main path's (256,64,1024), (7,3,200),
+   (7,37,200), (5,37,1024) and (1,5,100), each also through
+   the shared-memory kernel and, bit for bit, through a second launch;
+   the shared-memory kernel at (6,16,1032) and (4,3,1320); the per-step one at
+   (8,1,1536);
    one forward_backward of the full-width LM (T=8, N=4) on the card and
    on the port's CPU path from the same seeded Xavier init, every
    gradient held to the CPU's; the benchmark's training shape (N=64,
    T=256, ``benchmarks/bench_lstm.py``): ``Module`` on the default
    context, Xavier, SGD (lr 0.5, no momentum), one ``fit`` epoch over 4
-   batches and 10 ``forward``/``backward``/``update`` steps on one batch,
-   each step 2 sequence forward and 2 sequence backward launches and no
-   per-step one, every output and parameter finite, and 10 steps from the
-   same init at learning rate 0.5 / T, whose loss must fall; ms per
-   step, tokens/s, peak
-   memory, one profiled step; one training step of the one-layer H=1536
-   LM through the per-step kernels (T and T + 1 launches); the backward
-   kernel's time against its bound and the plain loop, and the port's
-   whole layer backward against cuDNN's LSTM backward on the same inputs,
-   at T=128, N=1 and 16, and at the bench shape;
+   batches, then 10 ``forward``/``backward``/``update`` steps on one
+   batch at lr 0.5 / T (at 0.5 that training diverges; see
+   ``TRAIN_STEP_LR``), each step 2 sequence forward and 2 sequence
+   backward launches, both backwards on the register kernel, and no
+   per-step one, every loss, output and parameter finite, and 10 steps
+   from the same init at lr 0.5 / T, whose loss must fall; the fit epoch
+   and the 5 steps before divergence at lr 0.5, through the kernels and
+   through the plain backward on the card, the losses within
+   ``BENCH_LR_TOL`` of each other; ms per step,
+   tokens/s, peak memory, one profiled step; one training step of the
+   one-layer H=1536 LM through the per-step kernels (T and T + 1
+   launches); the backward sequence kernels side by side (the register
+   kernel, the shared-memory kernel, and the register kernel's probe
+   builds without products and without copies) against their bound
+   and the plain loop, and the port's whole layer backward against
+   cuDNN's LSTM backward on the same inputs, at T=128, N=1 and 16, and at
+   the bench shape;
 12. transformer training: (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) through the autograd Functions
    against the plain backward versions on the card's tensors, fp32 and
@@ -125,9 +141,12 @@ runs and reads them just after, and fails if a kernel of the path was not
 launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
+import contextlib
+import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -201,9 +220,31 @@ def phase_device():
     log(f"[device] nvidia-smi: {nvidia_smi_name_and_limit()}")
 
 
+@functools.lru_cache(maxsize=None)
+def probe_tool():
+    """tools/probe_lstm_bwd.py beside this script, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "probe_lstm_bwd.py")
+    spec = importlib.util.spec_from_file_location("probe_lstm_bwd", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def phase_build():
+    """Every kernel library, built by concurrent nvcc processes, and the
+    register backward kernel's two probe builds (phase 11's stage
+    breakdown) beside them: (the wgmma attention kernels' ptxas summaries,
+    the register backward kernel's, {probe: the build's future})."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops.cuda.rtc import nvrtc_version
+    probe = probe_tool()
+    pool = ThreadPoolExecutor(len(probe.PROBES))
+    probe_builds = {p: pool.submit(probe.build_probe, p) for p in probe.PROBES}
+    pool.shutdown(wait=False)
     t0 = time.perf_counter()
     results = _build.build()
     log(f"[build] {len(results)} libraries in "
@@ -219,14 +260,14 @@ def phase_build():
                                 "flash_fwd_wgmma_kernel", wgmma_shared_bytes),
             wgmma_build_summary(results["flash_attention_bwd"].log,
                                 "flash_bwd_wgmma_kernel",
-                                wgmma_backward_shared_bytes))
+                                wgmma_backward_shared_bytes),
+            register_backward_build_summary(results["lstm_cell"].log),
+            probe_builds)
 
 
-def wgmma_build_summary(log_text, kernel, shared_bytes):
-    """ptxas's registers and spills for each instantiation of a Hopper
-    attention kernel (``kernel``, the forward's or the backward's), any
-    wgmma serialization its library reports, and the shared memory a
-    block of it takes (``shared_bytes(d)``)."""
+def ptxas_summary(log_text, kernel):
+    """{mangled instantiation: {"registers": n, "spills": ptxas's line}}
+    for each instantiation of ``kernel`` in a library's build log."""
     out, current = {}, None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
@@ -236,6 +277,46 @@ def wgmma_build_summary(log_text, kernel, shared_bytes):
         elif current and "Used" in line and "registers" in line:
             out.setdefault(current, {})["registers"] = int(
                 line.split("Used")[1].split("registers")[0])
+    return out
+
+
+def register_backward_build_summary(log_text):
+    """ptxas's registers and spills for the register backward kernel's
+    instantiations (``lstm_seq_bwd_reg_kernel<T, units>``); raises when
+    the main path's, ``<float, 8>``, spills: its weights live in
+    registers."""
+    out = ptxas_summary(log_text, "lstm_seq_bwd_reg_kernel")
+    for name, info in out.items():
+        log(f"[build] register backward kernel {name}: {info}")
+    main = [info for name, info in out.items()
+            if "lstm_seq_bwd_reg_kernelIfLi8E" in name]
+    if len(main) != 1:
+        raise RuntimeError(f"no lstm_seq_bwd_reg_kernel<float, 8> in the "
+                           f"build log: {sorted(out)}")
+    if " 0 bytes spill stores, 0 bytes spill loads" not in (
+            " " + main[0]["spills"]):
+        raise RuntimeError(f"lstm_seq_bwd_reg_kernel<float, 8> spills: "
+                           f"{main[0]}")
+    return {"ptxas": out, "float_8": main[0],
+            "setmaxnreg": setmaxnreg_in_source()}
+
+
+def setmaxnreg_in_source():
+    """The register counts the kernels' setmaxnreg instructions set in
+    ``csrc/lstm_cell.cu`` as this checkout has it: {"inc": n, "dec": n}
+    (constants of the source, not measurements)."""
+    from mxnet_tpu_torch import _build
+    text = (_build.CSRC / _build.SOURCES["lstm_cell"]).read_text()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"setmaxnreg\.(inc|dec)\.sync\.aligned\.u32 (\d+)", text)}
+
+
+def wgmma_build_summary(log_text, kernel, shared_bytes):
+    """ptxas's registers and spills for each instantiation of a Hopper
+    attention kernel (``kernel``, the forward's or the backward's), any
+    wgmma serialization its library reports, and the shared memory a
+    block of it takes (``shared_bytes(d)``)."""
+    out = ptxas_summary(log_text, kernel)
     serialized = [line.strip() for line in log_text.splitlines()
                   if "wgmma" in line and "serialized" in line]
     smem = {d: shared_bytes(d) for d in (64, 128)}
@@ -1557,12 +1638,39 @@ def phase_imperative():
 TRAIN_N, TRAIN_T = 64, 256
 TRAIN_BATCHES, TRAIN_STEPS = 4, 10
 TRAIN_SGD = {"learning_rate": 0.5, "momentum": 0.0}
+# the steps on one repeated batch run at the benchmark's rate divided by T:
+# at 0.5 itself that training diverges from its 6th step (the loss 27.5
+# there, in the port as in the JAX package), and whether it reaches inf or
+# NaN within 10 steps then turns on fp32 rounding alone: three correct
+# backwards (the register kernel, the shared-memory kernel, the plain loop
+# on the card) agree through step 5 and part after it
+# (tools/probe_lstm_bwd.py bench-lr prints each step's loss, gradients
+# and weights)
+TRAIN_STEP_LR = TRAIN_SGD["learning_rate"] / TRAIN_T
+# the steps before that divergence run at 0.5 too, from the same init and
+# fit epoch, through the kernels and through the plain backward on the
+# card: fp32 sums in another order, through 9 updates at the bench's rate;
+# each step's cross-entropy held within BENCH_LR_TOL of the other route's
+BENCH_LR_STEPS = 5
+BENCH_LR_TOL = 1e-3
 # (T, N, H) of the training kernels' checks: the sequence kernels at the
-# served shapes, at the main training path's shape (four chunks of 16 rows)
-# and two ragged ones (one chunk; two whole chunks and a part), the
-# per-step kernels at the wide LM's H
+# served shapes, at the main training path's shape (16 tiles of 4 rows on
+# the register backward kernel) and ragged ones (one tile; two whole tiles
+# of 16 rows and a part; nine of 4 rows and a part); the backward plan's
+# edges: H=1032 and 1320 (the shared-memory kernel: more float4 columns
+# a thread than registers hold; 10 units a block), H=100 (one unit a
+# block, T=1); the per-step kernels at the wide LM's H
 BWD_CASES = ((T, 1, H), (T, 16, H), (TRAIN_T, TRAIN_N, H), (7, 3, 200),
-             (7, 37, 200), (8, 1, WIDE_H))
+             (7, 37, 200), (5, 37, H), (6, 16, 1032), (4, 3, 1320),
+             (1, 5, 100), (8, 1, WIDE_H))
+# the backward kernel the plan gives each H of BWD_CASES on an H100's 132
+# SMs, units = ceil(H / 132): the register kernel holds ceil(H / 256)
+# float4 columns a unit within a consumer's 32, so it takes H = 1024 (8
+# units, 4 columns) but not 1032 (8 units, 5 columns), which the
+# shared-memory kernel takes up to 1320 (10 units); wider layers take the
+# per-step kernel (None)
+BWD_PLAN_ON_H100 = {100: "register", 200: "register", H: "register",
+                    1032: "shared", 1320: "shared", WIDE_H: None}
 # one forward_backward of the full-width LM, card against the port's CPU
 GRAD_T, GRAD_N = 8, 4
 # gradients card against CPU, fp32 with TF32 off on both: summation order
@@ -1574,10 +1682,11 @@ CARD = "cuda"
 
 
 def train_counts():
-    """(lstm_sequence_fused, lstm_sequence_backward, lstm_cell_fused,
-    lstm_cell_backward) launches."""
+    """(lstm_sequence_fused, lstm_sequence_backward, its register kernel's,
+    lstm_cell_fused, lstm_cell_backward) launches."""
     from mxnet_tpu_torch.ops.cuda import lstm as L
     return (L.lstm_sequence_fused.launches, L.lstm_sequence_backward.launches,
+            L.lstm_sequence_backward.register_launches,
             L.lstm_cell_fused.launches, L.lstm_cell_backward.launches)
 
 
@@ -1586,6 +1695,7 @@ def zero_train_counts():
     for fn in (L.lstm_sequence_fused, L.lstm_sequence_backward,
                L.lstm_cell_fused, L.lstm_cell_backward):
         fn.launches = 0
+    L.lstm_sequence_backward.register_launches = 0
 
 
 def backward_case(steps, n, hdim, dtype, seed):
@@ -1612,20 +1722,30 @@ def max_err_against(got, want, tag, name):
 def phase_train_kernels():
     """K1, the training forward (the sequence kernel, or at H=WIDE_H the
     per-step kernel, keeping gates and c), against
-    lstm_sequence_train_plain, and the backward (K2, the sequence
-    backward kernel; K3, the per-step one at H=WIDE_H) against
+    lstm_sequence_train_plain, and the backward (K2, the sequence backward
+    kernel the plan gives: the register kernel, or the shared-memory
+    one at H=1032 and 1320; K3, the per-step one at H=WIDE_H) against
     lstm_sequence_backward_plain on the same card tensors, fp32 and bf16,
-    both directions. bf16 dw, which the kernel route sums in fp32 once and
-    the plain version rounds to bf16 every step, is held to the fp32 sum
-    of the plain version's dgates. Returns the worst errors by kernel."""
+    both directions, each shape held to the kernel its plan must take
+    (BWD_PLAN_ON_H100). Where the register kernel runs, the shared-memory
+    kernel (timed beside it) is held to the same plain result, and two
+    launches of the register kernel give the same bits. bf16 dw, which
+    the kernel route sums in fp32 once and the plain version rounds to
+    bf16 every step, is held to the fp32 sum of the plain version's
+    dgates. Returns the worst errors by kernel and the plans."""
     from mxnet_tpu_torch.ops.cuda import lstm as L
     errs = {k: {"fp32": 0.0, "bf16_ulps": 0.0}
-            for k in ("forward", "sequence_backward", "cell_backward")}
+            for k in ("forward", "sequence_backward", "register",
+                      "shared", "cell_backward")}
+    plans = {}
     for steps, n, hdim in BWD_CASES:
-        fits = L.backward_fits(n, hdim, torch.device(CARD, 0))
-        if fits != (hdim != WIDE_H):
-            raise RuntimeError(f"backward_fits(N={n}, H={hdim}) = {fits}")
-        kernel = "sequence_backward" if fits else "cell_backward"
+        plan = L.backward_plan(n, hdim, torch.device(CARD, 0))
+        plans[f"T={steps} N={n} H={hdim}"] = plan._asdict()
+        if plan.variant != BWD_PLAN_ON_H100[hdim]:
+            raise RuntimeError(f"backward plan N={n} H={hdim}: {plan}")
+        kernel = plan.variant or "cell_backward"
+        log(f"[train-kernels] backward plan T={steps} N={n} H={hdim}: "
+            f"{plan}")
         for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             (xproj, h0, c0, w), (dout, dh_last, dc_last) = backward_case(
                 steps, n, hdim, dtype, seed=steps + n + hdim)
@@ -1654,37 +1774,59 @@ def phase_train_kernels():
                 got = L.lstm_sequence_backward(*case, reverse=reverse)
                 torch.cuda.synchronize()
                 moved = tuple(a - b for a, b in zip(train_counts(), before))
-                want_moved = (0, 1, 0, 0) if fits else (0, 0, 0, steps + 1)
+                want_moved = {"register": (0, 1, 1, 0, 0),
+                              "shared": (0, 1, 0, 0, 0),
+                              None: (0, 0, 0, 0, steps + 1)}[plan.variant]
                 if moved != want_moved:
                     raise RuntimeError(f"backward launched {moved}, expected "
                                        f"{want_moved}")
                 want = L.lstm_sequence_backward_plain(*case, reverse=reverse)
-                worst = []
-                for name, g, p in zip(("dxproj", "dh0", "dc0", "dw"), got,
-                                      want):
-                    if g.dtype != p.dtype or g.shape != p.shape:
-                        raise RuntimeError(f"backward {name}: {g.dtype} "
-                                           f"{tuple(g.shape)}")
-                    if name == "dw" and tag == "bf16":
-                        h_prev = (torch.cat([out[1:], h0[None]]) if reverse
-                                  else torch.cat([h0[None], out[:-1]]))
-                        p = torch.einsum("tnk,tnh->kh", want[0],
-                                         h_prev.float())
-                    err, tol = max_err_against(g, p, tag, name)
-                    if not err <= tol:
+                runs = [(kernel, got)]
+                if plan.variant == "register":
+                    # a second launch: the same sums in the same order, so
+                    # the same bits
+                    again = L.lstm_sequence_backward(*case, reverse=reverse)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got[:3], again[:3])):
                         raise RuntimeError(
-                            f"{kernel} {tag} T={steps} N={n} H={hdim} "
-                            f"reverse={reverse} {name} disagrees with the "
-                            f"plain backward: {err} > {tol}")
-                    worst.append(err if tag == "fp32" else 2 * err / tol)
-                log(f"[train-kernels] {kernel} T={steps} N={n} H={hdim} "
-                    f"{tag} reverse={reverse}: max|d| dxproj, dh0, dc0, dw "
-                    + ", ".join(f"{e:.3e}" for e in worst)
-                    + (" (tol 1e-4, dw relative)" if tag == "fp32"
-                       else " bf16 ulps (tol 2; dw against the fp32 sum)"))
-                key = "fp32" if tag == "fp32" else "bf16_ulps"
-                errs[kernel][key] = max(errs[kernel][key], *worst)
-    return errs
+                            f"register backward T={steps} N={n} H={hdim} "
+                            f"{tag} reverse={reverse}: two launches differ")
+                    shared = L._sequence_backward_launch(
+                        dout, dh_last, dc_last, gates, cs, h0, c0, w,
+                        reverse, variant="shared")
+                    runs.append(("shared", tuple(shared) + (got[3],)))
+                for label, result in runs:
+                    worst = []
+                    for name, g, p in zip(("dxproj", "dh0", "dc0", "dw"),
+                                          result, want):
+                        if g.dtype != p.dtype or g.shape != p.shape:
+                            raise RuntimeError(f"backward {name}: {g.dtype} "
+                                               f"{tuple(g.shape)}")
+                        if name == "dw" and tag == "bf16":
+                            h_prev = (torch.cat([out[1:], h0[None]])
+                                      if reverse
+                                      else torch.cat([h0[None], out[:-1]]))
+                            p = torch.einsum("tnk,tnh->kh", want[0],
+                                             h_prev.float())
+                        err, tol = max_err_against(g, p, tag, name)
+                        if not err <= tol:
+                            raise RuntimeError(
+                                f"{label} {tag} T={steps} N={n} H={hdim} "
+                                f"reverse={reverse} {name} disagrees with "
+                                f"the plain backward: {err} > {tol}")
+                        worst.append(err if tag == "fp32" else 2 * err / tol)
+                    log(f"[train-kernels] {label} T={steps} N={n} H={hdim} "
+                        f"{tag} reverse={reverse}: max|d| dxproj, dh0, dc0, "
+                        "dw " + ", ".join(f"{e:.3e}" for e in worst)
+                        + (" (tol 1e-4, dw relative)" if tag == "fp32"
+                           else " bf16 ulps (tol 2; dw against the fp32 "
+                           "sum)"))
+                    key = "fp32" if tag == "fp32" else "bf16_ulps"
+                    keys = [label] + (["sequence_backward"]
+                                      if label != "cell_backward" else [])
+                    for k in keys:
+                        errs[k][key] = max(errs[k][key], *worst)
+    return errs, plans
 
 
 def phase_train_card_vs_cpu():
@@ -1743,7 +1885,7 @@ def descent_losses(mx, net, batch):
              label_shapes=[("softmax_label", (TRAIN_N, TRAIN_T))])
     mod.init_params(mx.init.Xavier())
     mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
-        TRAIN_SGD, learning_rate=TRAIN_SGD["learning_rate"] / TRAIN_T))
+        TRAIN_SGD, learning_rate=TRAIN_STEP_LR))
     losses = []
     for _ in range(TRAIN_STEPS):
         mod.forward(batch, is_train=True)
@@ -1751,7 +1893,7 @@ def descent_losses(mx, net, batch):
         mod.update()
         losses.append(cross_entropy(mx, mod, batch))
     log(f"[train] {TRAIN_STEPS} steps on one batch at learning rate "
-        f"{TRAIN_SGD['learning_rate'] / TRAIN_T}: cross-entropy "
+        f"{TRAIN_STEP_LR}: cross-entropy "
         f"{[round(x, 5) for x in losses]}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise RuntimeError(f"the loss on the repeated batch did not fall: "
@@ -1759,21 +1901,100 @@ def descent_losses(mx, net, batch):
     return losses
 
 
-def phase_train_bench():
-    """The main training path at the benchmark's shape: Module on the
-    default context, one fit epoch over TRAIN_BATCHES batches, then
-    TRAIN_STEPS forward/backward/update steps on one batch; each step two
-    sequence-kernel forwards and two sequence-kernel backwards and no
-    per-step launch. Then ms per step (CUDA events, median of 7), tokens/s,
-    peak memory and one profiled step."""
-    import mxnet_tpu_torch as mx
-    net = build_lm(mx, V, H, LAYERS, TRAIN_T, train=True)
+def train_data(mx):
+    """The bench shape's seeded tokens: (data, label) of TRAIN_BATCHES
+    batches, and the first batch as a DataBatch on the host."""
     rng = np.random.RandomState(0)
     shape = (TRAIN_BATCHES * TRAIN_N, TRAIN_T)
     data = rng.randint(0, V, shape).astype(np.float32)
     label = rng.randint(0, V, shape).astype(np.float32)
     batch = mx.io.DataBatch([mx.nd.array(data[:TRAIN_N], ctx=mx.cpu())],
                             [mx.nd.array(label[:TRAIN_N], ctx=mx.cpu())])
+    return data, label, batch
+
+
+def bench_lr_run(mx, net, data, label, batch, steps, on_step=None):
+    """From the seeded Xavier init on the default context: one fit epoch
+    over the batches, then ``steps`` steps on ``batch``, all at the bench's
+    TRAIN_SGD; each step's cross-entropy. ``on_step(step, loss, mod)``
+    runs after each step's update."""
+    mx.random.seed(0)
+    mod = mx.mod.Module(net)
+    mod.bind(data_shapes=[("data", (TRAIN_N, TRAIN_T))],
+             label_shapes=[("softmax_label", (TRAIN_N, TRAIN_T))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=TRAIN_SGD)
+    mod.fit(mx.io.NDArrayIter(data, label, batch_size=TRAIN_N), num_epoch=1,
+            eval_metric=mx.metric.create("ce"))
+    losses = []
+    for step in range(steps):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        losses.append(cross_entropy(mx, mod, batch))
+        if on_step is not None:
+            on_step(step, losses[-1], mod)
+    return losses
+
+
+@contextlib.contextmanager
+def plain_backward_on_card():
+    """The LSTM layers' backward (``lstm_sequence_backward``, as
+    ``_Sequence`` calls it) through ``lstm_sequence_backward_plain`` on the
+    card's tensors for the block: no kernel launch, none counted."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    kernel_route = L.lstm_sequence_backward
+
+    def plain(dout, dh_last, dc_last, gates, cs, out, h0, c0, w,
+              reverse=False):
+        dout, dh_last, dc_last = (x.to(h0.dtype).contiguous()
+                                  for x in (dout, dh_last, dc_last))
+        return L.lstm_sequence_backward_plain(dout, dh_last, dc_last, gates,
+                                              cs, out, h0, c0, w, reverse)
+    L.lstm_sequence_backward = plain
+    try:
+        yield
+    finally:
+        L.lstm_sequence_backward = kernel_route
+
+
+def bench_lr_routes(mx, net, data, label, batch):
+    """The fit epoch and BENCH_LR_STEPS steps at the bench's lr 0.5
+    (bench_lr_run) through the backward kernels and through the plain
+    backward on the card: every loss finite, each step's within
+    BENCH_LR_TOL of the other route's. Returns {route: losses}."""
+    losses = {"kernels": bench_lr_run(mx, net, data, label, batch,
+                                      BENCH_LR_STEPS)}
+    with plain_backward_on_card():
+        losses["plain"] = bench_lr_run(mx, net, data, label, batch,
+                                       BENCH_LR_STEPS)
+    worst = max(abs(a - b) for a, b in zip(losses["kernels"],
+                                           losses["plain"]))
+    log(f"[train] {BENCH_LR_STEPS} steps on one batch at the bench's "
+        f"{TRAIN_SGD} after its fit epoch: cross-entropy through the "
+        f"kernels {losses['kernels']}, through the plain backward on the "
+        f"card {losses['plain']}; max|d| {worst!r} (tol {BENCH_LR_TOL})")
+    if not all(math.isfinite(x) for v in losses.values() for x in v) or not (
+            worst <= BENCH_LR_TOL):
+        raise RuntimeError(f"at the bench's learning rate the kernels' "
+                           f"losses leave the plain backward's: {losses}")
+    return losses
+
+
+def phase_train_bench():
+    """The main training path at the benchmark's shape: Module on the
+    default context, one fit epoch over TRAIN_BATCHES batches at the
+    benchmark's learning rate, then TRAIN_STEPS forward/backward/update
+    steps on one batch at TRAIN_STEP_LR; each step two sequence-kernel
+    forwards and two sequence-kernel backwards, both on the register
+    kernel, and no per-step launch; every loss, output and parameter
+    finite. Then the descent at TRAIN_STEP_LR (descent_losses), the steps
+    at the bench's rate through the kernels against the plain backward
+    (bench_lr_routes), ms per step (CUDA events, median of 7), tokens/s,
+    peak memory and one profiled step."""
+    import mxnet_tpu_torch as mx
+    net = build_lm(mx, V, H, LAYERS, TRAIN_T, train=True)
+    data, label, batch = train_data(mx)
     marks = []
     torch.cuda.reset_peak_memory_stats()
     # the main path's run starts here
@@ -1788,6 +2009,7 @@ def phase_train_bench():
     mod.fit(mx.io.NDArrayIter(data, label, batch_size=TRAIN_N), num_epoch=1,
             eval_metric=fit_metric,
             batch_end_callback=lambda p: marks.append(train_counts()))
+    mod._optimizer.set_learning_rate(TRAIN_STEP_LR)
     losses = []
     for _ in range(TRAIN_STEPS):
         mod.forward(batch, is_train=True)
@@ -1798,17 +2020,19 @@ def phase_train_bench():
     launches = train_counts()  # the main path's run ends here
     peak = torch.cuda.max_memory_allocated()
     per_step = [tuple(a - b for a, b in zip(m, prev))
-                for m, prev in zip(marks, [(0, 0, 0, 0)] + marks[:-1])]
+                for m, prev in zip(marks, [(0,) * 5] + marks[:-1])]
     log(f"[train] LM V={V} H={H} layers={LAYERS} N={TRAIN_N} T={TRAIN_T}: "
         f"fit over {TRAIN_BATCHES} batches, cross-entropy "
-        f"{fit_metric.get()[1]:.4f}; {TRAIN_STEPS} steps on one batch at "
-        f"{TRAIN_SGD}, cross-entropy {[round(x, 4) for x in losses]}")
-    log(f"[train] (lstm_sequence, lstm_sequence_backward, lstm_cell, "
-        f"lstm_cell_backward) launches per step {per_step}; total "
-        f"{launches}; peak device memory {peak} bytes")
-    if any(c != (LAYERS, LAYERS, 0, 0) for c in per_step):
+        f"{fit_metric.get()[1]:.4f} at {TRAIN_SGD}; {TRAIN_STEPS} steps on "
+        f"one batch at learning rate {TRAIN_STEP_LR}, cross-entropy "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[train] (lstm_sequence, lstm_sequence_backward, its register "
+        f"kernel, lstm_cell, lstm_cell_backward) launches per step "
+        f"{per_step}; total {launches}; peak device memory {peak} bytes")
+    if any(c != (LAYERS, LAYERS, LAYERS, 0, 0) for c in per_step):
         raise RuntimeError(f"launches per step {per_step}, expected "
-                           f"{(LAYERS, LAYERS, 0, 0)}")
+                           f"{(LAYERS, LAYERS, LAYERS, 0, 0)}: every "
+                           "backward on the register kernel")
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"non-finite loss: {losses}")
     out = mod.get_outputs()[0]
@@ -1819,6 +2043,7 @@ def phase_train_bench():
         if not bool(torch.isfinite(arr._data).all()):
             raise RuntimeError(f"parameter {name} not finite")
     descent = descent_losses(mx, net, batch)
+    bench_lr = bench_lr_routes(mx, net, data, label, batch)
 
     def step():
         mod.forward(batch, is_train=True)
@@ -1848,6 +2073,7 @@ def phase_train_bench():
                              step)
     return {"launches": launches, "per_step": per_step[0],
             "losses": losses, "descent_losses": descent,
+            "bench_lr_losses": bench_lr,
             "fit_cross_entropy": fit_metric.get()[1],
             "step_ms": ms, "step_runs_ms": event_ms,
             "step_host_ms": statistics.median(host_ms),
@@ -1880,15 +2106,15 @@ def phase_train_wide():
     mod.update()
     launches = train_counts()  # this path's run ends here
     log(f"[train-wide] one step of the LM at H={WIDE_H}, 1 layer, 1 row: "
-        f"(lstm_sequence, lstm_sequence_backward, lstm_cell, "
-        f"lstm_cell_backward) launches {launches}")
-    if launches != (0, 0, T, T + 1):
+        f"(lstm_sequence, lstm_sequence_backward, its register kernel, "
+        f"lstm_cell, lstm_cell_backward) launches {launches}")
+    if launches != (0, 0, 0, T, T + 1):
         raise RuntimeError(f"wide training step launched {launches}, "
-                           f"expected {(0, 0, T, T + 1)}")
+                           f"expected {(0, 0, 0, T, T + 1)}")
     for name, arr in mod.get_params()[0].items():
         if not bool(torch.isfinite(arr._data).all()):
             raise RuntimeError(f"wide LM parameter {name} not finite")
-    return launches[3]
+    return launches[4]
 
 
 def sequence_backward_bound_ms(steps, n, hdim, elem_bytes):
@@ -1905,9 +2131,44 @@ def sequence_backward_bound_ms(steps, n, hdim, elem_bytes):
                                          else "operations")
 
 
-def phase_train_timing():
+# the backward sequence kernels timed side by side in phase 11, in two
+# rounds of alternating order: the plan's kernel (the register kernel),
+# the shared-memory kernel, and the register kernel built by
+# tools/probe_lstm_bwd.py without its products (copies, reductions,
+# epilogue and writer counts) and without its dgates copies (products on
+# stale tiles, reductions, epilogue, counts): wrong gradients on purpose,
+# only what each part costs
+BWD_TIMED = ("register", "shared", "no_product", "no_copy")
+
+
+def backward_kernels_ms(args, probe_libs):
+    """Device ms of one launch of each BWD_TIMED kernel on the same
+    (dout, dh_last, dc_last, gates, cs, h0, c0, w), forward direction:
+    {name: mean}, and {name: [round 1, round 2]}. probe_libs: {probe
+    number: the probe build, loaded by tools/probe_lstm_bwd.py}."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    probe = probe_tool()
+    calls = {
+        "register": lambda: L._sequence_backward_launch(*args, False),
+        "shared": lambda: L._sequence_backward_launch(*args, False,
+                                                      "shared")}
+    for p, name in probe.PROBES.items():
+        calls[name] = functools.partial(probe.probe_backward, probe_libs[p],
+                                        *args)
+    rounds = {name: [] for name in BWD_TIMED}
+    for r in range(2):
+        for name in BWD_TIMED if r == 0 else BWD_TIMED[::-1]:
+            rounds[name].append(time_on_stream(calls[name], iters=10))
+    return ({name: statistics.mean(v) for name, v in rounds.items()},
+            rounds)
+
+
+def phase_train_timing(probe_libs):
     """The backward of one LSTM layer (H=1024, fp32) at T=128, N=1 and 16,
-    and at the bench shape: the sequence backward kernel, the kernel route with
+    and at the bench shape: the backward sequence kernels side by side
+    (BWD_TIMED: the plan's register kernel, the shared-memory kernel, and the
+    register kernel's probe builds without products and without copies),
+    the kernel route with
     its dw product, the plain loop, the port's whole layer backward and
     cuDNN's torch.nn.LSTM backward (each through autograd, from the same
     inputs, weights and cotangents: the data, state and weight gradients,
@@ -1922,10 +2183,8 @@ def phase_train_timing():
             steps, n, H, torch.float32, seed=31 + n)
         o, _, _, gates, cs = L.lstm_sequence_train(xproj, h0, c0, w)
         case = (dout, dh_last, dc_last, gates, cs, o, h0, c0, w)
-        def kernel_only():
-            L._sequence_backward_launch(dout, dh_last, dc_last, gates, cs, h0,
-                                        c0, w, False)
-
+        kernels, rounds = backward_kernels_ms(
+            (dout, dh_last, dc_last, gates, cs, h0, c0, w), probe_libs)
         rng = np.random.RandomState(41 + n)
         x_in = torch.tensor(rng.normal(0, 1, (steps, n, H)),
                             dtype=torch.float32, device=CARD)
@@ -1956,7 +2215,11 @@ def phase_train_timing():
             ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
             for a, b in zip(layer_backward(), cudnn_backward()))
         row = {
-            "kernel_ms": time_on_stream(kernel_only, iters=10),
+            "kernel_ms": kernels["register"],
+            "shared_kernel_ms": kernels["shared"],
+            "kernels_ms": kernels,
+            "kernels_rounds_ms": rounds,
+            "plan": L.backward_plan(n, H, torch.device(CARD, 0))._asdict(),
             "route_ms": time_on_stream(
                 lambda: L.lstm_sequence_backward(*case), iters=10),
             "plain_ms": time_on_stream(
@@ -1973,9 +2236,16 @@ def phase_train_timing():
             steps, n, H, 4)
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
         out[f"T={steps} N={n}"] = row
+        log(f"[train-timing] backward sequence kernels T={steps} N={n} "
+            f"H={H} fp32, plan {row['plan']}: " + ", ".join(
+                f"{name} {ms * 1e3:.1f} us (rounds "
+                f"{[round(x * 1e3, 1) for x in rounds[name]]})"
+                for name, ms in kernels.items()))
         log(f"[train-timing] one layer's backward T={steps} N={n} H={H} "
-            f"fp32: sequence backward kernel {row['kernel_ms'] * 1e3:.1f} "
-            f"us, bound {row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
+            f"fp32: register backward kernel {row['kernel_ms'] * 1e3:.1f} "
+            f"us (the shared-memory kernel "
+            f"{row['shared_kernel_ms'] * 1e3:.1f} us), bound "
+            f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
             f"(share {row['share_of_bound']:.3f}); with its dw product "
             f"{row['route_ms'] * 1e3:.1f} us; plain "
             f"{row['plain_ms'] * 1e3:.1f} us; the port's layer backward "
@@ -2022,9 +2292,12 @@ def phase_train_timing():
     return out
 
 
-def train_records(kerrs, grad_errs, bench, wide_launches, timing):
+def train_records(kerrs, plans, grad_errs, bench, wide_launches, timing,
+                  reg_build):
     """The lstm_sequence_backward and lstm_cell_backward entries of the
-    kernels line."""
+    kernels line. The first is the main path's kernel, the register
+    kernel (``lstm_seq_bwd_reg_kernel``), with the shared-memory kernel
+    beside it."""
     main = timing[f"T={TRAIN_T} N={TRAIN_N}"]
     seq = {
         "name": "lstm_sequence_backward",
@@ -2035,9 +2308,35 @@ def train_records(kerrs, grad_errs, bench, wide_launches, timing):
                          "mxnet_tpu/ops/pallas/lstm.py:57), run once a step "
                          "by jax.vjp of the scan in "
                          "mxnet_tpu/ops/rnn_ops.py:139",
-        "launches": bench["launches"][1],
-        "max_abs_err": kerrs["sequence_backward"]["fp32"],
+        "launches": bench["launches"][2],
+        "launches_note": "the register kernel's launches on the main "
+                         "path (phase 11); every sequence backward of it: "
+                         f"{bench['launches'][1]}",
+        "variant": "register: lstm_seq_bwd_reg_kernel (w_h2h in "
+                   "registers, dgates by bulk copies into a shared-memory "
+                   "ring, a writer count per tile of rows for the grid "
+                   "barrier)",
+        "registers_note": (
+            f"ptxas reports {reg_build['float_8']['registers']} registers "
+            "a thread at launch for <float, 8> (this run's build log); the "
+            "kernel's setmaxnreg instructions then set "
+            f"{reg_build['setmaxnreg']['inc']} for the consumer "
+            f"warpgroups and {reg_build['setmaxnreg']['dec']} for the "
+            "producer warpgroup (constants of the source, read from it)"),
+        "setmaxnreg": reg_build["setmaxnreg"],
+        "cluster_size": 1,
+        "cluster_note": "launched without clusters: multicast copies of "
+                        "the dgates tiles across clusters of 2 and 4 "
+                        "measured slower (PERF.md)",
+        "plan": main["plan"],
+        "ptxas_float_8": reg_build["float_8"],
+        "ptxas": reg_build["ptxas"],
+        "plans": plans,
+        "max_abs_err": kerrs["register"]["fp32"],
+        "max_abs_err_shared_kernel": kerrs["shared"]["fp32"],
         "ms": main["kernel_ms"],
+        "shared_kernel_ms": main["shared_kernel_ms"],
+        "kernels_ms": main["kernels_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
@@ -2051,12 +2350,14 @@ def train_records(kerrs, grad_errs, bench, wide_launches, timing):
                           "and the input projection's gradients, the work "
                           "library_ms does",
         "shape": f"one layer T={TRAIN_T} N={TRAIN_N} H={H} fp32",
-        "max_err_bf16_ulps": kerrs["sequence_backward"]["bf16_ulps"],
+        "max_err_bf16_ulps": kerrs["register"]["bf16_ulps"],
+        "max_err_bf16_ulps_shared_kernel": kerrs["shared"]["bf16_ulps"],
         "training_forward_max_err": kerrs["forward"],
         "share_of_bound": main["share_of_bound"],
         "by_shape": timing,
         "train": {k: bench[k] for k in (
-            "per_step", "losses", "descent_losses", "fit_cross_entropy",
+            "per_step", "losses", "descent_losses", "bench_lr_losses",
+            "fit_cross_entropy",
             "step_ms",
             "step_runs_ms", "step_host_ms", "tokens_per_s",
             "peak_device_bytes", "profile")},
@@ -2710,7 +3011,7 @@ def attention_backward_records(kerrs, masked_path, tf_train, timing,
 
 def main():
     phase_device()
-    wgmma_build, wgmma_bwd_build = phase_build()
+    wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
     errs = phase_kernels()
     seq_errs = phase_sequence_kernel()
     att_errs = phase_attention_kernels()
@@ -2726,11 +3027,14 @@ def main():
     tf_profiled = phase_transformer_profile(tf)
     rtc_k = phase_rtc_kernels()
     imp = phase_imperative()
-    train_kerrs = phase_train_kernels()
+    train_kerrs, bwd_plans = phase_train_kernels()
     grad_errs = phase_train_card_vs_cpu()
     bench = phase_train_bench()
     wide_train_launches = phase_train_wide()
-    train_timing = phase_train_timing()
+    for future in probe_builds.values():
+        future.result()  # the probe builds, or their nvcc's error
+    train_timing = phase_train_timing(
+        {p: probe_tool().load_probe(p) for p in probe_builds})
     att_bwd_errs, *masked_bwd_launches = phase_attention_backward_kernels()
     tf_grads = phase_tf_train_card_vs_cpu()
     tf_train = phase_tf_train()
@@ -2832,8 +3136,8 @@ def main():
             record["transformer"]["profile"] = tf_profiled
         records.append(record)
     records.append(rtc_record(rtc_k, imp))
-    records += train_records(train_kerrs, grad_errs, bench,
-                             wide_train_launches, train_timing)
+    records += train_records(train_kerrs, bwd_plans, grad_errs, bench,
+                             wide_train_launches, train_timing, reg_build)
     records += attention_backward_records(att_bwd_errs, masked_bwd_launches,
                                           tf_train, att_bwd_timing,
                                           wgmma_bwd_build)

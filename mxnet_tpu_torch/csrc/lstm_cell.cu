@@ -68,6 +68,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper_tma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -587,16 +589,15 @@ int seq_dispatch(const SeqPlan& p, const void* xproj, const void* h0,
 // are rounded to the states' dtypes every step, and dh_t = dy_t + carry is
 // summed in h's dtype.
 
-// the adjoint of one cell step at (n, j): writes dgates of its four gate
-// rows and the dc carry
+// the adjoint of one cell step at (n, j) from the step's activated gates:
+// writes dgates of its four gate rows (dg_n[j + gate * H]) and returns the
+// dc carry
 template <typename T>
-__device__ __forceinline__ void cell_adjoint(float dh_carry, float dy,
-                                             float dc_in, const float* g_n,
-                                             float c_prev, int hidden, int j,
-                                             float* dg_n, T* dc_out) {
+__device__ __forceinline__ T cell_adjoint(float dh_carry, float dy,
+                                          float dc_in, float gi, float gf,
+                                          float gg, float go, float c_prev,
+                                          int hidden, int j, float* dg_n) {
   const float dh = to_float(from_float<T>(dh_carry + dy));
-  const float gi = g_n[j], gf = g_n[hidden + j];
-  const float gg = g_n[2 * hidden + j], go = g_n[3 * hidden + j];
   const float c_new = gf * c_prev + gi * gg;
   const float tc = tanhf(c_new);
   const float dc = dc_in + dh * go * (1.f - tc * tc);
@@ -604,7 +605,19 @@ __device__ __forceinline__ void cell_adjoint(float dh_carry, float dy,
   dg_n[hidden + j] = dc * c_prev * gf * (1.f - gf);
   dg_n[2 * hidden + j] = dc * gi * (1.f - gg * gg);
   dg_n[3 * hidden + j] = dh * tc * go * (1.f - go);
-  *dc_out = from_float<T>(dc * gf);
+  return from_float<T>(dc * gf);
+}
+
+// the same, reading the gates from g_n, the step's row of (N, 4H), and
+// writing the dc carry into dc_out
+template <typename T>
+__device__ __forceinline__ void cell_adjoint(float dh_carry, float dy,
+                                             float dc_in, const float* g_n,
+                                             float c_prev, int hidden, int j,
+                                             float* dg_n, T* dc_out) {
+  *dc_out = cell_adjoint<T>(dh_carry, dy, dc_in, g_n[j], g_n[hidden + j],
+                            g_n[2 * hidden + j], g_n[3 * hidden + j], c_prev,
+                            hidden, j, dg_n);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -934,6 +947,583 @@ int seq_bwd_dispatch(const SeqPlan& p, const void* dout, const void* dh_last,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// lstm_seq_bwd_reg_kernel: the backward's time loop redesigned for Hopper.
+// It computes what lstm_seq_bwd_kernel computes, phase for phase, and is
+// bound by the same 2*T*N*4H*H fp32 operations (2051.3 us at T=256, N=64,
+// H=1024 on an H100). lstm_seq_bwd_kernel sits about 7x above that: it
+// re-reads its columns of w_h2h from shared memory for every 4-row chunk
+// of dgates (2.67 FMAs a float read), and load, product, reduction,
+// epilogue and grid barrier run one after another. Here:
+//   - w_h2h stays in registers. A block owns `units` hidden units J (at
+//     most 8); consumer thread i of 256 (two warpgroups) owns the float4
+//     columns k4 = i, i + 256, ... of K = 4H and holds w_h2h[4*k4 ..
+//     4*k4+3, J] as fp32 for all T steps (128 registers at H = 1024; the
+//     third warpgroup hands the consumers most of its registers by
+//     setmaxnreg). Each dgates value read from shared memory feeds
+//     `units` FMAs (8 at H = 1024), issued unit by unit so that no FMA
+//     waits on the one before;
+//   - dgates streams through a ring of 2-4 stages in shared memory, each a
+//     tile of `rows` = 32 / units whole rows of (N, 4H) fp32, contiguous
+//     in memory: one producer thread issues a bulk async copy a tile
+//     (cp.async.bulk, no tensor map); each stage has a `full` mbarrier
+//     (expect_tx) and an `empty` one, so copies run ahead of the products;
+//   - a consumer's sums of a tile (rows x units, at most 32) are summed
+//     over its warp by warp_transpose_sum, and the 8 warps' sums go to
+//     shared memory (8 buffers, each with a `full` and an `empty`
+//     mbarrier). The consumers do nothing else: three epilogue warps of
+//     the third warpgroup (tile k: warp 1 + k % 3) add the 8 sums in a
+//     fixed order and apply cell_adjoint, a lane an output, with the
+//     tile's inputs loaded while the previous tile was theirs and the dc
+//     carry in shared memory. Every sum is taken in a fixed order, so a
+//     launch repeats bit for bit;
+//   - no grid barrier: an epilogue warp counts the block's writers of tile
+//     k's rows of dgates in tile_done[k] (a release add), and the producer
+//     copies tile k of the next phase once all blocks have (relaxed loads
+//     of the next 8 tiles' counts at once, then an acquire fence), with
+//     fence.proxy.async between the two, since the copy (the async proxy)
+//     reads what other SMs wrote through the generic one. A phase's first
+//     tiles thus stream in while its last ones are multiplied, where a
+//     grid barrier would drain the ring every phase.
+// Producer and consumers walk the same tile sequence (phases 1 .. T, rows
+// 0 .. N in tiles, the last one ragged), so the stage parities agree.
+
+#ifndef MXT_BWD_PROBE
+// tools/probe_lstm_bwd.py builds variants that skip work, to time each
+// part: 1 skips the products, 2 the dgates copies (the products then read
+// stale tiles); 0 (the package) skips nothing
+#define MXT_BWD_PROBE 0
+#endif
+constexpr int kBwdProbe = MXT_BWD_PROBE;
+
+constexpr int kRegProducers = 128;  // a warpgroup; one thread issues copies
+constexpr int kRegConsumers = 256;  // two warpgroups that multiply
+constexpr int kRegWarps = kRegConsumers / 32;
+constexpr int kRegThreads = kRegProducers + kRegConsumers;
+constexpr int kRegMaxUnits = 8;
+constexpr int kRegMaxStages = 4;
+constexpr int kRegRedBufs = 8;     // tiles whose warp sums shared memory holds
+constexpr int kRegEpiWarps = 3;    // the producer warpgroup's epilogue warps
+constexpr int kRegLookahead = 8;   // writer counts the producer reads at once
+constexpr int kRegBarBytes = 256;  // the mbarriers, ahead of the ring
+constexpr int kRegRedBytes = kRegWarps * kBwdMaxOut * 4;  // a tile's warp sums
+static_assert((2 * kRegMaxStages + 2 * kRegRedBufs) * 8 <= kRegBarBytes,
+              "the mbarriers fit ahead of the ring");
+
+// batch rows in a tile: one sum a lane for each (row, unit)
+__host__ __device__ constexpr int reg_rows(int units) {
+  return kBwdMaxOut / units;
+}
+
+// float4 columns of K a consumer holds for each unit: at most 32 float4s
+// (128 registers) in all, and no more than H <= 132 * units needs
+// (units = ceil(H / blocks) on the H100's 132 SMs)
+__host__ __device__ constexpr int reg_slices(int units) {
+  return kBwdMaxOut / units < (units * 132 + kRegConsumers - 1) / kRegConsumers
+             ? kBwdMaxOut / units
+             : (units * 132 + kRegConsumers - 1) / kRegConsumers;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// what the epilogue of one (row, unit) of phase s reads from memory
+// besides the product: the step's gates, c_{t-1}, dy, and at s = 0 the
+// dc carry (later phases keep it in shared memory)
+struct EpiIn {
+  float gi, gf, gg, go, c_prev, dy, dc;
+};
+
+template <typename T>
+__device__ __forceinline__ EpiIn load_epi(const float* gates,
+                                          const T* cs, const T* c0,
+                                          const T* dout, const T* dc_last,
+                                          int s, int t, int steps,
+                                          int reverse, size_t step_elems,
+                                          int hidden, int n, int j) {
+  const size_t at = static_cast<size_t>(n) * hidden + j;
+  const float* g = gates + static_cast<size_t>(t) * 4 * step_elems +
+                   static_cast<size_t>(n) * 4 * hidden + j;
+  const bool first = reverse ? t == steps - 1 : t == 0;
+  EpiIn e;
+  e.gi = g[0];
+  e.gf = g[hidden];
+  e.gg = g[2 * hidden];
+  e.go = g[3 * hidden];
+  e.c_prev = to_float(
+      first ? c0[at]
+            : cs[static_cast<size_t>(reverse ? t + 1 : t - 1) * step_elems +
+                 at]);
+  e.dy = to_float(dout[t * step_elems + at]);
+  e.dc = s == 0 ? to_float(dc_last[at]) : 0.f;
+  return e;
+}
+
+// acc[b * kUnits + u] += the tile's row b . w_h2h[:, j0 + u] over a
+// consumer's float4 columns (d4 points at its first, in row 0): for each
+// column i, x, y, z, w in turn, each FMA of a step independent of the
+// next (another unit), so the FMA pipe does not wait on its own results.
+// Columns past K (ok[i] false) read as 0; rows past nb are skipped unless
+// kFull.
+template <int kRows, int kSlices, int kUnits, bool kFull>
+__device__ __forceinline__ void tile_product(
+    float (&acc)[kBwdMaxOut], const float4* d4,
+    const float4 (&wr)[kSlices][kUnits], const bool (&ok)[kSlices],
+    int hidden, int nb) {
+#pragma unroll
+  for (int b = 0; b < kRows; ++b) {
+    if (!kFull && b >= nb) break;
+    float4 d[kSlices];
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i) {
+      d[i] = ok[i] ? d4[b * hidden + i * kRegConsumers]
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float* a = acc + b * kUnits;
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i) {
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) a[u] = fmaf(d[i].x, wr[i][u].x, a[u]);
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) a[u] = fmaf(d[i].y, wr[i][u].y, a[u]);
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) a[u] = fmaf(d[i].z, wr[i][u].z, a[u]);
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) a[u] = fmaf(d[i].w, wr[i][u].w, a[u]);
+    }
+  }
+}
+
+// dout (T, N, H), dh_last, dc_last, c0 (N, H), gates (T, N, 4H) fp32, cs
+// (T, N, H), w (4H, H); writes dgates (T, N, 4H) fp32, dh0 and dc0 (N, H).
+// tile_done: one zeroed word a tile of rows (ceil(N / rows)), counting the
+// blocks that wrote the tile's rows of dgates, phase after phase. The
+// launch is cooperative.
+template <typename T, int kUnits>
+__global__ void __launch_bounds__(kRegThreads, 1)
+    lstm_seq_bwd_reg_kernel(const T* __restrict__ dout,
+                            const T* __restrict__ dh_last,
+                            const T* __restrict__ dc_last,
+                            const float* __restrict__ gates,
+                            const T* __restrict__ cs,
+                            const T* __restrict__ c0,
+                            const T* __restrict__ w, float* dgates, T* dh0,
+                            T* dc0, unsigned* tile_done, int steps,
+                            int n_rows, int hidden, int reverse,
+                            int stages) {
+  constexpr int kRows = reg_rows(kUnits);
+  constexpr int kSlices = reg_slices(kUnits);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);  // [stages]
+  uint64_t* empty = full + kRegMaxStages;                   // [stages]
+  uint64_t* red_full = empty + kRegMaxStages;               // [kRegRedBufs]
+  uint64_t* red_empty = red_full + kRegRedBufs;             // [kRegRedBufs]
+  float* ring = reinterpret_cast<float*>(smem_raw + kRegBarBytes);
+  const size_t krow = 4 * static_cast<size_t>(hidden);
+  const size_t tile_floats = kRows * krow;
+  float* red_s = ring + stages * tile_floats;  // [kRegRedBufs][warp][32]
+  float* dc_s = red_s + kRegRedBufs * kRegWarps * kBwdMaxOut;  // [N][units]
+  const int j0 = blockIdx.x * kUnits;
+  const int owned = max(0, min(kUnits, hidden - j0));
+  const int tiles = (n_rows + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_addr(full + s), 1);
+      mbar_init(smem_addr(empty + s), kRegWarps);
+    }
+    for (int b = 0; b < kRegRedBufs; ++b) {
+      mbar_init(smem_addr(red_full + b), kRegWarps);
+      mbar_init(smem_addr(red_empty + b), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const size_t step_elems = static_cast<size_t>(n_rows) * hidden;
+  const size_t gate_elems = static_cast<size_t>(n_rows) * krow;
+
+  if (threadIdx.x < kRegProducers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (warp == 0) {
+      // thread 0 issues the copies: tile k of phase s once every block
+      // has written the tile's rows in phase s - 1
+      if (lane == 0 && kBwdProbe != 2) {
+        int c = 0;
+        for (int s = 1; s <= steps; ++s) {
+          const int t_done = reverse ? s - 1 : steps - s;
+          const float* src = dgates + t_done * gate_elems;
+          const unsigned target = static_cast<unsigned>(s) * gridDim.x;
+          int ready = -1;  // tiles 0 .. ready are written by every block
+          for (int k = 0; k < tiles; ++k, ++c) {
+            const int stage = c % stages, use = c / stages;
+            if (use > 0) {
+              mbar_wait(smem_addr(empty + stage), (use - 1) & 1);
+            }
+            if (k > ready) {
+              // the writer counts of the next kRegLookahead tiles in one
+              // round trip to L2; if tile k is not written yet, its count
+              // alone until it is
+              unsigned seen[kRegLookahead];
+#pragma unroll
+              for (int i = 0; i < kRegLookahead; ++i) {
+                seen[i] = k + i < tiles ? load_relaxed(tile_done + k + i)
+                                        : 0u;
+              }
+#pragma unroll
+              for (int i = 0; i < kRegLookahead; ++i) {
+                if (ready == k + i - 1 && seen[i] >= target) ready = k + i;
+              }
+              if (ready >= k) {
+                // acquire what the blocks wrote
+                asm volatile("fence.acq_rel.gpu;" ::: "memory");
+              } else {
+                unsigned seen_k;
+                do {
+                  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                               : "=r"(seen_k)
+                               : "l"(tile_done + k)
+                               : "memory");
+                } while (seen_k < target);
+                ready = k;
+              }
+              // the copies read through the async proxy what other SMs
+              // wrote through the generic one
+              asm volatile("fence.proxy.async.global;" ::: "memory");
+            }
+            // the tile's whole rows of (N, 4H) fp32, contiguous
+            const int n0 = k * kRows;
+            const uint32_t bytes = static_cast<uint32_t>(
+                min(kRows, n_rows - n0) * hidden * 16);
+            const uint32_t bar = smem_addr(full + stage);
+            mbar_expect_tx(bar, bytes);
+            bulk_load(smem_addr(ring + stage * tile_floats), src + n0 * krow,
+                      bytes, bar);
+          }
+        }
+      }
+    } else {
+      // an epilogue warp: tiles k = e, e + 3, ... of every phase, a lane
+      // an output (row k * rows + ob, unit ou); it loads the next tile's
+      // inputs before it waits for this one's sums
+      const int e = warp - 1;
+      const int ob = lane / kUnits, ou = lane % kUnits;
+      const bool o_lane = lane < kRows * kUnits && ou < owned;
+      const auto inputs = [&](int s, int k) {
+        EpiIn in = {};
+        const int n = k * kRows + ob;
+        if (s < steps && o_lane && n < n_rows) {
+          in = load_epi<T>(gates, cs, c0, dout, dc_last, s,
+                           reverse ? s : steps - 1 - s, steps, reverse,
+                           step_elems, hidden, n, j0 + ou);
+        }
+        return in;
+      };
+      int s = 0, k = e;
+      EpiIn cur = inputs(s, k);
+      while (e < tiles && s <= steps) {
+        int s2 = s, k2 = k + kRegEpiWarps;
+        if (k2 >= tiles) {
+          ++s2;
+          k2 = e;
+        }
+        const EpiIn nxt = inputs(s2, k2);
+        float prod = 0.f;
+        if (s > 0) {
+          // the 8 consumer warps' sums of product tile q, in a fixed order
+          const int q = (s - 1) * tiles + k;
+          const int buf = q % kRegRedBufs;
+          mbar_wait(smem_addr(red_full + buf), (q / kRegRedBufs) & 1);
+          const float* p = red_s + buf * kRegWarps * kBwdMaxOut + lane;
+#pragma unroll
+          for (int g = 0; g < kRegWarps; ++g) prod += p[g * kBwdMaxOut];
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_addr(red_empty + buf));
+        }
+        const int n = k * kRows + ob;
+        if (o_lane && n < n_rows) {
+          const size_t at = static_cast<size_t>(n) * hidden + j0 + ou;
+          float* dc_at = dc_s + n * kUnits + ou;
+          if (s == steps) {
+            dh0[at] = from_float<T>(prod);
+          } else {
+            const int t = reverse ? s : steps - 1 - s;
+            const float dh_carry =
+                s == 0 ? to_float(dh_last[at]) : to_float(from_float<T>(prod));
+            const T dc = cell_adjoint<T>(
+                dh_carry, cur.dy, s == 0 ? cur.dc : *dc_at, cur.gi, cur.gf,
+                cur.gg, cur.go, cur.c_prev, hidden, j0 + ou,
+                dgates + t * gate_elems + static_cast<size_t>(n) * krow);
+            *dc_at = to_float(dc);  // the carry, read back by this lane only
+            if (s == steps - 1) dc0[at] = dc;
+          }
+        }
+        if (s < steps) {
+          // the block has written the tile's rows of dgates_t: a release,
+          // after the lanes' writes
+          __syncwarp();
+          if (lane == 0) {
+            asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(
+                             tile_done + k)
+                         : "memory");
+          }
+        }
+        cur = nxt;
+        s = s2;
+        k = k2;
+      }
+    }
+  } else {
+    // a consumer: 56 + 2 x 224 registers a thread over the three
+    // warpgroups, within the block's 3 x 168
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int tid = threadIdx.x - kRegProducers;
+    const int cwarp = tid / 32;
+    // its columns of w_h2h, once, as fp32
+    float4 wr[kSlices][kUnits];
+    bool ok[kSlices];  // whether its float4 column i lies within K
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i) {
+      const int k4 = tid + i * kRegConsumers;
+      ok[i] = k4 < hidden;
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u) {
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (k4 < hidden && u < owned) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            v[q] = to_float(w[static_cast<size_t>(4 * k4 + q) * hidden + j0 + u]);
+          }
+        }
+        wr[i][u] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    // product tile c: phase 1 + c / tiles, rows (c % tiles) * kRows ...
+    const int products = steps * tiles;
+    for (int c = 0; c < products; ++c) {
+      const int stage = c % stages;
+      const int nb = min(kRows, n_rows - (c % tiles) * kRows);
+      if (kBwdProbe != 2) mbar_wait(smem_addr(full + stage), (c / stages) & 1);
+      float acc[kBwdMaxOut];
+#pragma unroll
+      for (int i = 0; i < kBwdMaxOut; ++i) acc[i] = 0.f;
+      if (kBwdProbe != 1) {
+        const float4* d4 =
+            reinterpret_cast<const float4*>(ring + stage * tile_floats) + tid;
+        // whole tiles in straight-line code, the ragged last one row by row
+        if (nb == kRows) {
+          tile_product<kRows, kSlices, kUnits, true>(acc, d4, wr, ok, hidden,
+                                                     nb);
+        } else {
+          tile_product<kRows, kSlices, kUnits, false>(acc, d4, wr, ok,
+                                                      hidden, nb);
+        }
+      }
+      __syncwarp();
+      if (kBwdProbe != 2 && lane == 0) {
+        // the warp is done with the stage
+        mbar_arrive(smem_addr(empty + stage));
+      }
+      const float v = warp_transpose_sum(acc);
+      const int buf = c % kRegRedBufs, use = c / kRegRedBufs;
+      if (use > 0) mbar_wait(smem_addr(red_empty + buf), (use - 1) & 1);
+      red_s[(buf * kRegWarps + cwarp) * kBwdMaxOut + lane] = v;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(red_full + buf));
+    }
+  }
+}
+
+// The register kernel's plan. False when it does not take the shape.
+struct RegPlan {
+  int units;    // hidden units a block owns
+  int blocks;
+  int stages;   // tiles in the ring
+  size_t smem;
+};
+
+// the mbarriers, the ring, the warp sums and the dc carry (N, units)
+size_t reg_shared_bytes(int n_rows, int hidden, int units, int stages) {
+  return kRegBarBytes +
+         static_cast<size_t>(stages) * reg_rows(units) * 16 * hidden +
+         kRegRedBufs * kRegRedBytes +
+         static_cast<size_t>(n_rows) * units * sizeof(float);
+}
+
+// units = ceil(H / max_blocks), at most 8, and the columns a consumer
+// holds within reg_slices; the ring takes as many stages (2 to 4) as fit
+// beside the dc carry of N rows.
+bool reg_plan(int n_rows, int hidden, int max_blocks, RegPlan* p) {
+  if (n_rows < 1 || hidden < 1 || max_blocks < 1) return false;
+  const int units = (hidden + max_blocks - 1) / max_blocks;
+  if (units > kRegMaxUnits) return false;
+  if ((hidden + kRegConsumers - 1) / kRegConsumers > reg_slices(units)) {
+    return false;
+  }
+  p->units = units;
+  p->blocks = (hidden + units - 1) / units;
+  for (int st = kRegMaxStages; st >= 2; --st) {
+    if (reg_shared_bytes(n_rows, hidden, units, st) <= kMaxSharedBytes) {
+      p->stages = st;
+      p->smem = reg_shared_bytes(n_rows, hidden, units, st);
+      return true;
+    }
+  }
+  return false;
+}
+
+// The blocks of the register kernel that can be resident at once (one an
+// SM: cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs),
+// queried once a device.
+int reg_resident_blocks(int* blocks) {
+  static int cache[16];  // [device]; 0 = not queried yet
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 16 && cache[device] > 0) {
+    *blocks = cache[device];
+    return 0;
+  }
+  const auto kernel = lstm_seq_bwd_reg_kernel<float, kRegMaxUnits>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kMaxSharedBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kRegThreads, kMaxSharedBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = per_sm * sms;
+  if (device < 16) cache[device] = *blocks;
+  return 0;
+}
+
+// The register kernel's plan for (N, H), or *fits false where it does not
+// take the shape.
+int reg_choose(int n_rows, int hidden, RegPlan* p, bool* fits) {
+  *fits = false;
+  int blocks = 0;
+  const int err = reg_resident_blocks(&blocks);
+  if (err != 0) return err;
+  *fits = reg_plan(n_rows, hidden, blocks, p);
+  return 0;
+}
+
+template <typename T, int kUnits>
+int reg_bwd_launch(const RegPlan& p, const void* dout, const void* dh_last,
+                   const void* dc_last, const void* gates, const void* cs,
+                   const void* c0, const void* w, void* dgates, void* dh0,
+                   void* dc0, void* counter, int steps, int n_rows,
+                   int hidden, int reverse, cudaStream_t stream) {
+  const auto kernel = lstm_seq_bwd_reg_kernel<T, kUnits>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* dout_t = static_cast<const T*>(dout);
+  const T* dh_last_t = static_cast<const T*>(dh_last);
+  const T* dc_last_t = static_cast<const T*>(dc_last);
+  const float* gates_t = static_cast<const float*>(gates);
+  const T* cs_t = static_cast<const T*>(cs);
+  const T* c0_t = static_cast<const T*>(c0);
+  const T* w_t = static_cast<const T*>(w);
+  float* dgates_t = static_cast<float*>(dgates);
+  T* dh0_t = static_cast<T*>(dh0);
+  T* dc0_t = static_cast<T*>(dc0);
+  unsigned* counter_t = static_cast<unsigned*>(counter);
+  int stages = p.stages;
+  void* args[] = {&dout_t,    &dh_last_t, &dc_last_t, &gates_t, &cs_t,
+                  &c0_t,      &w_t,       &dgates_t,  &dh0_t,   &dc0_t,
+                  &counter_t, &steps,     &n_rows,    &hidden,  &reverse,
+                  &stages};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(kRegThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
+                            args);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error for the next one
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int reg_bwd_dispatch(const RegPlan& p, const void* dout, const void* dh_last,
+                     const void* dc_last, const void* gates, const void* cs,
+                     const void* c0, const void* w, void* dgates, void* dh0,
+                     void* dc0, void* counter, int steps, int n_rows,
+                     int hidden, int reverse, cudaStream_t stream) {
+#define MXT_REG_UNITS(U)                                                    \
+  case U:                                                                   \
+    return reg_bwd_launch<T, U>(p, dout, dh_last, dc_last, gates, cs, c0,   \
+                                w, dgates, dh0, dc0, counter, steps,        \
+                                n_rows, hidden, reverse, stream);
+  switch (p.units) {
+    MXT_REG_UNITS(1)
+    MXT_REG_UNITS(2)
+    MXT_REG_UNITS(3)
+    MXT_REG_UNITS(4)
+    MXT_REG_UNITS(5)
+    MXT_REG_UNITS(6)
+    MXT_REG_UNITS(7)
+    MXT_REG_UNITS(8)
+  }
+#undef MXT_REG_UNITS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward sequence kernels' plan for (N, H). variant: 0 = the
+// register kernel where it takes the shape, else the shared-memory
+// kernel where that does; 1 = the shared-memory kernel; 2 = the register
+// kernel. out: kPlanInts ints, {variant taken (0 none, 1 shared,
+// 2 register), units, blocks, stages, smem bytes, rows a chunk or tile}.
+constexpr int kPlanInts = 6;
+
+int bwd_choose(int n_rows, int hidden, int sm_count, int variant,
+               RegPlan* reg, SeqPlan* shared, int* out) {
+  for (int i = 0; i < kPlanInts; ++i) out[i] = 0;
+  if (variant == 0 || variant == 2) {
+    bool fits = false;
+    const int err = reg_choose(n_rows, hidden, reg, &fits);
+    if (err != 0) return err;
+    if (fits) {
+      const int o[kPlanInts] = {2, reg->units, reg->blocks, reg->stages,
+                                static_cast<int>(reg->smem),
+                                reg_rows(reg->units)};
+      for (int i = 0; i < kPlanInts; ++i) out[i] = o[i];
+      return 0;
+    }
+    if (variant == 2) return 0;
+  }
+  if (bwd_plan(n_rows, hidden, sm_count, shared)) {
+    const int o[kPlanInts] = {1, shared->units, shared->blocks, 1,
+                              static_cast<int>(shared->smem), shared->chunk};
+    for (int i = 0; i < kPlanInts; ++i) out[i] = o[i];
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1031,43 +1621,72 @@ int lstm_cell_backward(const void* dg_next, const void* w_t, const void* gates,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared bytes a block of the backward sequence kernel takes
-// for N rows of H units on sm_count SMs, or -1 when the columns do not fit.
-int lstm_sequence_backward_shared_bytes(int n_rows, int hidden, int sm_count) {
-  SeqPlan p;
-  return bwd_plan(n_rows, hidden, sm_count, &p) ? static_cast<int>(p.smem)
-                                                : -1;
+// The plan of the backward sequence kernels for N rows of H units (the
+// shared-memory kernel planned on sm_count SMs): out receives 6 ints,
+// {variant taken: 0 none, 1 the shared-memory kernel, 2 the register
+// kernel; units; blocks; stages; shared bytes a block; rows a chunk or
+// tile}. variant: 0 = the register kernel where it takes the shape, else
+// the shared-memory one where that does; 1 = the shared-memory kernel;
+// 2 = the register kernel. Returns a cudaError_t.
+int lstm_sequence_backward_plan(int n_rows, int hidden, int sm_count,
+                                int variant, int* out) {
+  if (variant < 0 || variant > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RegPlan reg;
+  SeqPlan shared;
+  return bwd_choose(n_rows, hidden, sm_count, variant, &reg, &shared, out);
 }
 
 // The backward of one layer and direction over T steps in one cooperative
-// launch: dout (T, N, H), dh_last, dc_last, c0 (N, H), gates (T, N, 4H) fp32
-// and cs (T, N, H) from the training forward, w (4H, H); writes dgates
-// (T, N, 4H) fp32, dh0 and dc0 (N, H). counter is one zeroed uint32. dtype:
-// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// launch of the kernel lstm_sequence_backward_plan picks for variant,
+// whose plan it writes into plan (6 ints): dout (T, N, H),
+// dh_last, dc_last, c0 (N, H), gates (T, N, 4H) fp32 and cs (T, N, H) from
+// the training forward, w (4H, H); writes dgates (T, N, 4H) fp32, dh0 and
+// dc0 (N, H). counter: N zeroed uint32s (the register kernel counts each
+// tile's writers in one; the shared-memory kernel's grid barrier takes the
+// first). dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue when no kernel takes the shape).
 int lstm_sequence_backward(const void* dout, const void* dh_last,
                            const void* dc_last, const void* gates,
                            const void* cs, const void* c0, const void* w,
                            void* dgates, void* dh0, void* dc0, void* counter,
                            int steps, int n_rows, int hidden, int dtype,
-                           int reverse, int sm_count, void* stream) {
-  SeqPlan p;
-  if (steps < 1 || !bwd_plan(n_rows, hidden, sm_count, &p)) {
+                           int reverse, int variant, int sm_count, int* plan,
+                           void* stream) {
+  if (variant < 0 || variant > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RegPlan reg;
+  SeqPlan shared;
+  const int err = bwd_choose(n_rows, hidden, sm_count, variant, &reg, &shared,
+                             plan);
+  if (err != 0) return err;
+  if (steps < 1 || plan[0] == 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rev = reverse ? 1 : 0;
-  if (dtype == 0) {
-    return seq_bwd_dispatch<float>(p, dout, dh_last, dc_last, gates, cs, c0,
-                                   w, dgates, dh0, dc0, counter, steps,
-                                   n_rows, hidden, rev, s);
-  }
-  if (dtype == 1) {
-    return seq_bwd_dispatch<__nv_bfloat16>(p, dout, dh_last, dc_last, gates,
+  if (plan[0] == 2) {
+    if (dtype == 0) {
+      return reg_bwd_dispatch<float>(reg, dout, dh_last, dc_last, gates, cs,
+                                     c0, w, dgates, dh0, dc0, counter, steps,
+                                     n_rows, hidden, rev, s);
+    }
+    return reg_bwd_dispatch<__nv_bfloat16>(reg, dout, dh_last, dc_last, gates,
                                            cs, c0, w, dgates, dh0, dc0,
                                            counter, steps, n_rows, hidden,
                                            rev, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    return seq_bwd_dispatch<float>(shared, dout, dh_last, dc_last, gates, cs,
+                                   c0, w, dgates, dh0, dc0, counter, steps,
+                                   n_rows, hidden, rev, s);
+  }
+  return seq_bwd_dispatch<__nv_bfloat16>(shared, dout, dh_last, dc_last,
+                                         gates, cs, c0, w, dgates, dh0, dc0,
+                                         counter, steps, n_rows, hidden, rev,
+                                         s);
 }
 
 const char* lstm_cell_error_string(int err) {

@@ -19,12 +19,15 @@ plain version :func:`lstm_sequence_train_plain`); its backward computes
 what ``jax.vjp`` of the scan over the JAX package's ``_cell`` computes,
 with ``_cell_bwd`` at each step (:func:`lstm_sequence_backward`, plain
 version :func:`lstm_sequence_backward_plain`). On CUDA tensors the
-backward launches one persistent kernel a layer and direction, or one
-per-step kernel a step where the layer's weights do not fit.
+backward launches one persistent kernel a layer and direction (the
+register kernel, or the shared-memory one where the register kernel
+does not take the shape; :func:`backward_plan`), or one per-step kernel a
+step where the layer's weights do not fit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +36,7 @@ from ...base import MXNetError
 
 __all__ = ["lstm_cell_fused", "lstm_cell_plain", "lstm_sequence_fused",
            "lstm_sequence_plain", "sequence_fits", "backward_fits",
+           "backward_plan", "BackwardPlan",
            "lstm_sequence_train", "lstm_sequence_train_plain",
            "lstm_sequence_backward", "lstm_sequence_backward_plain",
            "lstm_cell_backward", "lstm_cell_backward_plain"]
@@ -161,11 +165,11 @@ def _lib():
         lib.lstm_sequence_shared_bytes.restype = c_int
         lib.lstm_cell_backward.argtypes = [c_ptr] * 10 + [c_int] * 3 + [c_ptr]
         lib.lstm_cell_backward.restype = c_int
-        lib.lstm_sequence_backward.argtypes = [c_ptr] * 11 + [c_int] * 6 + [
-            c_ptr]
+        lib.lstm_sequence_backward.argtypes = [c_ptr] * 11 + [c_int] * 7 + [
+            c_ptr] * 2
         lib.lstm_sequence_backward.restype = c_int
-        lib.lstm_sequence_backward_shared_bytes.argtypes = [c_int] * 3
-        lib.lstm_sequence_backward_shared_bytes.restype = c_int
+        lib.lstm_sequence_backward_plan.argtypes = [c_int] * 4 + [c_ptr]
+        lib.lstm_sequence_backward_plan.restype = c_int
         lib.lstm_sequence_barriers.argtypes = [c_ptr] + [c_int] * 4 + [c_ptr]
         lib.lstm_sequence_barriers.restype = c_int
         lib.lstm_cell_error_string.argtypes = [c_int]
@@ -241,16 +245,58 @@ def sequence_fits(n, hdim, device):
     return _lib().lstm_sequence_shared_bytes(n, hdim, _sm_count(device)) >= 0
 
 
+class BackwardPlan(NamedTuple):
+    """How the backward sequence kernels run N rows of H units: ``variant``
+    "register" (``lstm_seq_bwd_reg_kernel``), "shared" (the shared-memory
+    ``lstm_seq_bwd_kernel``) or None (neither takes the shape); hidden
+    units a block, blocks, ring stages, shared bytes a block, and batch
+    rows a tile (register) or chunk (shared)."""
+    variant: Optional[str]
+    units: int
+    blocks: int
+    stages: int
+    smem: int
+    rows: int
+
+
+_BWD_VARIANTS = {None: 0, "shared": 1, "register": 2}
+_BWD_TAKEN = {0: None, 1: "shared", 2: "register"}
+
+
+def backward_plan(n, hdim, device, variant=None):
+    """The kernel library's plan of the backward sequence kernel for N rows
+    of H units on the card of ``device`` (``lstm_sequence_backward_plan``
+    in ``csrc/lstm_cell.cu``), a :class:`BackwardPlan`.
+
+    By default the register kernel where it takes the shape, else the
+    shared-memory kernel where that does. The register kernel holds a
+    block's columns of w_h2h in registers: ``units = ceil(H / blocks)`` at
+    most 8 and ``ceil(H / 256) * units`` float4s a thread at most 32, so
+    on 132 SMs it takes H up to 1024 (its grid at most one block an SM,
+    as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` counts them).
+    The shared-memory kernel takes H up to 1320 on 132 SMs (see
+    :func:`backward_fits`). ``variant`` "shared" or "register" asks for
+    that kernel alone."""
+    lib = _lib()
+    out = (ctypes.c_int * len(BackwardPlan._fields))()
+    with torch.cuda.device(device):
+        err = lib.lstm_sequence_backward_plan(
+            n, hdim, _sm_count(device), _BWD_VARIANTS[variant],
+            ctypes.addressof(out))
+    _raise_on(lib, err, "lstm_sequence_backward plan")
+    return BackwardPlan(_BWD_TAKEN[out[0]], *out[1:])
+
+
 def backward_fits(n, hdim, device):
-    """Whether the backward sequence kernel takes N rows of H units on the
-    card of ``device`` (``lstm_sequence_backward_shared_bytes``). A block
-    keeps the columns w_h2h[:, J] of its ``units = ceil(H / SMs)`` units
-    (at most 10) as fp32, the same bytes as the forward's rows, beside a
-    chunk of the previous step's dgates (N, 4H): the least power of two >=
-    min(N, 32 // units, 16) rows, halved while the block's bytes exceed
-    232,448. On 132 SMs H up to 1320 fits, as in the forward."""
-    return _lib().lstm_sequence_backward_shared_bytes(
-        n, hdim, _sm_count(device)) >= 0
+    """Whether a backward sequence kernel takes N rows of H units on the
+    card of ``device`` (:func:`backward_plan`). the shared-memory
+    kernel keeps the columns w_h2h[:, J] of a block's ``units = ceil(H /
+    SMs)`` units (at most 10) as fp32 in shared memory beside a chunk of
+    the previous step's dgates (N, 4H): the least power of two >= min(N,
+    32 // units, 16) rows, halved while the block's bytes exceed 232,448.
+    On 132 SMs H up to 1320 fits, as in the forward; the register kernel
+    takes the part of that range up to H = 1024."""
+    return backward_plan(n, hdim, device).variant is not None
 
 
 def _sequence_launch(xproj, h0, c0, w_h2h, reverse, gates=None, cs=None):
@@ -499,10 +545,14 @@ def lstm_sequence_backward(dout, dh_last, dc_last, gates, cs, out, h0, c0,
     (out, hT, cT) and what :func:`lstm_sequence_train` kept. Returns
     (dgates (T,N,4H) fp32, dh0, dc0, dw_h2h).
 
-    CUDA tensors launch, where :func:`backward_fits`, the persistent
+    CUDA tensors launch, where :func:`backward_fits`, a persistent
     backward kernel once (all T steps, counted in
-    ``lstm_sequence_backward.launches``), else the per-step backward kernel
-    T + 1 times (``lstm_cell_backward.launches``); dw_h2h is then one fp32
+    ``lstm_sequence_backward.launches``): the register kernel (w_h2h in
+    registers, dgates streamed by bulk copies into a shared-memory ring;
+    also counted in ``lstm_sequence_backward.register_launches``) where
+    :func:`backward_plan` gives it, H up to 1024 on 132 SMs, else the
+    shared-memory kernel; else the per-step backward kernel T + 1 times
+    (``lstm_cell_backward.launches``). dw_h2h is then one fp32
     product over all steps (``torch.matmul``), cast to w_h2h's dtype once,
     where the plain version rounds its sum to that dtype every step. CPU
     and meta tensors run the plain version."""
@@ -525,28 +575,39 @@ def lstm_sequence_backward(dout, dh_last, dc_last, gates, cs, out, h0, c0,
 
 
 def _sequence_backward_launch(dout, dh_last, dc_last, gates, cs, h0, c0,
-                              w_h2h, reverse):
-    """One launch of the backward sequence kernel: (dgates, dh0, dc0)."""
+                              w_h2h, reverse, variant=None):
+    """One launch of a backward sequence kernel, the one
+    :func:`backward_plan` gives for ``variant``: (dgates, dh0, dc0).
+    Counted in ``lstm_sequence_backward.launches``, and a launch of the
+    register kernel also in ``lstm_sequence_backward.register_launches``.
+    """
     _check_kernel_inputs("lstm_sequence_backward",
                          (dout, dh_last, dc_last, cs, h0, c0, w_h2h), (gates,))
     steps, n, hdim = cs.shape
     lib = _lib()
     dgates = torch.empty_like(gates)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    scratch = torch.zeros(1, dtype=torch.int32, device=h0.device)
+    # the register kernel's writer count of each tile of rows (at most N),
+    # the shared-memory kernel's grid barrier counter (the first)
+    scratch = torch.zeros(n, dtype=torch.int32, device=h0.device)
+    plan = (ctypes.c_int * len(BackwardPlan._fields))()
     with torch.cuda.device(h0.device):
         err = lib.lstm_sequence_backward(
             dout.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
             gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), w_h2h.data_ptr(),
             dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             scratch.data_ptr(), steps, n, hdim, _KERNEL_DTYPES[h0.dtype],
-            int(reverse), _sm_count(h0.device), _stream(h0.device))
+            int(reverse), _BWD_VARIANTS[variant], _sm_count(h0.device),
+            ctypes.addressof(plan), _stream(h0.device))
     _raise_on(lib, err, "lstm_sequence_backward")
     lstm_sequence_backward.launches += 1
+    if plan[0] == _BWD_VARIANTS["register"]:
+        lstm_sequence_backward.register_launches += 1
     return dgates, dh0, dc0
 
 
 lstm_sequence_backward.launches = 0
+lstm_sequence_backward.register_launches = 0
 
 
 class _Sequence(torch.autograd.Function):

@@ -126,6 +126,41 @@ def test_plain_backward_matches_jax_vjp(ref, dtype, reverse):
             assert np.abs(got - want).max() <= _ulp_tol(want, BF16_ULPS)
 
 
+def test_plain_backward_matches_jax_vjp_at_the_bench_width(ref):
+    """test_plain_backward_matches_jax_vjp at the width the Hopper backward
+    kernels serve on the benchmark's training path (N=64, H=1024; T=2,
+    fp32): the plain backward the card's kernels are held to, tied to
+    jax.vjp of _run_direction at that shape. Weights uniform +-0.05, as
+    the LM draws them, keep the gates off saturation."""
+    steps, n, hdim = 2, 64, 1024
+    rng = np.random.RandomState(13)
+    ins = [rng.normal(0, 1, (steps, n, hdim)), rng.normal(0, 0.5, (n, hdim)),
+           rng.normal(0, 0.5, (n, hdim)),
+           rng.uniform(-0.05, 0.05, (4 * hdim, hdim)),
+           rng.uniform(-0.05, 0.05, (4 * hdim, hdim)),
+           rng.normal(0, 0.1, (4 * hdim,)), rng.normal(0, 0.1, (4 * hdim,))]
+    cots = [rng.normal(0, 1, shape) for shape in
+            ((steps, n, hdim), (n, hdim), (n, hdim))]
+    ins, cots = ([a.astype(np.float32) for a in arrays]
+                 for arrays in (ins, cots))
+    with ref.jax.enable_x64(False):
+        outs_j, vjp = ref.jax.vjp(
+            lambda *a: ref.rnn_ops._run_direction(*a, "lstm", hdim),
+            *[ref.jnp.asarray(a) for a in ins])
+        grads_j = vjp(tuple(ref.jnp.asarray(c) for c in cots))
+        want = [np.asarray(a) for a in list(outs_j) + list(grads_j)]
+    leaves = [torch.tensor(a, requires_grad=True) for a in ins]
+    outs_t = port_rnn_ops._run_direction(*leaves, "lstm", hdim)
+    grads_t = torch.autograd.grad(outs_t, leaves,
+                                  [torch.tensor(c) for c in cots])
+    # summation order only, over sums of up to 4H = 4096 products (dx) and
+    # T*N = 128 rows (the weights' gradients): each output held within
+    # 1e-5 of its own largest magnitude (at least 1)
+    for w, g in zip(want, list(outs_t) + list(grads_t), strict=True):
+        err = np.abs(g.detach().numpy() - w).max()
+        assert err <= 1e-5 * max(1.0, float(np.abs(w).max())), err
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_function_matches_autograd_of_the_plain_loop(reverse):
     """The Function's backward (its own adjoint, from the gates the
@@ -160,6 +195,7 @@ def test_one_step_with_gradients_runs_as_a_one_step_sequence():
 
 def test_backward_on_cpu_counts_no_launch():
     before = (port_lstm.lstm_sequence_backward.launches,
+              port_lstm.lstm_sequence_backward.register_launches,
               port_lstm.lstm_cell_backward.launches,
               port_lstm.lstm_sequence_fused.launches)
     ins, cots = _direction_arrays(seed=5)
@@ -167,6 +203,7 @@ def test_backward_on_cpu_counts_no_launch():
     outs = port_rnn_ops._run_direction(*leaves, "lstm", H)
     torch.autograd.grad(outs, leaves, [torch.tensor(c) for c in cots])
     assert (port_lstm.lstm_sequence_backward.launches,
+            port_lstm.lstm_sequence_backward.register_launches,
             port_lstm.lstm_cell_backward.launches,
             port_lstm.lstm_sequence_fused.launches) == before
 
@@ -374,27 +411,50 @@ def _check_backward(got, want, dtype):
             assert err <= _ulp_tol(p.float().cpu().numpy(), 2), (name, err)
 
 
+def _backward_counts():
+    return (port_lstm.lstm_sequence_backward.launches,
+            port_lstm.lstm_sequence_backward.register_launches,
+            port_lstm.lstm_cell_backward.launches)
+
+
+# the backward kernel the plan gives each H of these tests on an H100's
+# 132 SMs, units = ceil(H / 132): the register kernel holds ceil(H / 256)
+# float4 columns a unit within a consumer's 32, so it takes H = 1024 (8
+# units, 4 columns) but not 1032 (8 units, 5 columns), which the
+# shared-memory kernel takes up to 1320 (10 units); wider layers take the
+# per-step kernel (None)
+BWD_PLAN_ON_H100 = {100: "register", 200: "register", 960: "register",
+                    1024: "register", 1032: "shared", 1320: "shared",
+                    1536: None}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("steps,n,hdim", [(7, 3, 200), (16, 16, 1024),
-                                          (9, 64, 1024), (4, 1, 1536)])
+@pytest.mark.parametrize("steps,n,hdim", [
+    (7, 3, 200), (16, 16, 1024), (9, 64, 1024), (4, 1, 1536),
+    (1, 5, 100),     # units 1, T = 1
+    (5, 37, 200),    # tiles of 16 rows: 16 + 16 + a ragged 5
+    (3, 37, 1024),   # units 8, tiles of 4 rows: 9 whole and a ragged 1
+    (6, 16, 1032),   # 5 float4 columns a unit: the shared-memory kernel
+    (4, 3, 1320)])   # units 10: the shared-memory kernel
 def test_backward_kernels_match_plain(card, steps, n, hdim, dtype, reverse):
-    """The backward sequence kernel (one launch) where the layer fits, the
-    per-step kernel (T + 1 launches) at H=1536, against the plain
-    backward on the same card tensors."""
+    """The backward sequence kernel the plan picks (one launch: the
+    register kernel up to H = 1024, the shared-memory one at H = 1032
+    and 1320), the per-step kernel (T + 1 launches) at H=1536, against the
+    plain backward on the same card tensors."""
     case = _backward_case(steps, n, hdim, dtype, reverse, seed=steps + n,
                           device=card)
-    fits = port_lstm.backward_fits(n, hdim, card)
-    assert fits == (hdim <= 1320)
-    before = (port_lstm.lstm_sequence_backward.launches,
-              port_lstm.lstm_cell_backward.launches)
+    plan = port_lstm.backward_plan(n, hdim, card)
+    assert plan.variant == BWD_PLAN_ON_H100[hdim]
+    assert port_lstm.backward_fits(n, hdim, card) == (
+        plan.variant is not None)
+    before = _backward_counts()
     got = port_lstm.lstm_sequence_backward(*case, reverse=reverse)
     torch.cuda.synchronize()
-    after = (port_lstm.lstm_sequence_backward.launches,
-             port_lstm.lstm_cell_backward.launches)
-    assert after == ((before[0] + 1, before[1]) if fits
-                     else (before[0], before[1] + steps + 1))
+    moved = tuple(a - b for a, b in zip(_backward_counts(), before))
+    assert moved == {"register": (1, 1, 0), "shared": (1, 0, 0),
+                     None: (0, 0, steps + 1)}[plan.variant]
     want = port_lstm.lstm_sequence_backward_plain(*case, reverse=reverse)
     _check_backward(got, want, dtype)
     if dtype == torch.bfloat16:
@@ -404,6 +464,32 @@ def test_backward_kernels_match_plain(card, steps, n, hdim, dtype, reverse):
         dw32 = torch.einsum("tnk,tnh->kh", dgates, h_prev.float())
         tol = _ulp_tol(dw32.cpu().numpy(), 2)
         assert (got[3].float() - dw32).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", [None, "shared"])
+@pytest.mark.parametrize("steps,n,hdim", [(9, 64, 1024), (5, 37, 200),
+                                          (3, 16, 960)])
+def test_sequence_backward_kernel_repeats_bit_for_bit(card, steps, n, hdim,
+                                                      dtype, variant):
+    """Two launches of a backward sequence kernel on the same inputs give
+    bit-identical dgates, dh0 and dc0 (every sum in a fixed order, no
+    atomics), and both match the plain backward: the plan's kernel (the
+    register kernel) and the shared-memory kernel."""
+    case = _backward_case(steps, n, hdim, dtype, False, seed=3 * n,
+                          device=card)
+    dout, dh_last, dc_last, gates, cs, out, h0, c0, w = case
+    plan = port_lstm.backward_plan(n, hdim, card, variant)
+    assert plan.variant == (variant or BWD_PLAN_ON_H100[hdim])
+    runs = [port_lstm._sequence_backward_launch(
+        dout, dh_last, dc_last, gates, cs, h0, c0, w, False, variant)
+        for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+    want = port_lstm.lstm_sequence_backward_plain(*case)
+    _check_backward(list(runs[0]) + [want[3]], want, dtype)
 
 
 @pytest.mark.cuda
@@ -425,8 +511,8 @@ def test_training_forward_kernel_keeps_what_the_plain_version_keeps(card):
 @pytest.mark.cuda
 def test_rnn_op_trains_through_the_kernels(card):
     """A 2-layer bidirectional LSTM's gradients on the card (4 sequence
-    forward and 4 sequence backward launches, no per-step launch) against
-    the CPU path."""
+    forward and 4 sequence backward launches, all on the register kernel,
+    no per-step launch) against the CPU path."""
     rng = np.random.RandomState(2)
     hdim, in_dim, steps, n, layers = 64, 32, 6, 5, 2
     psize = port_rnn_ops.rnn_param_size(layers, in_dim, hdim, "lstm", True)
@@ -444,6 +530,7 @@ def test_rnn_op_trains_through_the_kernels(card):
                                requires_grad=True) for a in arrays]
         before = (port_lstm.lstm_sequence_fused.launches,
                   port_lstm.lstm_sequence_backward.launches,
+                  port_lstm.lstm_sequence_backward.register_launches,
                   port_lstm.lstm_cell_fused.launches,
                   port_lstm.lstm_cell_backward.launches)
         outs = fn(None, *leaves, **attrs)
@@ -452,10 +539,11 @@ def test_rnn_op_trains_through_the_kernels(card):
                               torch.autograd.grad(loss, leaves)]
         after = (port_lstm.lstm_sequence_fused.launches,
                  port_lstm.lstm_sequence_backward.launches,
+                 port_lstm.lstm_sequence_backward.register_launches,
                  port_lstm.lstm_cell_fused.launches,
                  port_lstm.lstm_cell_backward.launches)
         counts = tuple(a - b for a, b in zip(after, before))
-    assert counts == (4, 4, 0, 0)
+    assert counts == (4, 4, 4, 0, 0)  # the backwards on the register kernel
     for g, w in zip(grads[str(card)], grads["cpu"]):
         assert (g - w).abs().max().item() <= BWD_FP32_TOL * max(
             1.0, w.abs().max().item())
