@@ -133,12 +133,36 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    packed segments, in turns: the wgmma/TMA variant, the earlier mma.sync
    variant and ``scaled_dot_product_attention``'s autograd backward on the
    same inputs; each variant's kernels by stage, the bound, the plain
-   version; and the forward with and without the lse kept, in turns.
+   version; and the forward with and without the lse kept, in turns;
+13. ResNet-50 training: one LSTM layer's forward at the LSTM bench's
+   training shape (T=256, N=64, fp32; the port's projection plus the
+   sequence kernel, the kernel alone and cuDNN's ``torch.nn.LSTM``, in
+   turns, for B1's library time); (a) the CNN ops (Convolution, Pooling,
+   BatchNorm with its moving updates, Activation, LRN) on the card
+   against the port's CPU path, forward and every input gradient, fp32
+   with TF32 off and bf16, at ResNet-50's shapes (the stem's 7x7/2
+   convolution on 224**2, a bottleneck's 3x3, a strided 1x1 projection,
+   the stem's max pool over tied windows, the global pool, the stem's
+   BatchNorm) and ragged ones, and Dropout's statistics; (b) one training
+   forward_backward of ResNet-50 v2 at 224**2, batch 2, from seeded
+   Xavier, on the card and on the CPU path in fp64 and fp32 (every array
+   held; fp32 against the CPU fp32's own distance from fp64); (c)
+   ``bench.py``'s bench_resnet configuration through ``Module`` on the
+   default context (ResNet-50 v2, NHWC, bf16 over fp32 masters, batch
+   256, seeded Xavier, SGD lr 0.1, momentum 0.9, rescale 1/256, one
+   seeded batch): 10 forward/backward/update steps, every loss, output,
+   parameter and moving statistic finite, the moving statistics moved,
+   the loss falling, none of the hand-written kernels launched; 7 timed
+   steps (CUDA events), img/s against the bound of the symbol's
+   convolution and fully connected products (2 x 3 x MACs at 989.4
+   TFLOP/s bf16), peak memory, and one profiled step by kernel and by
+   kind, with any transpose kernel named.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
-training path and 12c) sets its kernels' launch counts to 0 just before it
-runs and reads them just after, and fails if a kernel of the path was not
-launched. Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+training path, 12c and 13c) sets its kernels' launch counts to 0 (13c:
+reads them) just before it runs and reads them just after, and fails if
+a kernel of the path was not launched (13c: if any hand-written kernel
+was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1169,11 +1193,12 @@ def phase_transformer_timing(tf):
     return out
 
 
-def profile_device(label, fn):
+def profile_device(label, fn, keep_all=False):
     """Device time by kernel over one call of ``fn`` and the device's idle
     share of its wall time (torch.profiler, CUPTI). Only device-side events
     (kernels, copies) are summed: a CPU op's device time repeats its
-    kernels'."""
+    kernels'. ``keep_all`` also returns every kernel's row
+    (``top_all``)."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(3):
@@ -1207,9 +1232,12 @@ def profile_device(label, fn):
         f"{host_reads}")
     for key, us, count in events[:8]:
         log(f"[profile]   {us:12.1f} us  x{count:<5d} {key[:90]}")
-    return {"wall_us": wall_us, "device_busy_us": busy_us,
-            "idle_share": 1 - busy_us / wall_us, "host_reads": host_reads,
-            "top": [[k[:90], us, n] for k, us, n in events[:8]]}
+    out = {"wall_us": wall_us, "device_busy_us": busy_us,
+           "idle_share": 1 - busy_us / wall_us, "host_reads": host_reads,
+           "top": [[k[:90], us, n] for k, us, n in events[:8]]}
+    if keep_all:
+        out["top_all"] = [[k, us, n] for k, us, n in events]
+    return out
 
 
 def phase_transformer_profile(tf):
@@ -3009,6 +3037,520 @@ def attention_backward_records(kerrs, masked_path, tf_train, timing,
     return records
 
 
+# -- ResNet-50 training (phase 13) ---------------------------------------------
+
+# (a) the CNN ops on the card against the port's CPU path on the same
+# seeded inputs, forward and every input gradient, fp32 (TF32 off) and
+# bf16: ResNet-50's own shapes (the stem's 7x7/2 convolution on 224**2, a
+# bottleneck's 3x3 and its strided 1x1 projection, the stem's max pool
+# over ReLU'd windows with ties, the global pool, the stem's BatchNorm)
+# and ragged ones. name -> (op, [input shape, kind], attrs, is_train);
+# kinds: "x" normal, "w" a weight scaled by its fan-in, "ties" small
+# integers after a ReLU
+OP_CASES = {
+    "conv stem 7x7/2": ("Convolution", [((2, 224, 224, 3), "x"),
+                                        ((64, 7, 7, 3), "w")],
+                        dict(kernel=(7, 7), num_filter=64, stride=(2, 2),
+                             pad=(3, 3), no_bias=True, layout="NHWC"), False),
+    "conv bottleneck 3x3": ("Convolution", [((2, 56, 56, 64), "x"),
+                                            ((64, 3, 3, 64), "w")],
+                            dict(kernel=(3, 3), num_filter=64, pad=(1, 1),
+                                 no_bias=True, layout="NHWC"), False),
+    "conv projection 1x1/2": ("Convolution", [((2, 56, 56, 256), "x"),
+                                              ((512, 1, 1, 256), "w")],
+                              dict(kernel=(1, 1), num_filter=512,
+                                   stride=(2, 2), no_bias=True,
+                                   layout="NHWC"), False),
+    "conv ragged grouped dilated": ("Convolution",
+                                    [((3, 17, 13, 6), "x"),
+                                     ((10, 3, 3, 3), "w"), ((10,), "x")],
+                                    dict(kernel=(3, 3), num_filter=10,
+                                         num_group=2, stride=(2, 2),
+                                         pad=(1, 1), dilate=(1, 2),
+                                         layout="NHWC"), False),
+    "conv ragged NCHW": ("Convolution", [((3, 5, 11, 9), "x"),
+                                         ((7, 5, 3, 2), "w"), ((7,), "x")],
+                         dict(kernel=(3, 2), num_filter=7, stride=(1, 2)),
+                         False),
+    "max pool stem 3x3/2 ties": ("Pooling", [((2, 112, 112, 64), "ties")],
+                                 dict(kernel=(3, 3), stride=(2, 2),
+                                      pad=(1, 1), pool_type="max",
+                                      layout="NHWC"), False),
+    "avg pool global": ("Pooling", [((2, 7, 7, 2048), "x")],
+                        dict(kernel=(7, 7), global_pool=True,
+                             pool_type="avg", layout="NHWC"), False),
+    "avg pool 3x3/1 padded": ("Pooling", [((2, 35, 35, 192), "x")],
+                              dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                                   pool_type="avg", layout="NHWC"), False),
+    "avg pool ragged full": ("Pooling", [((3, 4, 9, 10), "x")],
+                             dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                                  pool_type="avg",
+                                  pooling_convention="full"), False),
+    "batchnorm stem train": ("BatchNorm", [((2, 112, 112, 64), "x")],
+                             dict(eps=2e-5, momentum=0.9, fix_gamma=False,
+                                  axis=3), True),
+    "batchnorm eval": ("BatchNorm", [((2, 56, 56, 256), "x")],
+                       dict(eps=2e-5, fix_gamma=False, axis=3), False),
+    "batchnorm ragged 2-D defaults": ("BatchNorm", [((37, 5), "x")], {},
+                                      True),
+    "relu": ("Activation", [((2, 112, 112, 64), "x")],
+             dict(act_type="relu"), False),
+    "softrelu ragged": ("Activation", [((3, 77), "x")],
+                        dict(act_type="softrelu"), False),
+    "lrn alexnet": ("LRN", [((2, 27, 27, 96), "x")],
+                    dict(nsize=5, alpha=1e-4, beta=0.75, knorm=2.0,
+                         axis=-1), False),
+}
+# card against CPU, fp32 with TF32 off on both: summation order and cuDNN's
+# algorithms differ (Winograd or FFT transforms where the autotuner picks
+# them), each held relative to the output's or gradient's largest magnitude
+# (measured up to 1.2e-5, the bottleneck's 3x3 convolution)
+OP_FP32_TOL = 1e-4
+# bf16: both sides accumulate in fp32 and round once; a rounding may land
+# an ulp apart (measured up to 2 ulps); held at 4 bf16 ulps of the
+# largest magnitude
+OP_BF16_ULPS = 4
+# Dropout's mask comes from the card's generator: its kept share within
+# 5 binomial sigmas of 1 - p
+DROP_SHAPE, DROP_P = (256, 4096), 0.5
+# (b) the full-width graph: ResNet-50 v2 at 224**2, batch 2, card against
+# CPU from the same seeded Xavier init (TF32 off): the output, every
+# gradient and every aux update, each relative to its own largest
+# magnitude. The gradients are ill-conditioned at this batch (BatchNorm's
+# backward subtracts near-equal terms): the CPU's own fp32 gradients sit
+# up to 0.17 of their largest magnitude from its fp64 ones
+# (stage3_unit5_conv2_weight), a rounding error amplified ~3e6 times. In
+# fp64 that amplification leaves ~3e-10 (measured 1.6e-10): held at 1e-8.
+# In fp32 each array on the card is held to at most 10 times the CPU
+# fp32's distance from the fp64 result (measured up to 2.5 times), plus
+# 1e-5 of its largest magnitude
+RESNET_GRAD_N = 2
+RESNET_F64_TOL = 1e-8
+RESNET_F32_FACTOR = 10.0
+RESNET_F32_FLOOR = 1e-5
+# (c) bench.py's bench_resnet configuration (bench.py:96-144) through Module
+RESNET_BATCH = 256
+RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9,
+              "rescale_grad": 1.0 / RESNET_BATCH}
+RESNET_STEPS, RESNET_TIMED = 10, 7
+# the profiled step's kernels by kind, the first pattern a name matches
+RESNET_KERNEL_KINDS = (
+    ("convolution (cuDNN)", r"xmma|implicit_gemm|conv|cudnn|wgrad|dgrad"),
+    ("batch norm", r"batch_norm"),
+    ("pooling", r"pool"),
+    ("fully connected (cuBLAS)", r"gemm|cutlass|Kernel2"),
+    ("elementwise and reductions", r"elementwise|reduce_kernel|copy"),
+)
+
+
+def hand_kernel_counts():
+    """Every hand-written kernel's launch counts: the LSTM's, attention's
+    and Rtc's."""
+    from mxnet_tpu_torch.ops.cuda.rtc import rtc_launch
+    return (*train_counts(), *attention_counts(), rtc_launch.launches)
+
+
+def op_case_arrays(name):
+    """A case's inputs (BatchNorm's gamma, beta and moving statistics
+    included) and which take a gradient, from the case's own seed."""
+    op, spec, attrs, _ = OP_CASES[name]
+    rng = np.random.RandomState(sorted(OP_CASES).index(name))
+    arrays = []
+    for shape, kind in spec:
+        if kind == "ties":
+            a = np.maximum(rng.randint(-2, 3, shape), 0)
+        elif kind == "w":
+            a = rng.normal(0, 1 / np.sqrt(np.prod(shape[1:])), shape)
+        else:
+            a = rng.normal(0, 1, shape)
+        arrays.append(a.astype(np.float32))
+    diff = [True] * len(arrays)
+    if op == "BatchNorm":
+        shape = spec[0][0]
+        c = shape[attrs.get("axis", 1) % len(shape)]
+        arrays += [rng.uniform(0.5, 1.5, c), rng.normal(0, 0.5, c),
+                   rng.normal(0, 0.5, c), rng.uniform(0.5, 2, c)]
+        arrays = [a.astype(np.float32) for a in arrays]
+        diff += [True, True, False, False]
+    return arrays, diff
+
+
+def run_op_case(name, dtype, device):
+    """The port's op on ``device``: the outputs (BatchNorm's moving
+    updates included) and every input gradient under a seeded cotangent,
+    as fp32 host arrays."""
+    import mxnet_tpu_torch as mx
+    op, _, attrs, train = OP_CASES[name]
+    opdef = mx.OP_TABLE[op]
+    parsed = opdef.parse_attrs(attrs)
+    if opdef.needs_is_train:
+        parsed["_is_train"] = train
+    arrays, diff = op_case_arrays(name)
+    ins = [torch.tensor(a, device=device).to(
+        dtype if i == 0 or op != "BatchNorm" else torch.float32)
+        for i, a in enumerate(arrays)]
+    leaves = [t.requires_grad_() if d else t for t, d in zip(ins, diff)]
+    out = opdef.fn(*leaves, **parsed)
+    out = out if isinstance(out, tuple) else (out,)
+    rng = np.random.RandomState(100 + sorted(OP_CASES).index(name))
+    cot = torch.tensor(rng.normal(0, 1, tuple(out[0].shape)),
+                       device=device).to(out[0].dtype)
+    wrt = [t for t, d in zip(leaves, diff) if d]
+    grads = torch.autograd.grad(out[0], wrt, cot, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, wrt)]
+    return ([o.detach().float().cpu().numpy() for o in out],
+            [g.float().cpu().numpy() for g in grads])
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want|."""
+    scale = float(np.abs(want).max())
+    return float(np.abs(got - want).max()) / scale if scale else float(
+        np.abs(got).max())
+
+
+def ulps_err(got, want):
+    """max |got - want| in bf16 ulps at the largest |want|."""
+    scale = float(np.abs(want).max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7) if scale else 2.0 ** -133
+    return float(np.abs(got - want).max()) / ulp
+
+
+def phase_cnn_ops():
+    """(a) Each CNN op on the card against the port's CPU path, fp32 and
+    bf16; max pooling's tied windows send every gradient to the same
+    element; Dropout's statistics on the card."""
+    errs = {}
+    for name in sorted(OP_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            outs_c, grads_c = run_op_case(name, dtype, "cpu")
+            outs_g, grads_g = run_op_case(name, dtype, CARD)
+            worst = 0.0
+            for i, (g, c) in enumerate(zip(outs_g + grads_g,
+                                           outs_c + grads_c, strict=True)):
+                # BatchNorm's moving statistics stay fp32 for bf16 data
+                fp32 = dtype == torch.float32 or 0 < i < len(outs_c)
+                e = rel_err(g, c) if fp32 else ulps_err(g, c)
+                tol = OP_FP32_TOL if fp32 else OP_BF16_ULPS
+                if not (np.isfinite(g).all() and e <= tol):
+                    raise RuntimeError(f"{name} {dtype} array {i}: card "
+                                       f"against CPU {e} > {tol}")
+                worst = max(worst, e)
+            if "ties" in name and dtype == torch.float32:
+                # the same elements take the gradient; in bf16 the sums of
+                # overlapping windows' gradients round, some to exactly 0
+                # (86 of 278222 on the CPU), so the check is fp32's
+                for g, c in zip(grads_g, grads_c):
+                    if not np.array_equal(g != 0, c != 0):
+                        raise RuntimeError(f"{name}: the card's max pool "
+                                           "picks other tied elements")
+            errs[f"{name} {str(dtype)[6:]}"] = worst
+    from mxnet_tpu_torch.ops import nn_ops
+    import mxnet_tpu_torch as mx
+    mx.random.seed(5)
+    x = torch.ones(DROP_SHAPE, device=CARD, requires_grad=True)
+    y = nn_ops._dropout(mx.random.generator(CARD), x, p=DROP_P,
+                        _is_train=True)
+    (g,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    keep, n = 1 - DROP_P, math.prod(DROP_SHAPE)
+    kept = float((y != 0).float().mean())
+    sigma = math.sqrt(keep * DROP_P / n)
+    if not (abs(kept - keep) < 5 * sigma and bool(
+            ((y == 0) | (y == 1 / keep)).all()) and bool((g == y).all())):
+        raise RuntimeError(f"dropout on the card: kept share {kept}")
+    errs["dropout kept share"] = kept
+    log(f"[resnet] (a) CNN ops, card against the port's CPU path, forward "
+        f"and every input gradient: worst error a case (fp32: of the "
+        f"largest magnitude, tol {OP_FP32_TOL}; bf16: in ulps, tol "
+        f"{OP_BF16_ULPS}): {errs}; max pooling's tied gradients equal; "
+        f"dropout p={DROP_P} keeps {kept} of {n}")
+    return errs
+
+
+def resnet_symbol(mx, dtype, num_layers=50):
+    with mx.sym.NameManager():
+        return mx.models.get_symbol("resnet", num_layers=num_layers,
+                                    num_classes=1000,
+                                    image_shape="224,224,3", dtype=dtype)
+
+
+def resnet_forward_backward(net, params, data, label, ctx, dtype):
+    """One training forward and backward of ``net`` on ``ctx`` with every
+    array in ``dtype``: the output, each gradient and each aux update."""
+    import mxnet_tpu_torch as mx
+    names = net.list_arguments() + net.list_auxiliary_states()
+    exe = net.simple_bind(ctx=ctx, type_dict={n: dtype for n in names},
+                          data=data.shape, softmax_label=label.shape)
+    for name, value in params.items():
+        target = exe.arg_dict if name in exe.arg_dict else exe.aux_dict
+        target[name][:] = value.astype(dtype)
+    exe.forward_backward(data=mx.nd.array(data.astype(dtype), ctx=ctx),
+                         softmax_label=mx.nd.array(label, ctx=ctx))
+    run = {"output": exe.outputs[0].asnumpy().astype(np.float64)}
+    run.update({f"grad {n}": g.asnumpy().astype(np.float64)
+                for n, g in exe.grad_dict.items()})
+    run.update({f"aux {n}": a.asnumpy().astype(np.float64)
+                for n, a in exe.aux_dict.items()})
+    return run
+
+
+def phase_resnet_card_vs_cpu():
+    """(b) One training forward_backward of ResNet-50 v2 (the fp32 symbol)
+    at 224**2, batch RESNET_GRAD_N, from the same seeded Xavier init, on
+    the card and on the port's CPU path, in fp64 and in fp32: in fp64
+    every array (the output, each gradient, each aux update) within
+    RESNET_F64_TOL of its largest magnitude; in fp32 each array's distance
+    from the fp64 result within RESNET_F32_FACTOR times the CPU fp32's
+    own, plus RESNET_F32_FLOOR of its largest magnitude."""
+    import mxnet_tpu_torch as mx
+    net = resnet_symbol(mx, "float32")
+    rng = np.random.RandomState(3)
+    data = rng.rand(RESNET_GRAD_N, 224, 224, 3).astype(np.float32)
+    label = rng.randint(0, 1000, RESNET_GRAD_N).astype(np.float32)
+    mx.random.seed(0)
+    mod = mx.mod.Module(net, context=mx.cpu())
+    mod.bind(data_shapes=[("data", data.shape)],
+             label_shapes=[("softmax_label", label.shape)])
+    mod.init_params(mx.init.Xavier())
+    args, auxs = mod.get_params()
+    params = {n: v.asnumpy() for n, v in {**args, **auxs}.items()}
+    runs = {(ctx.device_type, dt): resnet_forward_backward(
+                net, params, data, label, ctx, dt)
+            for dt in ("float64", "float32") for ctx in (mx.gpu(0), mx.cpu())}
+    exact = runs[("cpu", "float64")]
+    f64 = {k: rel_err(runs[("gpu", "float64")][k], v)
+           for k, v in exact.items()}
+    card32 = {k: rel_err(runs[("gpu", "float32")][k], v)
+              for k, v in exact.items()}
+    cpu32 = {k: rel_err(runs[("cpu", "float32")][k], v)
+             for k, v in exact.items()}
+    card_vs_cpu32 = {k: rel_err(runs[("gpu", "float32")][k], v)
+                     for k, v in runs[("cpu", "float32")].items()}
+    worst64 = max(f64, key=f64.get)
+    worst32 = max(card_vs_cpu32, key=card_vs_cpu32.get)
+    ratio = max(card32, key=lambda k: card32[k] / max(cpu32[k], 1e-12))
+    bad = [k for k in exact
+           if not (f64[k] <= RESNET_F64_TOL and card32[k]
+                   <= RESNET_F32_FACTOR * cpu32[k] + RESNET_F32_FLOOR)]
+    log(f"[resnet] (b) ResNet-50 v2 224x224 batch {RESNET_GRAD_N}, one "
+        f"training forward_backward, card against the CPU path "
+        f"({len(exact)} arrays: the output, {len(net.list_arguments())} "
+        f"gradients, {len(net.list_auxiliary_states())} aux updates), "
+        f"each relative to its largest magnitude: fp64 worst {worst64} "
+        f"{f64[worst64]!r} (tol {RESNET_F64_TOL}); fp32 card against fp32 "
+        f"CPU worst {worst32} {card_vs_cpu32[worst32]!r}, the CPU's own fp32 "
+        f"against fp64 there {cpu32[worst32]!r}, the card's "
+        f"{card32[worst32]!r}; largest ratio card/CPU distance from fp64 "
+        f"{ratio} {card32[ratio]!r} / {cpu32[ratio]!r} (tol "
+        f"{RESNET_F32_FACTOR} x the CPU's + {RESNET_F32_FLOOR}); output "
+        f"fp32 {card_vs_cpu32['output']!r}")
+    if bad:
+        raise RuntimeError(f"ResNet-50 card against CPU: {bad[:5]} fp64 "
+                           f"{[f64[k] for k in bad[:5]]} fp32 "
+                           f"{[(card32[k], cpu32[k]) for k in bad[:5]]}")
+    return {"f64_worst": f64[worst64], "f64_worst_array": worst64,
+            "f32_card_vs_cpu_worst": card_vs_cpu32[worst32],
+            "f32_card_vs_cpu_worst_array": worst32,
+            "f32_cpu_vs_f64_there": cpu32[worst32],
+            "f32_output": card_vs_cpu32["output"], "arrays": len(exact)}
+
+
+def resnet_step_macs(net, batch):
+    """The multiply-adds of one forward of ``net`` at ``batch`` in its
+    convolutions and fully connected layers (from their inferred shapes),
+    and the count of each."""
+    internals = net.get_internals()
+    _, out_shapes, _ = internals.infer_shape(data=(batch, 224, 224, 3))
+    shapes = dict(zip(internals.list_outputs(), out_shapes))
+    arg_shapes = dict(zip(net.list_arguments(), net.infer_shape(
+        data=(batch, 224, 224, 3))[0]))
+    macs, counts = 0, {"Convolution": 0, "FullyConnected": 0}
+    for node in net._topo_nodes():
+        if node.op is None or node.op.name not in counts:
+            continue
+        weight = arg_shapes[node.inputs[1][0].name]
+        out = shapes[f"{node.name}_output"]
+        # each output element takes a weight row: kernel x in-channels/groups
+        macs += math.prod(out) * math.prod(weight) // weight[0]
+        counts[node.op.name] += 1
+    return macs, counts
+
+
+def phase_resnet_train():
+    """(c) bench_resnet's configuration through Module on the default
+    context: ResNet-50 v2 NHWC bf16, batch RESNET_BATCH, seeded Xavier,
+    bench.py's data and SGD; RESNET_STEPS forward/backward/update steps on
+    the one batch, every loss, output, parameter and moving statistic
+    finite, the moving statistics moved, the last loss below the first;
+    none of the hand-written kernels launched. Then RESNET_TIMED timed
+    steps (CUDA events), img/s, the bound, peak memory and one profiled
+    step."""
+    import mxnet_tpu_torch as mx
+    net = resnet_symbol(mx, "bfloat16")
+    rng = np.random.RandomState(0)  # bench.py:112-116
+    data = rng.rand(RESNET_BATCH, 224, 224, 3).astype(np.float32)
+    label = rng.randint(0, 1000, (RESNET_BATCH,)).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = hand_kernel_counts()  # the main path's run starts here
+    mx.random.seed(0)
+    mod = mx.mod.Module(net)  # the default context, gpu(0)
+    mod.bind(data_shapes=[("data", data.shape)],
+             label_shapes=[("softmax_label", label.shape)])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=RESNET_SGD)
+    aux0 = {n: a.asnumpy() for n, a in mod.get_params()[1].items()}
+    batch = mx.io.DataBatch([mx.nd.array(data, ctx=mx.gpu(0))],
+                            [mx.nd.array(label, ctx=mx.gpu(0))])
+    labels = torch.tensor(label, device=CARD).long()
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    def loss():
+        prob = mod.get_outputs()[0]._data.float()
+        return float(-torch.log(prob.gather(1, labels[:, None])
+                                .clamp_min(1e-30)).mean())
+
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        step()
+        losses.append(loss())
+    first_steps_s = time.perf_counter() - t0
+    after = hand_kernel_counts()  # and ends here
+    peak = torch.cuda.max_memory_allocated()
+    args, auxs = mod.get_params()
+    out = mod.get_outputs()[0]._data
+    finite = (bool(torch.isfinite(out).all())
+              and all(bool(torch.isfinite(v._data).all())
+                      for v in list(args.values()) + list(auxs.values())))
+    moved = sum(not np.array_equal(a.asnumpy(), aux0[n])
+                for n, a in auxs.items())
+    log(f"[resnet] (c) ResNet-50 v2 NHWC bf16, batch {RESNET_BATCH}, "
+        f"Module on the default context, SGD {RESNET_SGD}: {RESNET_STEPS} "
+        f"steps in {first_steps_s:.1f} s (autotuning included), "
+        f"cross-entropy {losses}; outputs, {len(args)} parameters and "
+        f"{len(auxs)} moving statistics finite: {finite}; moving statistics "
+        f"moved: {moved} of {len(auxs)}; hand-written kernel launches on "
+        f"this path: {[a - b for a, b in zip(after, before)]} (none "
+        f"expected: convolutions, pooling and BatchNorm are cuDNN and "
+        f"torch kernels); peak device memory {peak} bytes")
+    if after != before:
+        raise RuntimeError(f"the ResNet path launched a hand-written "
+                           f"kernel: {before} -> {after}")
+    if not (finite and all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"non-finite ResNet-50 training: {losses}")
+    if moved != len(auxs):
+        raise RuntimeError(f"{len(auxs) - moved} moving statistics did not "
+                           "move")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+
+    event_ms, host_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RESNET_TIMED + 1):
+        e, h = step_ms(step)
+        event_ms.append(e)
+        host_ms.append(h)
+    event_ms, host_ms = event_ms[1:], host_ms[1:]  # the first warms up
+    steady_peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(event_ms)
+    macs, counts = resnet_step_macs(net, RESNET_BATCH)
+    # forward 2*MAC, backward twice the forward (data and weight gradients)
+    flops = 3 * 2 * macs
+    bound_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    img_s = RESNET_BATCH / ms * 1e3
+    log(f"[resnet] (c) one step: median {ms:.3f} ms (CUDA events) of "
+        f"{[round(x, 3) for x in event_ms]}, host clock median "
+        f"{statistics.median(host_ms):.3f} ms; {img_s:.1f} img/s; bound "
+        f"{bound_ms:.3f} ms ({flops / 1e12:.3f} TFLOP: {counts} layers, "
+        f"{macs / RESNET_BATCH / 1e9:.3f} GMAC an image forward, x3 for "
+        f"training, at {BF16_TENSOR_FLOPS / 1e12} TFLOP/s bf16), share "
+        f"{bound_ms / ms:.4f}; peak device memory {steady_peak} bytes")
+    profile = profile_device(f"one ResNet-50 step batch {RESNET_BATCH}", step,
+                             keep_all=True)
+    transposes = [row for row in profile["top_all"]
+                  if re.search(r"transpose|nchwToNhwc|nhwcToNchw",
+                               row[0], re.I)]
+    kinds = {}
+    for key, us, _ in profile.pop("top_all"):
+        kind = next((k for k, pattern in RESNET_KERNEL_KINDS
+                     if re.search(pattern, key)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    log(f"[resnet] (c) device us by kind in the profiled step: {kinds}; "
+        f"transpose kernels: {transposes}")
+    profile["by_kind_us"] = kinds
+    profile["transposes"] = transposes
+    return {"losses": losses, "step_ms": ms, "step_runs_ms": event_ms,
+            "step_host_ms": statistics.median(host_ms), "img_per_s": img_s,
+            "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+            "train_tflop": flops / 1e12, "layers": counts,
+            "peak_device_bytes": max(peak, steady_peak),
+            "first_steps_s": first_steps_s, "profile": profile,
+            "hand_kernel_launches": [a - b for a, b in zip(after, before)]}
+
+
+def phase_lstm_bench_forward():
+    """One LSTM layer's forward at the bench's training shape (T=256,
+    N=64, H=1024, fp32): the port's input projection plus the sequence
+    kernel, and cuDNN's ``torch.nn.LSTM`` (which computes the projection
+    too) on the same inputs, in turns; the bound of the recurrence's
+    products."""
+    from mxnet_tpu_torch.ops.cuda.lstm import lstm_sequence_fused
+    steps, n = TRAIN_T, TRAIN_N
+    xproj, h0, c0, w = sequence_inputs(steps, n, H, torch.float32, seed=41)
+    rng = np.random.RandomState(43)
+    x_in = torch.tensor(rng.normal(0, 1, (steps, n, H)), dtype=torch.float32,
+                        device="cuda")
+    w_i2h = torch.tensor(rng.uniform(-0.05, 0.05, (4 * H, H)),
+                         dtype=torch.float32, device="cuda")
+    bias = torch.tensor(rng.uniform(-0.05, 0.05, (4 * H,)),
+                        dtype=torch.float32, device="cuda")
+    cudnn = torch.nn.LSTM(H, H, 1).cuda()
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_i2h)
+        cudnn.weight_hh_l0.copy_(w)
+        cudnn.bias_ih_l0.copy_(bias)
+        cudnn.bias_hh_l0.zero_()
+
+    def port():
+        xp = torch.matmul(x_in.reshape(steps * n, H), w_i2h.t()) + bias
+        return lstm_sequence_fused(xp.reshape(steps, n, 4 * H), h0, c0, w)
+
+    runs = {"projection_plus_kernel_ms": [], "kernel_ms": [],
+            "cudnn_lstm_ms": []}
+    with torch.no_grad():
+        err = (port()[0] - cudnn(x_in, (h0[None], c0[None]))[0]).abs().max()
+        for _ in range(3):
+            runs["projection_plus_kernel_ms"].append(time_on_stream(port,
+                                                                    iters=5))
+            runs["cudnn_lstm_ms"].append(time_on_stream(
+                lambda: cudnn(x_in, (h0[None], c0[None])), iters=5))
+            runs["kernel_ms"].append(time_on_stream(
+                lambda: lstm_sequence_fused(xproj, h0, c0, w), iters=5))
+    row = {k: statistics.median(v) for k, v in runs.items()}
+    row["runs"] = runs
+    row["port_vs_cudnn_max_abs"] = float(err)
+    row["bound_ms"], row["bound_by"] = sequence_bound_ms(steps, n, H, 4)
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    log(f"[timing] one LSTM layer forward at the bench's training shape "
+        f"T={steps} N={n} H={H} fp32, in turns (median of 3 rounds): the "
+        f"port's projection plus sequence kernel "
+        f"{row['projection_plus_kernel_ms'] * 1e3:.1f} us, the kernel alone "
+        f"{row['kernel_ms'] * 1e3:.1f} us (bound {row['bound_ms'] * 1e3:.1f} "
+        f"us by {row['bound_by']}, share {row['share_of_bound']:.3f}), "
+        f"cuDNN's LSTM with its projection {row['cudnn_lstm_ms'] * 1e3:.1f} "
+        f"us; outputs agree to {float(err):.2e}; rounds {runs}")
+    if not float(err) <= SEQ_FP32_TOL:
+        raise RuntimeError(f"the port's LSTM layer and cuDNN's disagree at "
+                           f"the bench shape: {float(err)}")
+    return row
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
@@ -3040,6 +3582,13 @@ def main():
     tf_train = phase_tf_train()
     tf_train["gradients_card_vs_cpu"] = tf_grads
     att_bwd_timing = phase_attention_backward_timing()
+    lstm_bench_forward = phase_lstm_bench_forward()
+    cnn_errs = phase_cnn_ops()
+    resnet_grads = phase_resnet_card_vs_cpu()
+    resnet = phase_resnet_train()
+    resnet["ops_card_vs_cpu"] = cnn_errs
+    resnet["card_vs_cpu"] = resnet_grads
+    log("[resnet] phase 13: " + json.dumps(resnet))
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -3070,6 +3619,7 @@ def main():
         "prob_err_card_vs_cpu": prob_err,
         "peak_device_bytes": peak,
         "profile": profiled,
+        "bench_training_shape_forward": lstm_bench_forward,
     }
     # the per-step kernel's numbers at its path's shape, the wide LM's
     cell = cells[(1, WIDE_H)]

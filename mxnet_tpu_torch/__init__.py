@@ -18,7 +18,10 @@ compiled to CUDA with NVRTC on the card. It trains symbol graphs: the
 executor's backward (autograd, with the LSTM's backward a hand-written
 kernel), ``mod.Module`` with ``fit``, ``init`` (the initializers),
 ``metric``, ``io`` (``NDArrayIter``), ``callback``, ``model``
-(checkpoints) and ``random``.
+(checkpoints) and ``random``; the CNN layer ops (cuDNN convolutions,
+pooling, batch normalisation) and the JAX package's model zoo
+(``models.get_symbol``: ResNet, ResNeXt, MobileNet, VGG, AlexNet, LeNet,
+the MLP, GoogLeNet and the Inceptions).
 """
 from . import (c_predict, callback, convert, initializer, io,  # noqa: F401
                lr_scheduler, metric, model, models, module, ndarray,

@@ -7,7 +7,9 @@ accelerator where there is none raises :class:`MXNetError`: nothing falls
 back to the CPU. The first time a context hands out a CUDA device, TF32 is
 turned off for matmuls and cuDNN, so every fp32 product on the card
 (``nd.dot``, the Predictor, ``TransformerLM.logits``) computes in fp32, as
-on the CPU.
+on the CPU, and cuDNN's autotuner is turned on: each convolution shape
+times cuDNN's algorithms at its first call and keeps the fastest, as the
+reference autotunes by default (``MXNET_CUDNN_AUTOTUNE_DEFAULT=1``).
 """
 from __future__ import annotations
 
@@ -85,12 +87,13 @@ _TF32_OFF = False
 
 
 def _fp32_products():
-    """Turn TF32 off once, before the first CUDA device is handed out
-    (cuDNN convolutions default to TF32)."""
+    """Turn TF32 off (cuDNN convolutions default to TF32) and cuDNN's
+    autotuner on, once, before the first CUDA device is handed out."""
     global _TF32_OFF
     if not _TF32_OFF:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
         _TF32_OFF = True
 
 

@@ -1,0 +1,15 @@
+"""MLP symbol (reference: example/image-classification/symbols/mlp.py)."""
+from __future__ import annotations
+
+from .. import symbol as sym
+
+
+def get_symbol(num_classes=10, **kwargs):
+    data = sym.Variable("data")
+    data = sym.Flatten(data=data)
+    fc1 = sym.FullyConnected(data=data, name="fc1", num_hidden=128)
+    act1 = sym.Activation(data=fc1, name="relu1", act_type="relu")
+    fc2 = sym.FullyConnected(data=act1, name="fc2", num_hidden=64)
+    act2 = sym.Activation(data=fc2, name="relu2", act_type="relu")
+    fc3 = sym.FullyConnected(data=act2, name="fc3", num_hidden=num_classes)
+    return sym.SoftmaxOutput(data=fc3, name="softmax")

@@ -1,17 +1,27 @@
-"""Neural-network layer ops of the LSTM LM graph.
+"""Neural-network layer ops of the LSTM LM and the CNN model zoo.
 
 Counterpart of the matching ops in ``mxnet_tpu/ops/nn_ops.py``:
-FullyConnected, softmax and SoftmaxOutput. These are plain torch: the
-product goes to ``torch.matmul`` as the JAX package left it to XLA, and
-autograd differentiates it. SoftmaxOutput's backward is its own
+FullyConnected, Convolution, Pooling, BatchNorm, LRN, Activation, Dropout,
+softmax and SoftmaxOutput. The JAX package left these to XLA, so here they
+are torch calls: products go to cuBLAS (``torch.matmul``), convolutions to
+cuDNN (``torch.nn.functional.conv*d``), pooling and batch normalisation to
+torch's own kernels, and autograd differentiates them. Channel-last
+layouts (``NHWC`` and the others) hand those calls permuted views whose
+memory is torch's ``channels_last``, so no layout copy is made; weights
+keep the JAX package's stored layout (OHWI for NHWC) and ``.params`` files
+stay interchangeable. SoftmaxOutput's backward is its own
 ``torch.autograd.Function``: a loss layer's gradient that ignores the head
 gradient, as the JAX package's custom VJP does.
 """
 from __future__ import annotations
 
-import torch
+import math
 
-from ..base import AttrSpec
+import torch
+import torch.nn.functional as F
+
+from .. import random as _random
+from ..base import AttrSpec, MXNetError
 from .registry import register
 
 
@@ -46,6 +56,292 @@ def _fully_connected(*args, num_hidden, no_bias=False, flatten=True):
     if not no_bias:
         out = out + args[2].to(data.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Convolution (mxnet_tpu/ops/nn_ops.py:66-146)
+# ---------------------------------------------------------------------------
+
+_CONV_SPEC = AttrSpec(
+    kernel=("tuple",), stride=("tuple", ()), dilate=("tuple", ()),
+    pad=("tuple", ()), num_filter=("int",), num_group=("int", 1),
+    workspace=("int", 1024), no_bias=("bool", False),
+    cudnn_tune=("str", None), cudnn_off=("bool", False),
+    layout=("str", None), adj=("tuple", ()), target_shape=("tuple", ()),
+)
+
+_CONV_FN = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _channel_last(layout):
+    """True for the ``N*C`` layouts (NWC, NHWC, NDHWC); None and the
+    ``NC*`` layouts are channel-first."""
+    if layout is None or layout == "None":
+        return False
+    layout = str(layout)
+    if layout in ("NCW", "NCHW", "NCDHW"):
+        return False
+    if layout in ("NWC", "NHWC", "NDHWC"):
+        return True
+    raise MXNetError(f"unsupported conv layout {layout}")
+
+
+def _to_channel_first(x):
+    """(N, *spatial, C) as an (N, C, *spatial) view: no copy, and for 4-D
+    and 5-D tensors torch's channels_last memory format."""
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _to_channel_last(x):
+    """The inverse view of :func:`_to_channel_first`."""
+    return x.permute(0, *range(2, x.dim()), 1)
+
+
+def _norm_spatial(t, n, default):
+    t = tuple(t) if t else ()
+    return t if len(t) == n else (default,) * n
+
+
+def _conv_param_shapes(attrs, shapes):
+    d = shapes[0]
+    nf = int(attrs["num_filter"])
+    g = int(attrs.get("num_group", 1) or 1)
+    kernel = tuple(attrs["kernel"])
+    if _channel_last(attrs.get("layout")):
+        w = (nf,) + kernel + (d[-1] // g,)
+    else:
+        w = (nf, d[1] // g) + kernel
+    out = [d, w]
+    if len(shapes) > 2:
+        out.append((nf,))
+    return out
+
+
+@register("Convolution",
+          num_inputs=None, input_names=["data", "weight", "bias"],
+          param_shapes=_conv_param_shapes,
+          attrs=_CONV_SPEC)
+def _convolution(*args, kernel, stride=(), dilate=(), pad=(), num_filter=0,
+                 num_group=1, workspace=1024, no_bias=False, cudnn_tune=None,
+                 cudnn_off=False, layout=None, adj=(), target_shape=()):
+    """1-, 2- and 3-D convolution, grouped and dilated, through cuDNN on
+    the card. The weight is cast to the data's dtype; an ``N*C`` layout
+    runs on channels_last views of data and weight (OHWI read as OIHW)."""
+    data, weight = args[0], args[1]
+    nsp = len(kernel)
+    if nsp not in _CONV_FN or data.dim() != nsp + 2:
+        raise MXNetError(f"Convolution: kernel {tuple(kernel)} over data of "
+                         f"shape {tuple(data.shape)}")
+    weight = weight.to(data.dtype)
+    bias = None if no_bias else args[2].to(data.dtype)
+    last = _channel_last(layout)
+    if last:
+        data, weight = _to_channel_first(data), _to_channel_first(weight)
+    out = _CONV_FN[nsp](data, weight, bias,
+                        stride=_norm_spatial(stride, nsp, 1),
+                        padding=_norm_spatial(pad, nsp, 0),
+                        dilation=_norm_spatial(dilate, nsp, 1),
+                        groups=num_group)
+    return _to_channel_last(out) if last else out
+
+
+# ---------------------------------------------------------------------------
+# Pooling (mxnet_tpu/ops/nn_ops.py:205-253)
+# ---------------------------------------------------------------------------
+
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool_padding(size, kernel, stride, pad, full):
+    """(low, high) padding of each spatial dim, as the JAX op pads: the
+    symmetric ``pad``, and with ``pooling_convention='full'`` extra cells
+    on the high side so that the output has the ceil size."""
+    out = []
+    for n, k, s, p in zip(size, kernel, stride, pad):
+        hi = p
+        if full:
+            padded = n + 2 * p
+            out_full = int(math.ceil((padded - k) / s)) + 1
+            hi += max(0, (out_full - 1) * s + k - padded)
+        out.append((p, hi))
+    return out
+
+
+@register("Pooling",
+          attrs=AttrSpec(kernel=("tuple", ()), pool_type=("str", "max"),
+                         global_pool=("bool", False),
+                         pooling_convention=("str", "valid"),
+                         stride=("tuple", ()), pad=("tuple", ()),
+                         cudnn_off=("bool", False), layout=("str", None)))
+def _pooling(data, kernel=(), pool_type="max", global_pool=False,
+             pooling_convention="valid", stride=(), pad=(), cudnn_off=False,
+             layout=None):
+    """max, avg and sum pooling over 1-3 spatial dims. Padded cells count
+    in the avg divisor, which is always the whole kernel, padded and
+    'full'-convention cells included (``divisor_override``); max pooling's
+    gradient goes to the first largest element of a window in row-major
+    order, as the JAX op's. avg and sum pooling pad explicitly (zeros):
+    torch's CUDA backward of a padded avg pool over channels_last memory
+    (torch 2.11) sends wrong gradients to the cells next to the padding.
+    Max pooling takes torch's padding argument where torch can express
+    it (at most half the kernel, both sides alike) and pads with -inf
+    otherwise (the 'full' convention's extra high cells)."""
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError(f"unknown pool_type {pool_type}")
+    nsp = data.dim() - 2
+    last = layout is not None and str(layout).endswith("C") \
+        and not str(layout).startswith("NC")
+    x = _to_channel_first(data) if last else data
+    if global_pool:
+        kernel = tuple(x.shape[2:])
+        stride = (1,) * nsp
+        pad = (0,) * nsp
+    kernel = tuple(kernel)
+    stride = _norm_spatial(stride, nsp, 1)
+    pad = _norm_spatial(pad, nsp, 0)
+    padding = _pool_padding(x.shape[2:], kernel, stride, pad,
+                            pooling_convention == "full" and not global_pool)
+    if nsp == 1:  # 1-D runs as 2-D over a unit height
+        x, kernel, stride = x.unsqueeze(2), (1,) + kernel, (1,) + stride
+        padding = [(0, 0)] + padding
+    torch_pad = (0,) * len(kernel)
+    if pool_type == "max" and all(lo == hi and 2 * lo <= k for (lo, hi), k
+                                  in zip(padding, kernel)):
+        torch_pad = tuple(lo for lo, _ in padding)
+    elif any(lo or hi for lo, hi in padding):
+        fill = -math.inf if pool_type == "max" else 0.0
+        flat = [p for lo_hi in reversed(padding) for p in lo_hi]
+        x = F.pad(x, flat, value=fill)
+    if pool_type == "max":
+        out = _MAX_POOL[len(kernel)](x, kernel, stride, torch_pad)
+    else:
+        divisor = math.prod(kernel) if pool_type == "avg" else 1
+        out = _AVG_POOL[len(kernel)](x, kernel, stride, torch_pad,
+                                     divisor_override=divisor)
+    if nsp == 1:
+        out = out.squeeze(2)
+    return _to_channel_last(out) if last else out
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm and LRN (mxnet_tpu/ops/nn_ops.py:282-386)
+# ---------------------------------------------------------------------------
+
+
+def _bn_nout(attrs):
+    return 3 if attrs.get("output_mean_var") in (True, "True", "1") else 1
+
+
+def _bn_param_shapes(attrs, shapes):
+    d = shapes[0]
+    axis = int(attrs.get("axis", 1) or 1) % len(d)
+    c = (d[axis],)
+    return [d, c, c, c, c]
+
+
+@register("BatchNorm",
+          num_inputs=5,
+          input_names=["data", "gamma", "beta", "moving_mean", "moving_var"],
+          num_outputs=_bn_nout,
+          needs_is_train=True,
+          aux_inputs=(3, 4),
+          param_shapes=_bn_param_shapes,
+          aux_update={1: 3, 2: 4},  # written back into moving_mean/var
+          attrs=AttrSpec(eps=("float", 1e-3), momentum=("float", 0.9),
+                         fix_gamma=("bool", True),
+                         use_global_stats=("bool", False),
+                         output_mean_var=("bool", False),
+                         axis=("int", 1), cudnn_off=("bool", False)))
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                _is_train=False):
+    """Batch normalisation over every axis but ``axis``, as one fused
+    torch call (``torch.native_batch_norm``) and its fused backward: it
+    keeps the input and two per-channel vectors for the gradient, no
+    intermediate of activation size. Training reads the batch's
+    statistics, in fp32 for every data dtype; eval mode and
+    ``use_global_stats`` read the moving ones. ``fix_gamma`` reads gamma as
+    ones, so gamma's gradient is exactly 0. Returns the output and the new
+    moving mean and variance, ``momentum * old + (1 - momentum) * batch``
+    over the biased batch variance (not torch's running-stat convention),
+    computed apart from the graph; the executor writes them back in
+    training, and ``output_mean_var`` makes them visible outputs."""
+    axis = axis % data.dim()
+    # NHWC's channel axis last: a channels_last view, no copy
+    x = data.movedim(axis, 1)
+    # parameters in fp32 under bf16 and fp16 data
+    pdt = (torch.float32 if data.dtype in (torch.bfloat16, torch.float16)
+           else data.dtype)
+    g = gamma.new_ones(gamma.shape, dtype=pdt) if fix_gamma else gamma.to(pdt)
+    b = beta.to(pdt)
+    if _is_train and not use_global_stats:
+        out, mean, invstd = torch.native_batch_norm(
+            x, g, b, None, None, True, 0.0, eps)
+        with torch.no_grad():
+            # the biased batch variance, from the kernel's 1/sqrt(var + eps)
+            var = torch.clamp(invstd.pow(-2) - eps, min=0.0)
+            new_mean = momentum * moving_mean + (1 - momentum) * mean
+            new_var = momentum * moving_var + (1 - momentum) * var
+    else:
+        out, _, _ = torch.native_batch_norm(
+            x, g, b, moving_mean.to(pdt), moving_var.to(pdt), False, 0.0, eps)
+        new_mean, new_var = moving_mean, moving_var
+    return out.movedim(1, axis), new_mean, new_var
+
+
+@register("LRN", attrs=AttrSpec(alpha=("float", 1e-4), beta=("float", 0.75),
+                                knorm=("float", 2.0), nsize=("int",),
+                                axis=("int", 1)))
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, axis=1):
+    """Local response normalisation across ``nsize`` neighbours along
+    ``axis`` (the JAX package's extension: NHWC models pass -1)."""
+    axis = axis % data.dim()
+    half = nsize // 2
+    sq = torch.movedim(data * data, axis, -1)
+    ssum = F.pad(sq, (half, half)).unfold(-1, nsize, 1).sum(-1)
+    ssum = torch.movedim(ssum, -1, axis)
+    return data / torch.pow(knorm + alpha / nsize * ssum, beta)
+
+
+# ---------------------------------------------------------------------------
+# Activation and Dropout (mxnet_tpu/ops/nn_ops.py:392-448)
+# ---------------------------------------------------------------------------
+
+
+@register("Activation", attrs=AttrSpec(act_type=("str",)))
+def _activation(data, act_type):
+    """relu, sigmoid, tanh, softrelu and softsign. relu's gradient at an
+    input of exactly 0 is 0, as in the reference's ``relu_grad``
+    (jnp.maximum's splits it, 0.5)."""
+    if act_type == "relu":
+        return torch.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return F.softplus(data)
+    if act_type == "softsign":
+        return data / (1 + torch.abs(data))
+    raise MXNetError(f"unknown act_type {act_type}")
+
+
+@register("Dropout", needs_rng=True, needs_is_train=True,
+          attrs=AttrSpec(p=("float", 0.5), mode=("str", "training")))
+def _dropout(rng, data, p=0.5, mode="training", _is_train=False):
+    """Zero each element with probability ``p`` and scale the rest by
+    1/(1 - p), drawing from ``rng`` (the device's ``random.generator``),
+    in training or with ``mode='always'``; the identity otherwise and for
+    ``p <= 0``."""
+    if (not _is_train and mode != "always") or p <= 0:
+        return data
+    keep = 1.0 - p
+    if rng is None and data.device.type != "meta":
+        rng = _random.generator(data.device)
+    mask = torch.rand(data.shape, generator=rng, device=data.device) < keep
+    return torch.where(mask, data / keep, 0)
 
 
 @register("softmax", attrs=AttrSpec(axis=("int", -1),

@@ -218,6 +218,49 @@ class Symbol:
         name = self.name
         return f"<Symbol {name if name else 'group [' + ', '.join(self.list_outputs()) + ']'}>"
 
+    # -- arithmetic (the JAX package's table-driven dispatch) -----------------
+    def _binop(self, other, op, scalar_op):
+        if isinstance(other, Symbol):
+            return symbol_invoke(get_op(op), [self, other], {}, None)
+        if isinstance(other, (int, float)):
+            return symbol_invoke(get_op(scalar_op), [self],
+                                 {"scalar": other}, None)
+        return NotImplemented
+
+    def __add__(self, other):
+        return self._binop(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        if isinstance(other, (int, float)):
+            return symbol_invoke(get_op("_rminus_scalar"), [self],
+                                 {"scalar": other}, None)
+        return NotImplemented
+
+    def __mul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        if isinstance(other, (int, float)):
+            return symbol_invoke(get_op("_rdiv_scalar"), [self],
+                                 {"scalar": other}, None)
+        return NotImplemented
+
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return symbol_invoke(get_op("negative"), [self], {}, None)
+
     # -- shape inference -----------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the shapes given
@@ -505,7 +548,7 @@ def symbol_invoke(opdef: OpDef, inputs: Sequence[Symbol], attrs: Dict,
 
 
 def _expected_inputs(opdef: OpDef, attrs: Dict) -> int:
-    if opdef.name == "FullyConnected":
+    if opdef.name in ("Convolution", "FullyConnected"):
         return 2 if attrs.get("no_bias") else 3
     return len(opdef.input_names or ["data"])
 

@@ -27,6 +27,16 @@ the shared-memory kernel and the plain loop on the card, and prints
 each step's loss and the largest gradient and parameter magnitudes: where
 the three agree and where the run diverges.
 
+    python3 tools/probe_lstm_bwd.py handoff
+
+runs that training through the plain backward on the card for its fit
+epoch and 6 steps, then hands each later step's state (to step 10) to the
+backward kernels and to the plain backward, after one forward: it prints
+each route's non-finite gradients, largest gradient magnitudes and their
+difference, and updates with the plain backward's gradients. A step where
+only the kernels' gradients are non-finite would be a fault of the
+kernels.
+
 ``build_probe(p)`` builds ``csrc/lstm_cell.cu`` with ``-DMXT_BWD_PROBE=p``
 and the package's flags into ``build/probe_lstm_bwd/``, named by the hash
 that names the package's build of the source and by p, so a build is
@@ -141,6 +151,9 @@ extern "C" const char* error_string(int err) {
 
 # MXT_BWD_PROBE values of the probe builds: what each skips
 PROBES = {1: "no_product", 2: "no_copy"}
+# ``handoff``: the bench-lr steps through the plain backward on the card up
+# to this one; each later step's backward runs through both routes
+HANDOFF_FROM = 6
 
 
 def probe_library_path(probe):
@@ -328,12 +341,69 @@ def bench_lr():
     print(nvidia_smi())
 
 
+def handoff():
+    import torch
+
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_lstm_bwd: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = cs.build_lm(mx, cs.V, cs.H, cs.LAYERS, cs.TRAIN_T, train=True)
+    data, label, batch = cs.train_data(mx)
+    state = {}
+
+    def keep(step, loss, mod):
+        state["mod"] = mod
+
+    with cs.plain_backward_on_card():
+        cs.bench_lr_run(mx, net, data, label, batch, HANDOFF_FROM,
+                        on_step=keep)
+    mod = state["mod"]
+    grads = mod._exec.grad_dict
+    rows = []
+    for step in range(HANDOFF_FROM + 1, cs.TRAIN_STEPS + 1):
+        params = [v._data for v in mod.get_params()[0].values()]
+        mod.forward(batch, is_train=True)
+        by_route = {}
+        for route in ("kernel", "plain"):
+            if route == "kernel":
+                mod.backward()
+            else:
+                with cs.plain_backward_on_card():
+                    mod.backward()
+            by_route[route] = {n: g._data.clone() for n, g in grads.items()}
+        row = {"step": step,
+               "params_finite": all(bool(torch.isfinite(p).all())
+                                    for p in params),
+               "loss": cs.cross_entropy(mx, mod, batch)}
+        for route, g in by_route.items():
+            row[f"{route}_non_finite"] = [
+                n for n, v in g.items() if not bool(torch.isfinite(v).all())]
+            row[f"{route}_max_abs"] = {
+                n: float(v.abs().max()) for n, v in g.items()}
+        row["kernel_vs_plain_rel"] = {
+            n: float((by_route["kernel"][n] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30))
+            for n, v in by_route["plain"].items()}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        mod.update()  # the plain backward's gradients, the last written
+    faults = [r["step"] for r in rows
+              if r["kernel_non_finite"] and not r["plain_non_finite"]]
+    print(json.dumps({"handoff_from_step": HANDOFF_FROM,
+                      "steps_where_only_the_kernel_is_non_finite": faults}))
+    print(nvidia_smi())
+
+
 def main():
     what = sys.argv[1] if len(sys.argv) > 1 else "launch-check"
     if what == "launch-check":
         launch_check()
     elif what == "bench-lr":
         bench_lr()
+    elif what == "handoff":
+        handoff()
     else:
         raise SystemExit(f"probe_lstm_bwd: unknown mode {what!r}")
 
