@@ -156,10 +156,27 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    steps (CUDA events), img/s against the bound of the symbol's
    convolution and fully connected products (2 x 3 x MACs at 989.4
    TFLOP/s bf16), peak memory, and one profiled step by kernel and by
-   kind, with any transpose kernel named.
+   kind, with any transpose kernel named. Phases 11 and 13 run under
+   ``MXTPU_FUSED_STEP=0``: ``fit`` on forward_backward and update,
+   ``Module.update`` one updater call a parameter (the classic path);
+14. the fused training step (``perf.module_stepper(mod,
+   compute_dtype="bfloat16")``, one CUDA graph captured after a warm-up
+   and replayed a step) on (a) the LSTM LM at the bench's training shape
+   (lr 0.5 / T) and (b) ResNet-50 at ``bench.py``'s configuration: 10
+   steps on one batch with exactly one capture, every loss finite and
+   the last below the first (ResNet: its moving statistics moved), B1's
+   wrappers called only in the warm-up and the capture and its kernels
+   counted by name in a profiled replay (2 + 2), 7 timed steps (CUDA
+   events), device busy, idle share, peak memory; beside them, from the
+   same seeded init, 3 replayed steps against the same body run eagerly
+   on the card, fp32 fused steps against forward/backward/update, and
+   ``Module.update``'s fused path against the per-parameter updater,
+   and the classic step's time (with the fused update) in the same run;
+   (c) one ``Module.fit`` epoch that takes the fused step, then
+   ``get_params`` and ``save_optimizer_states``.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
-training path, 12c and 13c) sets its kernels' launch counts to 0 (13c:
+training path, 12c, 13c and 14a) sets its kernels' launch counts to 0 (13c:
 reads them) just before it runs and reads them just after, and fails if
 a kernel of the path was not launched (13c: if any hand-written kernel
 was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
@@ -1854,7 +1871,69 @@ def phase_train_kernels():
                                       if label != "cell_backward" else [])
                     for k in keys:
                         errs[k][key] = max(errs[k][key], *worst)
+    errs["mixed"] = mixed_dtype_check()
     return errs, plans
+
+
+def mixed_dtype_check():
+    """B1's wrappers at the dtypes the fused bf16 LSTM step gives them
+    (phase 14): fp32 xproj, h0 and c0 with a bf16 w_h2h, which they widen
+    to fp32 for the kernels, at the main path's shape, both directions.
+    Held to the plain versions on the same card tensors: the training
+    forward, dxproj, dh0 and dc0 at the fp32 tolerance; dw, which the
+    plain version sums in bf16 step by step and the kernel route in fp32
+    once, against the fp32 sum of the plain version's dgates at two bf16
+    ulps. Returns the worst errors."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    (xproj, h0, c0, w), (dout, dh_last, dc_last) = backward_case(
+        TRAIN_T, TRAIN_N, H, torch.float32, seed=17)
+    w = w.to(torch.bfloat16)
+    errs = {"forward_fp32": 0.0, "backward_fp32": 0.0, "dw_bf16_ulps": 0.0}
+    for reverse in (False, True):
+        saved = L.lstm_sequence_train(xproj, h0, c0, w, reverse)
+        plain = L.lstm_sequence_train_plain(xproj, h0, c0, w, reverse)
+        torch.cuda.synchronize()
+        checks = list(zip(("out", "hT", "cT", "gates", "cs"), saved, plain))
+        out, _, _, gates, cs = saved
+        case = (dout, dh_last, dc_last, gates, cs, out, h0, c0, w)
+        before = train_counts()
+        got = L.lstm_sequence_backward(*case, reverse=reverse)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(train_counts(), before))
+        if moved != (0, 1, 1, 0, 0):
+            raise RuntimeError(f"mixed-dtype backward launched {moved}, "
+                               "expected the register kernel once")
+        want = L.lstm_sequence_backward_plain(*case, reverse=reverse)
+        h_prev = (torch.cat([out[1:], h0[None]]) if reverse
+                  else torch.cat([h0[None], out[:-1]]))
+        checks += list(zip(("dxproj", "dh0", "dc0"), got[:3], want[:3]))
+        checks.append(("dw", got[3], want[3]))
+        for name, g, p in checks:
+            if g.dtype != p.dtype or g.shape != p.shape:
+                raise RuntimeError(f"mixed-dtype {name}: {g.dtype} "
+                                   f"{tuple(g.shape)}, plain {p.dtype} "
+                                   f"{tuple(p.shape)}")
+            if name == "dw":
+                p = torch.einsum("tnk,tnh->kh", want[0], h_prev.float())
+                err, tol = max_err_against(g, p, "bf16", name)
+                key, value = "dw_bf16_ulps", 2 * err / tol
+            else:
+                err, tol = max_err_against(g, p, "fp32", name)
+                key = ("forward_fp32" if name in ("out", "hT", "cT", "gates",
+                                                  "cs") else "backward_fp32")
+                value = err
+            if not err <= tol:
+                raise RuntimeError(
+                    f"mixed-dtype T={TRAIN_T} N={TRAIN_N} H={H} "
+                    f"reverse={reverse} {name} disagrees with the plain "
+                    f"version: {err} > {tol}")
+            errs[key] = max(errs[key], value)
+    log(f"[train-kernels] fp32 states with a bf16 w_h2h, T={TRAIN_T} "
+        f"N={TRAIN_N} H={H}, both directions: training forward "
+        f"{errs['forward_fp32']:.3e}, dxproj/dh0/dc0 "
+        f"{errs['backward_fp32']:.3e} (tol {SEQ_FP32_TOL}), dw "
+        f"{errs['dw_bf16_ulps']:.3f} bf16 ulps against the fp32 sum (tol 2)")
+    return errs
 
 
 def phase_train_card_vs_cpu():
@@ -2381,6 +2460,14 @@ def train_records(kerrs, plans, grad_errs, bench, wide_launches, timing,
         "max_err_bf16_ulps": kerrs["register"]["bf16_ulps"],
         "max_err_bf16_ulps_shared_kernel": kerrs["shared"]["bf16_ulps"],
         "training_forward_max_err": kerrs["forward"],
+        "mixed_dtype_max_err": kerrs["mixed"],
+        "mixed_dtype_note": "fp32 xproj, h0 and c0 with a bf16 w_h2h (the "
+                            "fused bf16 step's dtypes, phase 14), T="
+                            f"{TRAIN_T} N={TRAIN_N} H={H}, both directions, "
+                            "against the plain versions: forward and "
+                            "dxproj/dh0/dc0 absolute (tol "
+                            f"{SEQ_FP32_TOL}), dw in bf16 ulps against the "
+                            "fp32 sum of the plain dgates (tol 2)",
         "share_of_bound": main["share_of_bound"],
         "by_shape": timing,
         "train": {k: bench[k] for k in (
@@ -3551,6 +3638,350 @@ def phase_lstm_bench_forward():
     return row
 
 
+# -- the fused training step (phase 14) ----------------------------------------
+
+# steps through the fused step on one repeated batch (one capture), the
+# steps of each comparison, and the timed steps (a median of them)
+FUSED_STEPS, FUSED_CHECK_STEPS, FUSED_TIMED = 10, 3, 7
+# compute_dtype=None fused steps against the classic forward/backward/update
+# path on the card, and Module.update's fused path against the per-parameter
+# updater: fp32 on both sides, the same kernels; only summation order may
+# differ (a library may pick another algorithm for a call). Each parameter
+# within 1e-5 of the model's largest parameter magnitude
+FUSED_VS_CLASSIC_TOL = 1e-5
+# the replayed step against the same body run eagerly on the card: the graph
+# replays the kernels the eager body launched. The LSTM LM's must agree bit
+# for bit; the ResNet's cuDNN backward-filter algorithms may sum in another
+# order from run to run, held as FUSED_VS_CLASSIC_TOL
+REPLAY_TOL = {"lstm": 0.0, "resnet": FUSED_VS_CLASSIC_TOL}
+# B1's kernels in one replayed LSTM step, by the profiler's kernel names
+B1_KERNELS = {"lstm_seq_kernel": LAYERS, "lstm_seq_bwd_reg_kernel": LAYERS}
+
+
+@contextlib.contextmanager
+def fused_path(enabled):
+    """``MXTPU_FUSED_STEP`` set to ``enabled`` (1 or 0) inside: 0 keeps
+    ``Module.fit`` on forward_backward and update and ``Module.update`` on
+    the per-parameter updater, the classic path phases 11 and 13 time."""
+    old = os.environ.get("MXTPU_FUSED_STEP")
+    os.environ["MXTPU_FUSED_STEP"] = str(int(enabled))
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MXTPU_FUSED_STEP"]
+        else:
+            os.environ["MXTPU_FUSED_STEP"] = old
+
+
+def params_of(mod):
+    return {n: a._data.detach().clone() for n, a in mod.get_params()[0].items()}
+
+
+def params_err(got, want):
+    """The largest parameter difference over the model's largest parameter
+    magnitude, and whether every parameter agrees bit for bit."""
+    largest = max(float(w.abs().max()) for w in want.values())
+    err = max(float((got[n] - w).abs().max()) for n, w in want.items())
+    return err / largest, all(torch.equal(got[n], w) for n, w in want.items())
+
+
+def replay_counts(profile, names):
+    """Kernel launches in a profiled window, by the first name each kernel's
+    name contains."""
+    counts = {n: 0 for n in names}
+    for key, _, count in profile["top_all"]:
+        for n in names:
+            if n + "<" in key or key.endswith(n) or n + "(" in key:
+                counts[n] += count
+                break
+    return counts
+
+
+def timed_steps(step, steps=FUSED_TIMED):
+    """The median of ``steps`` steps (CUDA events) after one more that is
+    not kept, and the host clock's median."""
+    event_ms, host_ms = [], []
+    for _ in range(steps + 1):
+        e, h = step_ms(step)
+        event_ms.append(e)
+        host_ms.append(h)
+    event_ms, host_ms = event_ms[1:], host_ms[1:]
+    return statistics.median(event_ms), event_ms, statistics.median(host_ms)
+
+
+def fused_module(mx, config, net, batch, sgd):
+    mx.random.seed(0)
+    mod = mx.mod.Module(net)  # the default context, gpu(0)
+    mod.bind(data_shapes=[("data", tuple(batch.data[0].shape))],
+             label_shapes=[("softmax_label", tuple(batch.label[0].shape))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=sgd)
+    return mod
+
+
+def fused_checks(mx, config, net, batch, sgd):
+    """The comparisons of phase 14 for one configuration, each from the same
+    seeded init: FUSED_CHECK_STEPS replayed steps against the same body run
+    eagerly on the card (compute_dtype bf16); fp32 fused steps against the
+    classic forward/backward/update; Module.update's fused path against the
+    per-parameter updater. Every module's graph is released before the
+    next is built."""
+    def run(step_fn, compute_dtype=None, fused=True):
+        with fused_path(fused):
+            mod = fused_module(mx, config, net, batch, sgd)
+            stepper = (mx.perf.module_stepper(mod, compute_dtype=compute_dtype)
+                       if step_fn in ("graph", "eager") else None)
+            for _ in range(FUSED_CHECK_STEPS):
+                if stepper is not None:
+                    stepper.step(batch, capture=step_fn == "graph")
+                else:
+                    mod.forward(batch, is_train=True)
+                    mod.backward()
+                    mod.update()
+            out = params_of(mod)
+            if stepper is not None:
+                captures = stepper.guard.count
+                stepper.release()
+            else:
+                apply = getattr(mod._updater, "_fused_apply", None)
+                captures = apply.guard.count if apply is not None else None
+        del mod, stepper
+        torch.cuda.empty_cache()
+        return out, captures
+
+    graph, captures = run("graph", "bfloat16")
+    eager, _ = run("eager", "bfloat16")
+    replay_err, replay_bits = params_err(graph, eager)
+    fused32, _ = run("graph")
+    classic, update_captures = run("classic")
+    classic_err, classic_bits = params_err(fused32, classic)
+    per_param, per_param_captures = run("classic", fused=False)
+    update_err, update_bits = params_err(classic, per_param)
+    out = {"replay_vs_eager_rel": replay_err, "replay_vs_eager_bitwise":
+           replay_bits, "captures_in_check": captures,
+           "fused_fp32_vs_classic_rel": classic_err,
+           "fused_fp32_vs_classic_bitwise": classic_bits,
+           "fused_update_vs_updater_rel": update_err,
+           "fused_update_vs_updater_bitwise": update_bits,
+           "fused_update_captures": update_captures}
+    log(f"[fused] {config}: {FUSED_CHECK_STEPS} steps each from one init: "
+        f"replayed against eager (bf16) {replay_err:.3g} of the largest "
+        f"parameter (bit for bit: {replay_bits}); fused fp32 against "
+        f"forward/backward/update {classic_err:.3g} ({classic_bits}); "
+        f"Module.update's fused path against the per-parameter updater "
+        f"{update_err:.3g} ({update_bits}; the fused update captured "
+        f"{update_captures} time(s))")
+    if captures != 1 or update_captures != 1:
+        raise RuntimeError(f"{config}: {captures} step and {update_captures} "
+                           "update captures, expected 1 each")
+    if per_param_captures is not None:
+        raise RuntimeError(f"{config}: MXTPU_FUSED_STEP=0 took the fused "
+                           "update")
+    if replay_err > REPLAY_TOL[config]:
+        raise RuntimeError(f"{config}: the replayed step is {replay_err} "
+                           "from the eager body")
+    for what, err in (("fused fp32 against classic", classic_err),
+                      ("fused update against updater", update_err)):
+        if not err <= FUSED_VS_CLASSIC_TOL:
+            raise RuntimeError(f"{config}: {what}: {err}")
+    return out
+
+
+def fused_main_path(mx, config, net, batch, sgd, loss, marks=None):
+    """The main path of phase 14 for one configuration: FUSED_STEPS steps
+    through module_stepper(compute_dtype="bfloat16") on the one batch,
+    exactly one capture, every loss finite and the last below the first;
+    then FUSED_TIMED timed steps, one profiled step (B1's kernels counted
+    by name in it), peak memory; and the classic path's FUSED_TIMED steps
+    (forward/backward/update, Module.update fused) in the same run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod = fused_module(mx, config, net, batch, sgd)
+    aux0 = {n: a.asnumpy() for n, a in mod.get_params()[1].items()}
+    stepper = mx.perf.module_stepper(mod, compute_dtype="bfloat16")
+    if stepper is None:
+        raise RuntimeError(f"{config}: module_stepper refused the module")
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(FUSED_STEPS):
+        stepper.step(batch)
+        losses.append(loss(mod))
+    first_s = time.perf_counter() - t0
+    if marks is not None:
+        marks.append(train_counts())  # the main path's run ends here
+    captures = stepper.guard.count
+    args, auxs = mod.get_params()
+    finite = all(bool(torch.isfinite(v._data).all())
+                 for v in list(args.values()) + list(auxs.values()))
+    moved = sum(not np.array_equal(a.asnumpy(), aux0[n])
+                for n, a in auxs.items())
+    log(f"[fused] {config}: {FUSED_STEPS} fused bf16 steps in {first_s:.2f} "
+        f"s (warm-up and capture included), {captures} capture(s), "
+        f"cross-entropy {[round(x, 5) for x in losses]}; parameters and "
+        f"moving statistics finite: {finite}; moving statistics moved: "
+        f"{moved} of {len(auxs)}")
+    if captures != 1:
+        raise RuntimeError(f"{config}: {captures} captures, expected 1")
+    if not (finite and all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"{config}: non-finite fused training {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{config}: the loss did not fall: {losses}")
+    if moved != len(auxs):
+        raise RuntimeError(f"{config}: {len(auxs) - moved} moving statistics "
+                           "did not move")
+    ms, runs, host = timed_steps(lambda: stepper.step(batch))
+    peak = torch.cuda.max_memory_allocated()
+    unread_ms = None
+    fused = stepper._fused
+    if fused._checks_ids:
+        # what the Embedding flag's read at each step's start costs: the
+        # same steps with the read left out (a diagnostic; the path reads)
+        fused.check_ids = lambda: None
+        unread_ms, _, _ = timed_steps(lambda: stepper.step(batch))
+        del fused.check_ids
+        fused.check_ids()
+    profile = profile_device(f"one fused {config} step",
+                             lambda: stepper.step(batch), keep_all=True)
+    kernels = replay_counts(profile, list(B1_KERNELS))
+    profile["replay_kernels"] = kernels
+    top_all = profile.pop("top_all")
+    profile["kernels_in_step"] = sum(row[2] for row in top_all)
+    if stepper.guard.count != 1:
+        raise RuntimeError(f"{config}: the timed steps captured again")
+    stepper.release()
+    del mod, stepper
+    torch.cuda.empty_cache()
+
+    with fused_path(True):  # forward/backward/update, Module.update fused
+        mod = fused_module(mx, config, net, batch, sgd)
+
+        def classic_step():
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+
+        classic_ms, classic_runs, _ = timed_steps(classic_step)
+        classic_profile = profile_device(f"one classic {config} step",
+                                         classic_step)
+    del mod
+    torch.cuda.empty_cache()
+    log(f"[fused] {config}: fused bf16 step median {ms:.3f} ms (CUDA events) "
+        f"of {[round(x, 3) for x in runs]}, host {host:.3f} ms; device busy "
+        f"{profile['device_busy_us'] / 1e3:.3f} ms, idle share "
+        f"{profile['idle_share']:.4f}, host reads {profile['host_reads']}; "
+        f"B1 kernels in the profiled replay {kernels}; peak {peak} bytes; "
+        f"without the Embedding flag's read {unread_ms} ms. "
+        f"Classic step (Module.update fused) median {classic_ms:.3f} ms, "
+        f"idle share {classic_profile['idle_share']:.4f}")
+    return {"losses": losses, "captures": captures, "step_ms": ms,
+            "step_runs_ms": runs, "step_host_ms": host,
+            "peak_device_bytes": peak, "profile": profile,
+            "step_ms_without_id_read": unread_ms,
+            "classic_fused_update_step_ms": classic_ms,
+            "classic_fused_update_runs_ms": classic_runs,
+            "classic_fused_update_profile": classic_profile,
+            "first_steps_s": first_s}
+
+
+def phase_fused_lstm(fit_check=True):
+    """(a) the LSTM LM at the bench's shape through the fused step, its
+    checks, and (c) a Module.fit epoch that takes it."""
+    import mxnet_tpu_torch as mx
+    net = build_lm(mx, V, H, LAYERS, TRAIN_T, train=True)
+    data, label, host_batch = train_data(mx)
+    batch = mx.io.DataBatch([mx.nd.array(host_batch.data[0].asnumpy())],
+                            [mx.nd.array(host_batch.label[0].asnumpy())])
+    sgd = dict(TRAIN_SGD, learning_rate=TRAIN_STEP_LR)
+    marks = []
+    zero_train_counts()  # the main path's run starts here
+    rec = fused_main_path(mx, "lstm", net, batch, sgd,
+                          lambda mod: cross_entropy(mx, mod, batch), marks)
+    rec["launches_outside_replays"] = marks[0]
+    if marks[0][:3] != (2 * LAYERS, 2 * LAYERS, 2 * LAYERS):
+        raise RuntimeError(f"B1's wrappers ran {marks[0]} times outside the "
+                           "replays, expected 2 x LAYERS each (the warm-up "
+                           "and the capture)")
+    if rec["profile"]["replay_kernels"] != B1_KERNELS:
+        raise RuntimeError(f"B1's kernels in a replay: "
+                           f"{rec['profile']['replay_kernels']}, expected "
+                           f"{B1_KERNELS}")
+    rec["checks"] = fused_checks(mx, "lstm", net, batch, sgd)
+    if fit_check:
+        rec["fit"] = fused_fit(mx, net, data, label)
+    return rec
+
+
+def fused_fit(mx, net, data, label):
+    """(c) one Module.fit epoch over NDArrayIter (TRAIN_BATCHES batches) on
+    the fused step, then get_params and save_optimizer_states."""
+    import pickle
+    mx.random.seed(0)
+    mod = mx.mod.Module(net)
+    mod.fit(mx.io.NDArrayIter(data, label, batch_size=TRAIN_N), num_epoch=1,
+            optimizer="sgd", optimizer_params=TRAIN_SGD,
+            initializer=mx.init.Xavier(), eval_metric=mx.metric.create("ce"))
+    stepper = mod._fused_stepper
+    if stepper in (None, False) or stepper.guard.count != 1:
+        raise RuntimeError(f"fit did not take the fused step: {stepper}")
+    args, _ = mod.get_params()
+    finite = all(bool(torch.isfinite(v._data).all()) for v in args.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "lm.states")
+        mod.save_optimizer_states(fname)
+        with open(fname, "rb") as f:
+            _, opt = pickle.loads(f.read())
+    log(f"[fused] (c) fit: one epoch of {TRAIN_BATCHES} batches on the fused "
+        f"step ({stepper.guard.count} capture), parameters finite: {finite}, "
+        f"saved optimizer state num_update {opt.num_update}")
+    if not finite or opt.num_update != TRAIN_BATCHES:
+        raise RuntimeError("the fit epoch's parameters or optimizer state")
+    stepper.release()
+    return {"captures": stepper.guard.count, "num_update": opt.num_update}
+
+
+def phase_fused_resnet():
+    """(b) bench.py's bench_resnet configuration through the fused step."""
+    import mxnet_tpu_torch as mx
+    net = resnet_symbol(mx, "bfloat16")
+    rng = np.random.RandomState(0)  # bench.py:112-116
+    data = rng.rand(RESNET_BATCH, 224, 224, 3).astype(np.float32)
+    label = rng.randint(0, 1000, (RESNET_BATCH,)).astype(np.float32)
+    batch = mx.io.DataBatch([mx.nd.array(data, ctx=mx.gpu(0))],
+                            [mx.nd.array(label, ctx=mx.gpu(0))])
+    labels = torch.tensor(label, device=CARD).long()
+
+    def loss(mod):
+        prob = mod.get_outputs()[0]._data.float()
+        return float(-torch.log(prob.gather(1, labels[:, None])
+                                .clamp_min(1e-30)).mean())
+
+    before = hand_kernel_counts()
+    rec = fused_main_path(mx, "resnet", net, batch, RESNET_SGD, loss)
+    if hand_kernel_counts() != before:
+        raise RuntimeError("the fused ResNet path launched a hand-written "
+                           "kernel")
+    rec["checks"] = fused_checks(mx, "resnet", net, batch, RESNET_SGD)
+    return rec
+
+
+def phase_fused(bench, resnet):
+    """14: the fused step on both configurations, beside the classic
+    path's numbers of phases 11 and 13 from this run."""
+    card = nvidia_smi_name_and_limit()
+    lstm = phase_fused_lstm()
+    lstm["classic_per_parameter_step_ms"] = bench["step_ms"]
+    res = phase_fused_resnet()
+    res["classic_per_parameter_step_ms"] = resnet["step_ms"]
+    for name, rec in (("lstm", lstm), ("resnet", res)):
+        log(f"[fused] {name} on {card}: fused bf16 {rec['step_ms']:.3f} ms "
+            f"(idle share {rec['profile']['idle_share']:.4f}), classic with "
+            f"the fused update {rec['classic_fused_update_step_ms']:.3f} ms, "
+            f"classic per-parameter (phase {11 if name == 'lstm' else 13}) "
+            f"{rec['classic_per_parameter_step_ms']:.3f} ms")
+    return {"card": card, "lstm": lstm, "resnet": res}
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
@@ -3571,8 +4002,9 @@ def main():
     imp = phase_imperative()
     train_kerrs, bwd_plans = phase_train_kernels()
     grad_errs = phase_train_card_vs_cpu()
-    bench = phase_train_bench()
-    wide_train_launches = phase_train_wide()
+    with fused_path(False):  # phase 11 times the classic path
+        bench = phase_train_bench()
+        wide_train_launches = phase_train_wide()
     for future in probe_builds.values():
         future.result()  # the probe builds, or their nvcc's error
     train_timing = phase_train_timing(
@@ -3585,10 +4017,13 @@ def main():
     lstm_bench_forward = phase_lstm_bench_forward()
     cnn_errs = phase_cnn_ops()
     resnet_grads = phase_resnet_card_vs_cpu()
-    resnet = phase_resnet_train()
+    with fused_path(False):  # phase 13 times the classic path
+        resnet = phase_resnet_train()
     resnet["ops_card_vs_cpu"] = cnn_errs
     resnet["card_vs_cpu"] = resnet_grads
     log("[resnet] phase 13: " + json.dumps(resnet))
+    fused = phase_fused(bench, resnet)
+    log("[fused] phase 14: " + json.dumps(fused))
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -3620,6 +4055,13 @@ def main():
         "peak_device_bytes": peak,
         "profile": profiled,
         "bench_training_shape_forward": lstm_bench_forward,
+        "fused_step": {
+            "launches_in_a_replay": fused["lstm"]["profile"][
+                "replay_kernels"]["lstm_seq_kernel"],
+            "launches_outside_replays": fused["lstm"][
+                "launches_outside_replays"][0],
+            "path": "the LSTM LM's fused bf16 training step (phase 14), "
+                    "counted by the profiler's kernel names in a replay"},
     }
     # the per-step kernel's numbers at its path's shape, the wide LM's
     cell = cells[(1, WIDE_H)]
@@ -3688,6 +4130,14 @@ def main():
     records.append(rtc_record(rtc_k, imp))
     records += train_records(train_kerrs, bwd_plans, grad_errs, bench,
                              wide_train_launches, train_timing, reg_build)
+    next(r for r in records if r["name"] == "lstm_sequence_backward")[
+        "fused_step"] = {
+        "launches_in_a_replay": fused["lstm"]["profile"]["replay_kernels"][
+            "lstm_seq_bwd_reg_kernel"],
+        "launches_outside_replays": fused["lstm"][
+            "launches_outside_replays"][2],
+        "path": "the LSTM LM's fused bf16 training step (phase 14), "
+                "counted by the profiler's kernel names in a replay"}
     records += attention_backward_records(att_bwd_errs, masked_bwd_launches,
                                           tf_train, att_bwd_timing,
                                           wgmma_bwd_build)

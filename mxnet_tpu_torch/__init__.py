@@ -21,11 +21,14 @@ kernel), ``mod.Module`` with ``fit``, ``init`` (the initializers),
 (checkpoints) and ``random``; the CNN layer ops (cuDNN convolutions,
 pooling, batch normalisation) and the JAX package's model zoo
 (``models.get_symbol``: ResNet, ResNeXt, MobileNet, VGG, AlexNet, LeNet,
-the MLP, GoogLeNet and the Inceptions).
+the MLP, GoogLeNet and the Inceptions). ``perf`` holds the fused training
+step: ``Module.fit`` (and ``perf.module_stepper``) runs forward, backward
+and the update as one step, one CUDA graph replay a step on the card,
+with an optional bf16 cast over fp32 master weights.
 """
 from . import (c_predict, callback, convert, initializer, io,  # noqa: F401
                lr_scheduler, metric, model, models, module, ndarray,
-               optimizer, random, rnn, rtc, serving, symbol)
+               optimizer, perf, quant, random, rnn, rtc, serving, symbol)
 from .base import MXNetError, __version__  # noqa: F401
 from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from .ops import OP_TABLE  # noqa: F401

@@ -7,10 +7,11 @@ packages.
 from __future__ import annotations
 
 import ast
+import os
 from typing import Any, Callable, Dict, Optional
 
 __all__ = ["MXNetError", "AttrSpec", "Registry", "numeric_types",
-           "__version__"]
+           "getenv", "__version__"]
 
 # written into symbol JSON as "mxnet_tpu_version", as the JAX package does
 __version__ = "0.11.0"
@@ -20,6 +21,18 @@ numeric_types = (float, int)
 
 class MXNetError(RuntimeError):
     """Framework error type (reference: python/mxnet/base.py MXNetError)."""
+
+
+def getenv(name: str, default=None, typ=str):
+    """A runtime knob from the environment, as the JAX package reads it:
+    ``MXTPU_*``, with the reference's ``MXNET_*`` spelling as a fallback."""
+    for key in (name, name.replace("MXTPU_", "MXNET_")):
+        val = os.environ.get(key)
+        if val is not None:
+            if typ is bool:
+                return val not in ("0", "false", "False", "")
+            return typ(val)
+    return default
 
 
 def _parse_tuple(s):

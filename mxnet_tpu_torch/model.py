@@ -168,10 +168,20 @@ def _create_kvstore(kvstore, num_device, arg_params):
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,
                    kvstore=None, param_names=None):
-    """The local updater path (reference: model.py:117): one updater call
-    a parameter that has a gradient."""
+    """The local updater path (reference: model.py:117). Where the
+    optimizer has a functional rule, the whole parameter set is updated
+    as one step (``perf.fused_update_params``: the fused step's rules, one
+    captured graph on the card, the updater's bookkeeping); otherwise, or
+    with
+    ``MXTPU_FUSED_STEP=0``, one updater call a parameter that has a
+    gradient."""
     if kvstore is not None:
         raise MXNetError("updates through a KVStore are queue A11")
+    if num_device == 1:
+        from .perf import fused_update_params
+        if fused_update_params(param_arrays, grad_arrays, updater,
+                               param_names):
+            return
     for index, (weight, grad) in enumerate(zip(param_arrays, grad_arrays)):
         if grad is None:
             continue

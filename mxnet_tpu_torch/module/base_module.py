@@ -4,9 +4,11 @@ Counterpart of ``mxnet_tpu/module/base_module.py`` (reference
 python/mxnet/module/base_module.py: fit:376 with its epoch loop :476-492,
 forward_backward:189, score, predict, iter_predict). The loops walk a
 lookahead batch generator, so that ``prepare`` sees the upcoming batch,
-and ``predict`` is a fold over ``iter_predict``. ``fit`` runs
-``forward_backward`` and ``update`` a batch: the fused whole step is queue
-A6. Its resilience arguments (``checkpoint_batch_period``, ``resume``,
+and ``predict`` is a fold over ``iter_predict``. ``fit`` steps each batch
+through the module's fused whole step where it has one
+(``_fused_train_step``, as ``base_module.py:785-815`` of the JAX package
+does), else through ``forward_backward`` and ``update``. Its resilience
+arguments (``checkpoint_batch_period``, ``resume``,
 ``supervisor``, ``async_checkpoint``) raise until queue A13, and
 ``monitor`` until A15.
 """
@@ -251,8 +253,9 @@ class BaseModule:
             save_optimizer_states=True, supervisor=None,
             async_checkpoint=None):
         """reference: base_module.py:376 — bind, init params and optimizer,
-        then per epoch a training pass (``forward_backward`` and
-        ``update`` a batch, the metric updated from the outputs), the
+        then per epoch a training pass (the fused step a batch where the
+        module has one, else ``forward_backward`` and ``update``; the
+        metric updated from the outputs), the
         epoch-end callbacks, a checkpoint at ``checkpoint_prefix`` every
         ``checkpoint_period`` epochs (labelled with the epochs done, with
         the optimizer state when ``save_optimizer_states``), and the
@@ -282,10 +285,15 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()
             train_metric.reset()
+            getter = getattr(self, "_fused_train_step", None)
+            fused_step = getter() if getter is not None else None
             for nbatch, (batch, upcoming) in enumerate(
                     _lookahead(train_data)):
-                self.forward_backward(batch)
-                self.update()
+                if fused_step is not None:
+                    fused_step(batch)
+                else:
+                    self.forward_backward(batch)
+                    self.update()
                 if upcoming is not None:
                     self.prepare(upcoming)
                 self.update_metric(train_metric, batch.label)

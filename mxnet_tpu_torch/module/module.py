@@ -4,9 +4,13 @@ Counterpart of ``mxnet_tpu/module/module.py`` (reference
 python/mxnet/module/module.py: bind:351, init_optimizer:460,
 forward:556, backward:598, update:615). One context: the default is the
 port's, ``gpu(0)``; several contexts (data parallelism) and ``group2ctxs``
-are queue A11. The executor's gradients go through the optimizer's
-updater, one parameter at a time (``model._update_params``); the fused
-whole step (``_fused_train_step``) is queue A6 and gives None.
+are queue A11. ``update`` applies the executor's gradients through the
+optimizer's updater (``model._update_params``: one fused update of the
+whole set where the optimizer has a functional rule). ``fit`` steps through
+the fused whole step (``_fused_train_step``, ``perf.module_stepper``) when
+the module is eligible; the methods that read or write parameters or
+optimizer state sync it first (``_sync_fused``) or mark it stale
+(``_invalidate_fused``), where the JAX package's do.
 """
 from __future__ import annotations
 
@@ -74,6 +78,9 @@ class Module(BaseModule):
         self._preload_opt_states = None
         self._exec = None
         self._data_shapes = self._label_shapes = None
+        # the fused whole step (perf/): None = not built yet, False = this
+        # module is ineligible, else the live ModuleStepper
+        self._fused_stepper = None
 
     @staticmethod
     def load(prefix, epoch=None, load_optimizer_states=False, **kwargs):
@@ -98,7 +105,7 @@ class Module(BaseModule):
         """reference: module.py:152 — the symbol, the params and, with
         ``save_optimizer_states``, the updater's state, under one
         manifest."""
-        states = (self._updater.get_states(dump_optimizer=True)
+        states = (self._optimizer_state_bytes()
                   if save_optimizer_states else None)
         save_checkpoint(prefix, epoch, self.symbol, *self.get_params(),
                         states=states)
@@ -149,16 +156,49 @@ class Module(BaseModule):
     def _sync_params_from_devices(self):
         if self._exec is None:
             return
+        self._sync_fused()
         self._arg_params = {n: self._exec.arg_dict[n].copy()
                             for n in self._param_names}
         self._aux_params = {n: self._exec.aux_dict[n].copy()
                             for n in self._aux_names}
         self._params_dirty = False
 
+    # -- the fused whole step (perf/step_runtime.py) --------------------------
     def _fused_train_step(self):
-        """The fused whole step is queue A6: ``fit`` runs
-        ``forward_backward`` and ``update``."""
-        return None
+        """The fit loop's fused step callable, or None to run
+        forward_backward and update. Built once; it survives across
+        epochs (a refresh of its values, not a new capture)."""
+        if self._fused_stepper is False:
+            return None
+        if self._fused_stepper is None:
+            from ..perf import module_stepper
+            stepper = module_stepper(self)
+            self._fused_stepper = stepper if stepper is not None else False
+            if stepper is None:
+                return None
+        return self._fused_stepper.step
+
+    def _rebind_fused_step(self):
+        """Drop the fused step's captured graph, keeping its values: the
+        next step captures afresh."""
+        if self._fused_stepper not in (None, False):
+            self._fused_stepper.rebind()
+
+    def _sync_fused(self):
+        """Bring the executor and updater up to date with the fused step
+        (a no-op when there is none or nothing changed)."""
+        stepper = self._fused_stepper
+        if stepper not in (None, False):
+            stepper.sync_to_module()
+
+    def _invalidate_fused(self, drop=False):
+        """Parameters or optimizer state were written from outside: the
+        stepper copies them in before its next step (``drop`` discards it:
+        the symbol, shapes or optimizer changed)."""
+        if drop:
+            self._fused_stepper = None
+        elif self._fused_stepper not in (None, False):
+            self._fused_stepper.invalidate()
 
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
                     aux_params=None, allow_missing=False, force_init=False,
@@ -170,6 +210,7 @@ class Module(BaseModule):
                             "force_init=False. init_params call ignored.")
             return
         assert self.binded, "call bind before initializing the parameters"
+        self._sync_fused()
         attrs = self._symbol.attr_dict()
         for pname, layout in self._symbol._arg_layouts().items():
             attrs.setdefault(pname, {})["__layout__"] = layout
@@ -192,6 +233,7 @@ class Module(BaseModule):
             fill(name, self._exec.aux_dict[name], aux_params)
         self.params_initialized = True
         self._params_dirty = False
+        self._invalidate_fused()
 
     # -- bind ----------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -205,6 +247,7 @@ class Module(BaseModule):
                 self._sync_params_from_devices()
             self._exec = None
             self.binded = False
+            self._invalidate_fused(drop=True)
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
@@ -246,6 +289,10 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
+        # the stepper's state goes back into the module before it is
+        # dropped: its update rule is the old optimizer's
+        self._sync_fused()
+        self._invalidate_fused(drop=True)
         if self._params_dirty:
             self._sync_params_from_devices()
         arg_dict = {n: self._exec.arg_dict[n] for n in self._param_names}
@@ -277,6 +324,8 @@ class Module(BaseModule):
     def borrow_optimizer(self, shared_module):
         """Share another Module's optimizer and updater."""
         assert shared_module.optimizer_initialized
+        self._sync_fused()
+        self._invalidate_fused(drop=True)
         self._optimizer = shared_module._optimizer
         self._kvstore = shared_module._kvstore
         self._updater = shared_module._updater
@@ -302,6 +351,7 @@ class Module(BaseModule):
         """reference: module.py:556 — the batch is copied onto the
         module's device."""
         assert self.binded and self.params_initialized
+        self._sync_fused()
         if is_train is None:
             is_train = self.for_training
         self._exec.forward(is_train=is_train, **self._input_dict(data_batch))
@@ -313,18 +363,24 @@ class Module(BaseModule):
 
     def forward_backward(self, data_batch):
         assert self.binded and self.params_initialized
+        self._sync_fused()
         self._exec.forward_backward(**self._input_dict(data_batch))
 
     def update(self):
-        """reference: module.py:615 — one updater call a parameter."""
+        """reference: module.py:615 — the updater over every parameter
+        that has a gradient."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
+        self._sync_fused()
         self._params_dirty = True
         _update_params([self._exec.arg_dict[n] for n in self._param_names],
                        [self._exec.grad_dict.get(n)
                         for n in self._param_names],
                        updater=self._updater, num_device=1,
                        kvstore=self._kvstore, param_names=self._param_names)
+        # the executor's arrays changed under the stepper: it copies them
+        # in before its next step
+        self._invalidate_fused()
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded
@@ -355,10 +411,17 @@ class Module(BaseModule):
     def install_monitor(self, mon):
         raise MXNetError("Monitor is queue A15, not ported yet")
 
-    def save_optimizer_states(self, fname):
+    def _optimizer_state_bytes(self):
+        """The updater's state, with the update counts
+        (``dump_optimizer``)."""
         assert self.optimizer_initialized
+        self._sync_fused()
+        return self._updater.get_states(dump_optimizer=True)
+
+    def save_optimizer_states(self, fname):
+        data = self._optimizer_state_bytes()
         with open(fname, "wb") as f:
-            f.write(self._updater.get_states(dump_optimizer=True))
+            f.write(data)
 
     def load_optimizer_states(self, fname):
         """The updater's state from a ``.states`` file this package
@@ -366,3 +429,4 @@ class Module(BaseModule):
         assert self.optimizer_initialized
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+        self._invalidate_fused()

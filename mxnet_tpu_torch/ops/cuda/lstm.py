@@ -122,6 +122,22 @@ def _check_kernel_inputs(name, tensors, gates=()):
         raise MXNetError(f"{name} kernel takes contiguous tensors")
 
 
+def _widened(xproj, h0, c0, w_h2h):
+    """(xproj, w_h2h) in the states' dtype, the one dtype the kernels take.
+    The JAX package's cell computes its gates in fp32 whatever xproj's
+    and w_h2h's dtypes (``_gates``); a narrower xproj or w_h2h (bf16 over
+    fp32 states) is widened exactly. A wider one, or states of two
+    dtypes, would round where that cell does not: no kernel takes them."""
+    dt = h0.dtype
+    if c0.dtype != dt or any(torch.promote_types(t.dtype, dt) != dt
+                             for t in (xproj, w_h2h)):
+        raise MXNetError(
+            f"lstm kernels: no kernel for xproj {xproj.dtype}, states "
+            f"{h0.dtype}/{c0.dtype}, w_h2h {w_h2h.dtype}: xproj and w_h2h "
+            "must be the states' dtype or narrower")
+    return xproj.to(dt), w_h2h.to(dt)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -198,6 +214,7 @@ def lstm_cell_fused(xproj, h, c, w_h2h):
         _, h_new, c_new = _Sequence.apply(xproj[None], h, c, w_h2h, False)
         return h_new, c_new
     if h.device.type == "cuda":
+        xproj, w_h2h = _widened(xproj, h, c, w_h2h)
         return _launch(xproj, h, c, w_h2h)
     if h.device.type in ("cpu", "meta"):
         return lstm_cell_plain(xproj, h, c, w_h2h)
@@ -343,6 +360,7 @@ def lstm_sequence_fused(xproj, h0, c0, w_h2h, reverse=False):
     if _needs_grad(xproj, h0, c0, w_h2h):
         return _Sequence.apply(xproj, h0, c0, w_h2h, reverse)
     if h0.device.type == "cuda":
+        xproj, w_h2h = _widened(xproj, h0, c0, w_h2h)
         if not sequence_fits(h0.shape[0], h0.shape[1], h0.device):
             return lstm_sequence_plain(xproj, h0, c0, w_h2h, reverse,
                                        cell=lstm_cell_fused)
@@ -411,6 +429,7 @@ def lstm_sequence_train(xproj, h0, c0, w_h2h, reverse=False):
         return lstm_sequence_train_plain(xproj, h0, c0, w_h2h, reverse)
     if h0.device.type != "cuda":
         raise MXNetError(f"lstm_sequence: no kernel for device {h0.device}")
+    xproj, w_h2h = _widened(xproj, h0, c0, w_h2h)
     steps, n, hdim = xproj.shape[0], h0.shape[0], h0.shape[1]
     if not sequence_fits(n, hdim, h0.device):
         return lstm_sequence_train_plain(xproj, h0, c0, w_h2h, reverse,
@@ -554,8 +573,11 @@ def lstm_sequence_backward(dout, dh_last, dc_last, gates, cs, out, h0, c0,
     shared-memory kernel; else the per-step backward kernel T + 1 times
     (``lstm_cell_backward.launches``). dw_h2h is then one fp32
     product over all steps (``torch.matmul``), cast to w_h2h's dtype once,
-    where the plain version rounds its sum to that dtype every step. CPU
-    and meta tensors run the plain version."""
+    where the plain version rounds its sum to that dtype every step, as
+    the JAX package's ``_cell_bwd`` and its scan do (a bf16 w_h2h over
+    fp32 states: the kernels take it widened to fp32, and dw is rounded
+    to bf16 once, not T times). CPU and meta tensors run the plain
+    version."""
     if h0.device.type in ("cpu", "meta"):
         return lstm_sequence_backward_plain(dout, dh_last, dc_last, gates, cs,
                                             out, h0, c0, w_h2h, reverse)
@@ -565,12 +587,13 @@ def lstm_sequence_backward(dout, dh_last, dc_last, gates, cs, out, h0, c0,
     # take them
     dout, dh_last, dc_last = (x.to(h0.dtype).contiguous()
                               for x in (dout, dh_last, dc_last))
+    w_k = w_h2h.to(h0.dtype)  # widened, as the forward took it
     if backward_fits(h0.shape[0], h0.shape[1], h0.device):
         dgates, dh0, dc0 = _sequence_backward_launch(
-            dout, dh_last, dc_last, gates, cs, h0, c0, w_h2h, reverse)
+            dout, dh_last, dc_last, gates, cs, h0, c0, w_k, reverse)
     else:
         dgates, dh0, dc0 = _backward_per_step(dout, dh_last, dc_last, gates,
-                                              cs, h0, c0, w_h2h, reverse)
+                                              cs, h0, c0, w_k, reverse)
     return dgates, dh0, dc0, _dw_product(dgates, out, h0, w_h2h, reverse)
 
 

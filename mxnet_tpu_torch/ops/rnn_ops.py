@@ -17,8 +17,6 @@ order: LSTM i,f,g,o; GRU r,z,n.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import random as _random
@@ -87,6 +85,12 @@ def _unpack(params, num_layers, input_size, state_size, mode, bidirectional):
              for d in range(D)] for l in range(num_layers)]
 
 
+def _mm_t(a, w):
+    """``a @ w.T`` in the promoted type of the two, as jnp's ``@``."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.matmul(a.to(dt), w.to(dt).t())
+
+
 def _cell_step(mode, H):
     """step(carry, xproj, w_h2h, b_h2h) -> new carry for one time step of
     GRU or a plain RNN, given the precomputed x-projection; carry is
@@ -94,7 +98,7 @@ def _cell_step(mode, H):
     if mode == "gru":
         def step(carry, xproj, w_h2h, b_h2h):
             (h,) = carry
-            hproj = torch.matmul(h, w_h2h.t()) + b_h2h
+            hproj = _mm_t(h, w_h2h) + b_h2h
             r = torch.sigmoid(xproj[:, 0 * H:1 * H] + hproj[:, 0 * H:1 * H])
             z = torch.sigmoid(xproj[:, 1 * H:2 * H] + hproj[:, 1 * H:2 * H])
             n = torch.tanh(xproj[:, 2 * H:3 * H] + r * hproj[:, 2 * H:3 * H])
@@ -104,28 +108,25 @@ def _cell_step(mode, H):
 
     def step(carry, xproj, w_h2h, b_h2h):
         (h,) = carry
-        return (act(xproj + torch.matmul(h, w_h2h.t())),)
+        return (act(xproj + _mm_t(h, w_h2h)),)
     return step
 
 
 def _run_direction(x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h, mode, H,
                    reverse=False):
     """One direction of one layer. x: (T, N, in). Returns (out(T,N,H), hT, cT).
-    Data, weights and states promote to one dtype first, as jnp's ``@``
-    does (bf16 data over fp32 parameters computes in fp32)."""
+    Types promote operation by operation, as jnp's do: the input
+    projection computes in the promoted type of x and w_i2h (bf16 data
+    over fp32 parameters in fp32, bf16 over bf16 in bf16), and adding the
+    biases promotes it again; the LSTM cell computes its gates in fp32 and
+    keeps its states' dtypes (fp32 states with a bf16 w_h2h stay fp32)."""
     T, N = x.shape[0], x.shape[1]
-    ts = (x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h)
-    dt = functools.reduce(torch.promote_types,
-                          (t.dtype for t in ts if t is not None))
-    x, h0, c0, w_i2h, w_h2h, b_i2h, b_h2h = (
-        None if t is None else t.to(dt) for t in ts)
     # GRU keeps the h2h bias apart (the reset gate multiplies the
     # h-projection); the other modes fold both biases into the x-projection
     bias = b_i2h if mode == "gru" else b_i2h + b_h2h
-    xproj = torch.matmul(x.reshape(T * N, -1), w_i2h.t()) + bias
+    xproj = _mm_t(x.reshape(T * N, -1), w_i2h) + bias
     xproj = xproj.reshape(T, N, -1)
     if mode == "lstm":
-        # the kernel takes contiguous tensors of one dtype
         return lstm_sequence_fused(xproj, h0.contiguous(), c0.contiguous(),
                                    w_h2h.contiguous(), reverse=reverse)
     step = _cell_step(mode, H)
@@ -142,8 +143,13 @@ def _rnn_impl(rng, data, parameters, state, state_cell, state_size,
     T, N, input_size = data.shape
     H = state_size
     D = _num_directions(bidirectional)
-    pieces = _unpack(parameters, num_layers, input_size, H, mode,
-                     bidirectional)
+    if isinstance(parameters, (list, tuple)):
+        # pre-split per-(layer, direction) pieces, as the fused step
+        # (perf/step_runtime.py: PackedRNNLayout) hands them over
+        pieces = parameters
+    else:
+        pieces = _unpack(parameters, num_layers, input_size, H, mode,
+                         bidirectional)
     x = data
     h_states, c_states = [], []
     for layer in range(num_layers):

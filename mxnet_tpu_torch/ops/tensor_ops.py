@@ -9,6 +9,9 @@ package's, so symbol JSON parses to the same values in both packages.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -198,6 +201,24 @@ def _crop(*args, num_args=1, offset=(0, 0), h_w=(0, 0), center_crop=False):
     return x[:, :, oy:oy + h, ox:ox + w]
 
 
+_ID_CHECKS = threading.local()
+
+
+@contextlib.contextmanager
+def deferred_id_checks(flags):
+    """Inside, an Embedding reads nothing back to the host (as a captured
+    CUDA graph must not): each call appends to ``flags`` (a list) a device
+    bool, whether any of its ids lies outside the table, and gathers with
+    its ids clamped into range; the caller decides what an out-of-range
+    id does. With ``flags`` None, Embedding checks as it does outside."""
+    prev = getattr(_ID_CHECKS, "flags", None)
+    _ID_CHECKS.flags = flags
+    try:
+        yield flags
+    finally:
+        _ID_CHECKS.flags = prev
+
+
 @register("Embedding",
           num_inputs=2, input_names=["data", "weight"],
           needs_is_train=True,
@@ -211,16 +232,23 @@ def _embedding(data, weight, input_dim, output_dim, dtype="float32",
     """Table lookup. Token ids arrive as float32 (the predict ABI carries
     float32 only) and are cast to integers before the lookup. Ids outside
     [0, input_dim) raise, where a CUDA gather would assert on the device:
-    the check reads one bool back to the host, once a call. The weight's
+    the check reads one bool back to the host, once a call (inside
+    :func:`deferred_id_checks` it is handed to the caller). The weight's
     gradient is autograd's, dense; ``sparse_grad`` in training raises until
     the row_sparse arrays of queue A9."""
     if sparse_grad and _is_train:
         raise MXNetError("Embedding(sparse_grad=True) in training needs the "
                          "row_sparse gradients of queue A9, not ported yet")
     idx = data.to(torch.int64)
-    if idx.device.type != "meta" and bool(
-            ((idx < 0) | (idx >= weight.shape[0])).any()):
-        raise MXNetError(f"Embedding: token id outside [0, {weight.shape[0]})")
+    if idx.device.type != "meta":
+        bad = ((idx < 0) | (idx >= weight.shape[0])).any()
+        flags = getattr(_ID_CHECKS, "flags", None)
+        if flags is not None:
+            flags.append(bad)
+            idx = idx.clamp(0, weight.shape[0] - 1)
+        elif bool(bad):
+            raise MXNetError(
+                f"Embedding: token id outside [0, {weight.shape[0]})")
     return torch.nn.functional.embedding(idx, weight)
 
 
