@@ -173,13 +173,37 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    ``Module.update``'s fused path against the per-parameter updater,
    and the classic step's time (with the fused update) in the same run;
    (c) one ``Module.fit`` epoch that takes the fused step, then
-   ``get_params`` and ``save_optimizer_states``.
+   ``get_params`` and ``save_optimizer_states``;
+15. serving (``mxnet_tpu_torch.serving``): (a) phase 4's LM, its answers
+   swapped batch-major, bound through ``Module`` at 16 rows and served
+   through ``mod.as_serving_backend()`` and ``InferenceServer(max_batch=
+   16, workers=1, batch_wait=0.002, capacity=64, default_deadline=120)``
+   after ``warm_up()``: an open-loop burst of 64 single-row requests, then
+   the same burst at ``max_batch=1, buckets=[1]``; every answer within
+   ``PROB_TOL`` of the same row through the port's CPU path, and the
+   answers rolled by one row outside it, 2 sequence launches a dispatch
+   and no per-step one; (b) phase 5's transformer LM
+   behind ``CallableBackend`` at S=2048, ``max_batch=4``: 8 single-row
+   requests, each answer within ``BF16_LOGIT_TOL`` of ``lm.logits`` on
+   that row alone, 4 wgmma attention launches a dispatch; (c) a one-step
+   LSTM at the LM's width (input and H 1024, a FullyConnected head of
+   10000) through ``ModuleStepBackend`` and ``InflightBatcher`` at
+   capacity 16 for 32 steps, one leave and join at step 16, both churned
+   sequences bit for bit their solo decodes, no retrace. Every request
+   completes; none fails, degrades, is shed or abandoned, or runs at an
+   unwarmed shape; the circuit stays closed; no fallback is configured
+   and every result is read, so a kernel's failure fails the run; no
+   kernel library is built after a warm-up. Requests/s batched and
+   unbatched, p50 and p99 latency, dispatches, warmed buckets, pad
+   waste, decode tokens/s and one profiled dispatch a model (busy, idle
+   share, the output copy's share), each with the card's name and power
+   limit.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
-training path, 12c, 13c and 14a) sets its kernels' launch counts to 0 (13c:
-reads them) just before it runs and reads them just after, and fails if
-a kernel of the path was not launched (13c: if any hand-written kernel
-was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+training path, 12c, 13c, 14a and 15's served bursts) sets its kernels'
+launch counts to 0 (13c: reads them) just before it runs and reads them
+just after, and fails if a kernel of the path was not launched (13c: if
+any hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -204,8 +228,13 @@ FP32_TOL = 2e-5
 SEQ_FP32_TOL = 1e-4
 # bf16 tolerance, compared in bf16: two bf16 ulps at 1.0
 BF16_TOL = 1.6e-2
-# card against the port's CPU path on the LM's probabilities
-PROB_TOL = 1e-4
+# card against the port's CPU path on the LM's probabilities, both fp32:
+# only summation order differs (5.8e-11 to 7.3e-11 measured on the H100).
+# A 10000-way softmax over these weights puts every probability near
+# 1/V = 1e-4 and a row's own input moves it by about 1e-6, so the limit
+# sits two orders below that; held_probs shows each run that answers
+# rolled by one row fail it
+PROB_TOL = 1e-8
 # bf16 attention output against its plain version, compared in fp32: two
 # bf16 ulps at the reference's magnitude (at least 1.0)
 BF16_REL_TOL = 2.0 ** -6
@@ -497,6 +526,25 @@ def check_probs(out, rows):
         raise RuntimeError(f"probability rows sum to 1 +- {dev}")
 
 
+def held_probs(got, want, label):
+    """Largest |got - want| over probability rows stacked on axis 0 (one
+    a request row), within PROB_TOL. The same rows rolled by one must
+    differ by more than PROB_TOL, or the check could not tell a request
+    given another row's answer from its own."""
+    err = float(np.abs(got - want).max())
+    rolled = float(np.abs(np.roll(got, 1, axis=0) - want).max())
+    log(f"[{label}] card against CPU, {len(want)} rows: max|d| prob "
+        f"{err:.3e} (tol {PROB_TOL}); rolled by one row {rolled:.3e}; "
+        f"largest prob {float(want.max()):.3e}")
+    if not err <= PROB_TOL:
+        raise RuntimeError(f"[{label}] card and CPU disagree: {err} > "
+                           f"{PROB_TOL}")
+    if not rolled > PROB_TOL:
+        raise RuntimeError(f"[{label}] answers rolled by one row are within "
+                           f"{rolled} <= {PROB_TOL} of the CPU path")
+    return err, rolled
+
+
 def phase_slice():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops.cuda.lstm import (lstm_cell_fused,
@@ -556,12 +604,10 @@ def phase_slice():
                            dev_type=1)
     big = next(i for i, r in enumerate(requests) if r.shape[0] == 16)
     (cpu_out,) = cpu.infer({"data": requests[big][:4]})
-    card = answers[big].reshape(T, 16, V)[:, :4].reshape(T * 4, V)
-    prob_err = float(np.abs(card - cpu_out).max())
-    log(f"[slice] card against CPU, 4 rows: max|d| prob {prob_err:.3e} "
-        f"(tol {PROB_TOL}); largest prob {float(cpu_out.max()):.3e}")
-    if not prob_err <= PROB_TOL:
-        raise RuntimeError(f"card and CPU disagree: {prob_err} > {PROB_TOL}")
+    card = answers[big].reshape(T, 16, V)[:, :4]
+    prob_err, _ = held_probs(card.transpose(1, 0, 2),
+                             cpu_out.reshape(T, 4, V).transpose(1, 0, 2),
+                             "slice")
     return backend, requests, launches, peak, prob_err
 
 
@@ -3982,6 +4028,352 @@ def phase_fused(bench, resnet):
     return {"card": card, "lstm": lstm, "resnet": res}
 
 
+# -- 15: the serving runtime ------------------------------------------------
+
+# bench_serving.py's burst: 64 single-row requests, coalesced up to 16 rows
+SERVE_REQUESTS = 64
+SERVE_MAX_BATCH = 16
+SERVE_DEADLINE_S = 120.0
+SERVE_WAIT_S = 0.002
+TF_SERVE_REQUESTS = 8
+TF_SERVE_MAX_BATCH = 4
+# bench_serving.py's decode: a full table stepped 32 times, one churn at 16
+DECODE_CAPACITY = 16
+DECODE_STEPS = 32
+
+
+def served_lm_symbol(mx):
+    """Phase 4's LM with its (T*N, V) probabilities reshaped and swapped to
+    batch-major (N, T, V): the server scatters a dispatch's answers by
+    rows of the leading axis."""
+    probs = build_lm(mx, V, H, LAYERS, T)
+    return mx.sym.SwapAxis(mx.sym.Reshape(probs, shape=(T, -1, V)),
+                           dim1=0, dim2=1)
+
+
+def served_lm_module(mx, ctx):
+    """The served LM bound for inference at 16 rows, with phase 4's
+    seeded weights."""
+    net = served_lm_symbol(mx)
+    arg_shapes, _, _ = net.infer_shape(data=(1, T))
+    rng = np.random.RandomState(0)
+    params = {n: rng.uniform(-0.05, 0.05, s).astype(np.float32)
+              for n, s in zip(net.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    mod = mx.mod.Module(net, context=ctx)
+    mod.bind(data_shapes=[("data", (SERVE_MAX_BATCH, T))],
+             for_training=False)
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in params.items()},
+                    aux_params={})
+    return mod
+
+
+def decode_step_symbol(mx):
+    """One LSTM decode step at the LM's width, as the JAX package's
+    ``rnn.LSTMCell`` unrolls it (gates i, f, g, o), with a FullyConnected
+    head over the vocabulary; outputs (logits, next h, next c)."""
+    x, h, c = mx.sym.var("data"), mx.sym.var("h"), mx.sym.var("c")
+    i2h = mx.sym.FullyConnected(x, num_hidden=4 * H, name="dec_i2h")
+    h2h = mx.sym.FullyConnected(h, num_hidden=4 * H, name="dec_h2h")
+    lanes = mx.sym.SliceChannel(i2h + h2h, num_outputs=4, name="dec_slice")
+    keep, forget, emit = (mx.sym.Activation(lanes[i], act_type="sigmoid")
+                          for i in (0, 1, 3))
+    cand = mx.sym.Activation(lanes[2], act_type="tanh")
+    next_c = forget * c + keep * cand
+    next_h = emit * mx.sym.Activation(next_c, act_type="tanh")
+    logits = mx.sym.FullyConnected(next_h, num_hidden=V, name="dec_proj")
+    return mx.sym.Group([logits, next_h, next_c])
+
+
+def check_served(stats, n, label):
+    """Every request of the run completed; nothing failed, degraded, shed,
+    abandoned or ran at an unwarmed shape; the circuit is closed."""
+    bad = {k: stats[k] for k in ("failed", "degraded", "shed", "abandoned",
+                                 "rejected_open", "deadline_queued",
+                                 "deadline_inflight") if stats[k]}
+    unwarmed = stats["batching"]["unwarmed_dispatch_signatures"]
+    if (stats["completed"] != n or bad or unwarmed
+            or stats["circuit"]["state"] != "closed"):
+        raise RuntimeError(
+            f"[serve] {label}: completed {stats['completed']} of {n}, "
+            f"{bad}, unwarmed {unwarmed}, circuit "
+            f"{stats['circuit']['state']}")
+
+
+def serve_burst(backend, rows, max_batch, name, counts, buckets=None):
+    """bench_serving.py's open-loop burst: every request submitted at
+    once, one worker draining, each answer read in submit order (a
+    failed request raises here). Launch counts start at 0 after the
+    warm-up; returns the answers and the burst's numbers."""
+    from mxnet_tpu_torch import compiler
+    from mxnet_tpu_torch.serving import InferenceServer
+    server = InferenceServer(backend, name=name, max_batch=max_batch,
+                             batch_wait=SERVE_WAIT_S, workers=1,
+                             capacity=SERVE_REQUESTS, buckets=buckets,
+                             default_deadline=SERVE_DEADLINE_S)
+    try:
+        server.warm_up()
+        builds = compiler.stats()
+        counts(reset=True)  # the served path's run starts here
+        t0 = time.perf_counter()
+        pending = [server.submit({"data": x}) for x in rows]
+        answers, latencies = [], []
+        for req in pending:
+            answers.append(server.result(req)[0])
+            latencies.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        launched = counts()  # ... and ends here
+        stats = server.stats()
+    finally:
+        server.close()
+    check_served(stats, len(rows), name)
+    if compiler.stats() != builds:
+        raise RuntimeError(f"[serve] {name}: a kernel library was built "
+                           f"on a live request: {builds} -> "
+                           f"{compiler.stats()}")
+    pw = stats["pad_waste"]
+    return answers, {
+        "requests": len(rows), "wall_s": wall, "rps": len(rows) / wall,
+        "p50_ms": float(np.percentile(latencies, 50)) * 1e3,
+        "p99_ms": float(np.percentile(latencies, 99)) * 1e3,
+        "dispatches": stats["dispatches"],
+        "coalesced_requests": stats["coalesced_requests"],
+        "warmed_buckets": stats["warmed_buckets"],
+        "warmup_compiles": stats["warmup_compiles"],
+        "warmup_cache_hits": stats["warmup_cache_hits"],
+        "pad_waste_ratio": pw["ratio"], "pad_waste": pw,
+        "launches": launched}
+
+
+def output_copy_share(profiled):
+    """The device-to-host copies' share of a profiled dispatch's busy
+    time (the server's answers are numpy arrays)."""
+    copy_us = sum(us for key, us, _ in profiled["top_all"]
+                  if "DtoH" in key or "Device -> Host" in key)
+    return copy_us / profiled["device_busy_us"], copy_us
+
+
+def phase_serve_lstm(card):
+    """15a: the LSTM LM through InferenceServer: a burst coalesced up to 16
+    rows, then the same burst one request a dispatch."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda.lstm import (lstm_cell_fused,
+                                               lstm_sequence_fused)
+    mod = served_lm_module(mx, mx.gpu(0))
+    backend = mod.as_serving_backend()
+    seen = []
+    probe = threading.Thread(target=lambda: seen.append(
+        torch.cuda.current_device()))
+    probe.start()
+    probe.join()
+    if seen != [mod._exec._device.index]:
+        raise RuntimeError(f"a fresh thread's current device {seen} is not "
+                           f"the module's {mod._exec._device}")
+    rng = np.random.RandomState(3)
+    rows = [rng.randint(0, V, (1, T)).astype(np.float32)
+            for _ in range(SERVE_REQUESTS)]
+
+    def counts(reset=False):
+        if reset:
+            lstm_sequence_fused.launches = lstm_cell_fused.launches = 0
+        return {"lstm_sequence": lstm_sequence_fused.launches,
+                "lstm_cell": lstm_cell_fused.launches}
+
+    runs = {}
+    batched, runs["batched"] = serve_burst(
+        backend, rows, SERVE_MAX_BATCH, "lstm-b16", counts)
+    unbatched, runs["unbatched"] = serve_burst(
+        backend, rows, 1, "lstm-b1", counts, buckets=[1])
+    for name, run in runs.items():
+        got = run["launches"]
+        if (got["lstm_sequence"] != LAYERS * run["dispatches"]
+                or got["lstm_cell"] != 0 or not run["dispatches"]):
+            raise RuntimeError(
+                f"[serve] lstm {name}: launches {got} over "
+                f"{run['dispatches']} dispatches; expected "
+                f"{LAYERS} sequence launches a dispatch, no per-step one")
+
+    # every answer against the same row through the port's CPU path
+    cpu = served_lm_module(mx, mx.cpu()).as_serving_backend()
+    want = np.concatenate([
+        cpu.infer({"data": np.concatenate(rows[i:i + SERVE_MAX_BATCH])})[0]
+        for i in range(0, SERVE_REQUESTS, SERVE_MAX_BATCH)])
+    errs = {}
+    for name, answers in (("batched", batched), ("unbatched", unbatched)):
+        if any(a.shape != (1, T, V) or not np.isfinite(a).all()
+               for a in answers):
+            raise RuntimeError(f"[serve] lstm {name}: answers of shapes "
+                               f"{sorted({a.shape for a in answers})} or "
+                               f"not finite")
+        errs[name] = held_probs(np.concatenate(answers), want,
+                                f"serve lstm {name}")
+    prob_err = max(err for err, _ in errs.values())
+    rolled_err = min(rolled for _, rolled in errs.values())
+
+    full = np.concatenate(rows[:SERVE_MAX_BATCH])
+    profiled = profile_device(
+        f"one {SERVE_MAX_BATCH}-row LSTM dispatch (ModuleBackend.infer)",
+        lambda: backend.infer({"data": full}), keep_all=True)
+    share, copy_us = output_copy_share(profiled)
+    del profiled["top_all"]
+    profiled.update(output_copy_us=copy_us, output_copy_share=share)
+    b, u = runs["batched"], runs["unbatched"]
+    log(f"[serve] lstm on {card}: batched {b['rps']:.2f} req/s (p50 "
+        f"{b['p50_ms']:.2f} ms, p99 {b['p99_ms']:.2f} ms, {b['dispatches']} "
+        f"dispatches, {b['warmed_buckets']} warmed buckets, pad waste "
+        f"{b['pad_waste_ratio']:.4f}); unbatched {u['rps']:.2f} req/s (p50 "
+        f"{u['p50_ms']:.2f} ms, p99 {u['p99_ms']:.2f} ms, {u['dispatches']} "
+        f"dispatches); ratio {b['rps'] / u['rps']:.3f}; answers within "
+        f"{prob_err:.3e} of the CPU path (tol {PROB_TOL}; rolled by one "
+        f"row {rolled_err:.3e})")
+    log(f"[serve] lstm on {card}: one 16-row dispatch busy "
+        f"{profiled['device_busy_us']:.1f} us of {profiled['wall_us']:.1f} "
+        f"(idle share {profiled['idle_share']:.4f}); output copy "
+        f"{copy_us:.1f} us, share of busy {share:.4f}")
+    return {"batched": b, "unbatched": u, "speedup": b["rps"] / u["rps"],
+            "prob_err_vs_cpu": prob_err, "rolled_err_vs_cpu": rolled_err,
+            "profile": profiled}
+
+
+def phase_serve_transformer(card, lm):
+    """15b: the transformer LM (phase 5's) through InferenceServer: 8
+    single-row requests coalesced up to 4 rows."""
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention
+    from mxnet_tpu_torch.serving import CallableBackend
+    backend = CallableBackend(
+        lambda arrays: lm.logits(arrays["data"]).cpu().numpy(),
+        input_specs={"data": (TF_S,)})
+    rng = np.random.RandomState(4)
+    rows = [rng.randint(0, lm.cfg.vocab_size, (1, TF_S)).astype(np.float32)
+            for _ in range(TF_SERVE_REQUESTS)]
+
+    def counts(reset=False):
+        if reset:
+            flash_attention.launches = flash_attention.wgmma_launches = 0
+            flash_attention.masked_launches = 0
+        return {"flash_attention": flash_attention.launches,
+                "wgmma": flash_attention.wgmma_launches,
+                "masked": flash_attention.masked_launches}
+
+    answers, run = serve_burst(backend, rows, TF_SERVE_MAX_BATCH, "tf-b4",
+                               counts)
+    got, n = run["launches"], lm.cfg.num_layers * run["dispatches"]
+    if (got["flash_attention"] != n or got["wgmma"] != n
+            or got["masked"] != 0 or not n):
+        raise RuntimeError(f"[serve] transformer launches {got} over "
+                           f"{run['dispatches']} dispatches; expected "
+                           f"{lm.cfg.num_layers} wgmma launches a dispatch")
+    logit_err = 0.0
+    for row, ans in zip(rows, answers):
+        want = lm.logits(row).cpu().numpy()
+        if ans.shape != want.shape or not np.isfinite(ans).all():
+            raise RuntimeError(f"[serve] transformer answer {ans.shape}")
+        logit_err = max(logit_err, float(np.abs(ans - want).max()))
+    if not logit_err <= BF16_LOGIT_TOL:
+        raise RuntimeError(f"[serve] transformer answers against direct "
+                           f"logits: {logit_err} > {BF16_LOGIT_TOL}")
+    full = np.concatenate(rows[:TF_SERVE_MAX_BATCH])
+    profiled = profile_device(
+        f"one {TF_SERVE_MAX_BATCH}-row transformer dispatch "
+        "(CallableBackend.infer)", lambda: backend.infer({"data": full}),
+        keep_all=True)
+    share, copy_us = output_copy_share(profiled)
+    del profiled["top_all"]
+    profiled.update(output_copy_us=copy_us, output_copy_share=share)
+    log(f"[serve] transformer on {card}: {run['rps']:.2f} req/s (p50 "
+        f"{run['p50_ms']:.2f} ms, p99 {run['p99_ms']:.2f} ms, "
+        f"{run['dispatches']} dispatches, {run['warmed_buckets']} warmed "
+        f"buckets, pad waste {run['pad_waste_ratio']:.4f}); answers within "
+        f"{logit_err:.3e} of direct logits (tol {BF16_LOGIT_TOL})")
+    log(f"[serve] transformer on {card}: one {TF_SERVE_MAX_BATCH}-row "
+        f"dispatch busy {profiled['device_busy_us']:.1f} us of "
+        f"{profiled['wall_us']:.1f} (idle share "
+        f"{profiled['idle_share']:.4f}); output copy {copy_us:.1f} us, "
+        f"share of busy {share:.4f}")
+    return {"run": run, "logit_err_vs_direct": logit_err,
+            "profile": profiled}
+
+
+def phase_serve_decode(card):
+    """15c: decode through InflightBatcher over ModuleStepBackend: a full
+    table of 16 sequences stepped 32 times, sequence 0 leaving at step 16
+    and a new one joining its slot; both equal their solo decodes at the
+    same capacity bit for bit (each step runs at the one (16, ...) shape,
+    for which cuBLAS picks one algorithm whichever rows are live)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import InflightBatcher
+    net = decode_step_symbol(mx)
+    mod = mx.mod.Module(net, data_names=["data", "h", "c"], label_names=[])
+    mod.bind(data_shapes=[("data", (DECODE_CAPACITY, H)),
+                          ("h", (DECODE_CAPACITY, H)),
+                          ("c", (DECODE_CAPACITY, H))], for_training=False)
+    mx.random.seed(13)
+    mod.init_params(mx.init.Xavier())
+    rng = np.random.RandomState(7)
+    tokens = [[rng.rand(H).astype(np.float32) for _ in range(DECODE_STEPS)]
+              for _ in range(DECODE_CAPACITY + 1)]   # +1: the joiner
+
+    def batcher(name):
+        return InflightBatcher(mod.as_decode_backend(["h", "c"]),
+                               name=name).warm_up()
+
+    b = batcher("decode")
+    slots = [b.join() for _ in range(DECODE_CAPACITY)]
+    churn_at = DECODE_STEPS // 2
+    traced = {0: [], DECODE_CAPACITY: []}
+    seq0 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_STEPS):
+        if t == churn_at:
+            b.leave(slots[0])
+            slots[0] = b.join()
+            seq0 = DECODE_CAPACITY
+        feed = {slots[i]: {"data": tokens[i][t]}
+                for i in range(1, DECODE_CAPACITY)}
+        feed[slots[0]] = {"data": tokens[seq0][t - churn_at * (seq0 > 0)]}
+        outs = b.step(feed)
+        traced[seq0].append(outs[slots[0]][0])
+    wall = time.perf_counter() - t0
+    stats = b.stats()
+    if stats["retraced"] or stats["steps"] != DECODE_STEPS:
+        raise RuntimeError(f"[serve] decode stats {stats}")
+    for seq, n_steps in ((0, churn_at), (DECODE_CAPACITY,
+                                         DECODE_STEPS - churn_at)):
+        solo = batcher(f"decode-solo{seq}")
+        s = solo.join()
+        for t in range(n_steps):
+            out = solo.step({s: {"data": tokens[seq][t]}})[s][0]
+            if not np.array_equal(out, traced[seq][t]):
+                raise RuntimeError(f"[serve] decode: sequence {seq} step {t} "
+                                   "differs from its solo decode")
+            if not np.isfinite(out).all():
+                raise RuntimeError("[serve] decode: non-finite logits")
+    tps = stats["tokens"] / wall
+    log(f"[serve] decode on {card}: {stats['tokens']} tokens in "
+        f"{DECODE_STEPS} steps at capacity {DECODE_CAPACITY}, "
+        f"{tps:.1f} tokens/s ({wall * 1e3 / DECODE_STEPS:.3f} ms a step); "
+        f"churned sequences bit for bit their solo decodes; retraces "
+        f"{int(stats['retraced'])}, compiles {stats['compiles']}")
+    return {"tokens_per_s": tps, "step_ms": wall * 1e3 / DECODE_STEPS,
+            "tokens": stats["tokens"], "steps": stats["steps"],
+            "retraced": stats["retraced"], "compiles": stats["compiles"],
+            "bitwise_vs_solo": True}
+
+
+def phase_serve(tf):
+    """15: the serving runtime on the card (see the module docstring)."""
+    card = nvidia_smi_name_and_limit()
+    out = {"card": card, "lstm": phase_serve_lstm(card),
+           "transformer": phase_serve_transformer(card, tf["lm"]),
+           "decode": phase_serve_decode(card)}
+    log("[serve] phase 15: " + json.dumps(out))
+    return out
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
@@ -4024,6 +4416,7 @@ def main():
     log("[resnet] phase 13: " + json.dumps(resnet))
     fused = phase_fused(bench, resnet)
     log("[fused] phase 14: " + json.dumps(fused))
+    serve = phase_serve(tf)
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -4086,6 +4479,13 @@ def main():
         "prob_err_card_vs_cpu": wide_prob_err,
         "by_shape": {f"N={n} H={hdim}": c for (n, hdim), c in cells.items()},
     }
+    lstm_sequence["serving"] = {
+        name: {"launches": serve["lstm"][name]["launches"]["lstm_sequence"],
+               "dispatches": serve["lstm"][name]["dispatches"]}
+        for name in ("batched", "unbatched")}
+    lstm_sequence["serving"]["path"] = (
+        "the LSTM LM through InferenceServer (phase 15a), counted after "
+        "each burst's warm-up")
     records = [lstm_sequence, lstm]
     for name, line, n in (("flash_attention", 32, tf["launches"]),
                           ("flash_attention_masked", 277, masked_launches)):
@@ -4126,6 +4526,13 @@ def main():
                                    "masked_launches_on_path")}
             record["transformer"]["timing"] = tf_timing
             record["transformer"]["profile"] = tf_profiled
+            run = serve["transformer"]["run"]
+            record["serving"] = {
+                "launches": run["launches"]["flash_attention"],
+                "wgmma_launches": run["launches"]["wgmma"],
+                "dispatches": run["dispatches"],
+                "path": "the transformer LM through InferenceServer "
+                        "(phase 15b), counted after the warm-up"}
         records.append(record)
     records.append(rtc_record(rtc_k, imp))
     records += train_records(train_kerrs, bwd_plans, grad_errs, bench,

@@ -24,11 +24,17 @@ pooling, batch normalisation) and the JAX package's model zoo
 the MLP, GoogLeNet and the Inceptions). ``perf`` holds the fused training
 step: ``Module.fit`` (and ``perf.module_stepper``) runs forward, backward
 and the update as one step, one CUDA graph replay a step on the card,
-with an optional bf16 cast over fp32 master weights.
+with an optional bf16 cast over fp32 master weights. ``serving`` holds
+the serving runtime: ``InferenceServer`` (admission, deadlines, the
+circuit breaker, coalescing into warmed buckets) and ``InflightBatcher``
+for decode, over ``Module.as_serving_backend()`` and the other backends,
+with the ``config`` knobs, ``resilience`` pieces and
+``compiler.batch_signature`` it reads.
 """
-from . import (c_predict, callback, convert, initializer, io,  # noqa: F401
-               lr_scheduler, metric, model, models, module, ndarray,
-               optimizer, perf, quant, random, rnn, rtc, serving, symbol)
+from . import (analysis, c_predict, callback, compiler,  # noqa: F401
+               config, convert, initializer, io, lr_scheduler, metric,
+               model, models, module, ndarray, optimizer, perf, quant,
+               random, resilience, rnn, rtc, serving, symbol)
 from .base import MXNetError, __version__  # noqa: F401
 from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from .ops import OP_TABLE  # noqa: F401

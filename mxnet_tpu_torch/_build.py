@@ -61,6 +61,8 @@ def link_flags(name: str) -> tuple:
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# read by compiler.stats(): libraries found built, built, loaded
+COUNTERS = {"cache_hits": 0, "cache_misses": 0, "compiled": 0, "loaded": 0}
 
 
 class BuildResult(NamedTuple):
@@ -116,7 +118,9 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
         if out.exists():
             log = log_file.read_text() if log_file.exists() else ""
             results[name] = BuildResult(out, 0.0, log)
+            COUNTERS["cache_hits"] += 1
             continue
+        COUNTERS["cache_misses"] += 1
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name]),
                *link_flags(name)]
@@ -132,6 +136,7 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, BuildResult]:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        COUNTERS["compiled"] += 1
         results[name] = BuildResult(out, seconds, log)
     if failed:
         raise MXNetError("CUDA kernel build failed: " + "\n".join(failed))
@@ -144,4 +149,5 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name].path))
         _LOADED[name] = lib
+        COUNTERS["loaded"] += 1
     return lib

@@ -17,8 +17,9 @@ from typing import Dict, List
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, numeric_types
 from .ndarray import NDArray
+from .ndarray.ndarray import _to_tensor
 from .symbol.symbol import _call_op
 
 __all__ = ["Executor", "build_graph_eval"]
@@ -99,14 +100,23 @@ class Executor:
         return dict(zip(self._output_names, self.outputs))
 
     def forward(self, is_train=False, **kwargs):
-        """Run the graph on the bound arrays; ``kwargs`` first copy new
-        values into named arguments. With ``is_train`` the graph is
-        recorded for :meth:`backward` and ops write their auxiliary states
-        back."""
+        """Run the graph on the bound arrays; ``kwargs`` first set new
+        values of named arguments. A value of the bound shape is copied
+        in; one of another shape replaces the bound array, so the outputs
+        follow its rows (as the JAX package's executor does: a server
+        feeds every bucket size through one bound module). With
+        ``is_train`` the graph is recorded for :meth:`backward` and ops
+        write their auxiliary states back."""
         for name, val in kwargs.items():
             if name not in self.arg_dict:
                 raise MXNetError(f"unknown argument {name}")
-            self.arg_dict[name][:] = val
+            arr = self.arg_dict[name]
+            if (isinstance(val, numeric_types)
+                    or tuple(getattr(val, "shape", ())) == arr.shape):
+                arr[:] = val
+            else:
+                arr._set_data(_to_tensor(val, arr._data.dtype,
+                                         self._device).contiguous())
         self._graph = None
         args = {n: self.arg_dict[n]._data for n in self._arg_names}
         aux = {n: self.aux_dict[n]._data for n in self._aux_names}

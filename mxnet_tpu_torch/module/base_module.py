@@ -211,6 +211,28 @@ class BaseModule:
                             eval_metric=eval_metric, locals=locals()))
         return eval_metric.get_name_value()
 
+    def as_serving_backend(self, input_name=None, quant=False):
+        """Adapt this bound module for the serving runtime
+        (:class:`mxnet_tpu_torch.serving.InferenceServer`): forward-only,
+        one host batch in, numpy outputs back. ``quant=True`` asks for
+        int8 post-training quantization, which needs
+        ``quant.quantize_backend`` (queue A12) and raises."""
+        from ..serving.backends import ModuleBackend
+        if quant:
+            raise MXNetError(
+                "as_serving_backend(quant=True) needs "
+                "quant.quantize_backend (queue A12), not ported yet")
+        return ModuleBackend(self, input_name=input_name)
+
+    def as_decode_backend(self, state_names):
+        """Adapt this bound module as one *stateful decode step* for the
+        in-flight batcher (:class:`mxnet_tpu_torch.serving.InflightBatcher`):
+        ``state_names`` are the data inputs carrying per-slot recurrent
+        state, and the symbol's last ``len(state_names)`` outputs are
+        the next states in the same order."""
+        from ..serving.slots import ModuleStepBackend
+        return ModuleStepBackend(self, state_names)
+
     def iter_predict(self, eval_data, num_batch=None, reset=True):
         assert self.binded and self.params_initialized
         if reset:

@@ -218,12 +218,21 @@ class CompileGuard:
     first runs over a new set of tensors on the CPU (where the JAX
     package counted traces). Past the expected count each one is a bug
     (shape or dtype drift, rebuilt state): the guard logs a warning, or
-    raises when ``MXTPU_RETRACE_STRICT=1``."""
+    raises when ``MXTPU_RETRACE_STRICT=1``.
+
+    The serving coalescer and the decode batcher count dispatch
+    signatures instead (:meth:`observe`, :meth:`expect`): a new one is a
+    shape the backend never ran, as it is a new XLA program in the JAX
+    package."""
 
     def __init__(self, name: str, expected: int = 1):
         self.name = name
         self.expected = expected
+        self._initial_expected = expected
         self.count = 0
+        self._signatures = set()
+        # observe()/expect() are called from concurrent serving worker
+        # threads (re-entrant: observe holds it across _record_compile)
         self._guard_lock = threading.RLock()
 
     def _record_compile(self):
@@ -234,17 +243,54 @@ class CompileGuard:
             over = self.count > self.expected
             n = self.count
         if over:
-            msg = (f"CompileGuard[{self.name}]: capture #{n} "
-                   f"(expected {self.expected}): the step is being "
-                   "captured again; check input shapes/dtypes for drift")
+            what = ("dispatch signature #{}: a shape outside the warmed set"
+                    if self._signatures else
+                    "capture #{}: the step is being captured again")
+            msg = (f"CompileGuard[{self.name}]: {what.format(n)} "
+                   f"(expected {self.expected}); check input shapes/dtypes "
+                   "for drift")
             if getenv("MXTPU_RETRACE_STRICT", 0, int):
                 raise MXNetError(msg)
             logging.warning(msg)
 
+    def observe(self, signature) -> bool:
+        """Count a *new* dispatch signature as one program: the first
+        sighting counts against the budget (and trips the strict/warn
+        machinery), repeats are free. Returns True when it was new."""
+        with self._guard_lock:
+            if signature in self._signatures:
+                return False
+            self._signatures.add(signature)
+            try:
+                self._record_compile()
+            except MXNetError:
+                # the strict raise aborts the caller's dispatch: nothing
+                # ran, so the signature and the count roll back and a
+                # retry raises again
+                self._signatures.discard(signature)
+                self.count -= 1
+                raise
+            return True
+
+    def expect(self, signature) -> bool:
+        """Pre-register a warm-up signature: seen AND budgeted — a live
+        dispatch repeating it is free, anything else counts."""
+        with self._guard_lock:
+            if signature in self._signatures:
+                return False
+            self._signatures.add(signature)
+            self.count += 1
+            self.expected = max(self.expected, self.count)
+            return True
+
     def rebind(self):
-        """Start a new program lifetime: the next capture is expected."""
+        """Start a new program lifetime: the next capture is expected,
+        the budget drops back to its construction-time value and the
+        seen signatures are forgotten."""
         with self._guard_lock:
             self.count = 0
+            self.expected = self._initial_expected
+            self._signatures.clear()
 
     @property
     def retraced(self) -> bool:

@@ -282,6 +282,7 @@ def test_port_imports_no_jax():
     code = ("import sys, mxnet_tpu_torch\n"
             "import mxnet_tpu_torch.models.transformer\n"
             "import mxnet_tpu_torch.ops.cuda.attention\n"
+            "import mxnet_tpu_torch.serving, mxnet_tpu_torch.resilience\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mxnet_tpu' "
             "or m.startswith('mxnet_tpu.'))\n"
