@@ -197,13 +197,38 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    unbatched, p50 and p99 latency, dispatches, warmed buckets, pad
    waste, decode tokens/s and one profiled dispatch a model (busy, idle
    share, the output copy's share), each with the card's name and power
-   limit.
+   limit;
+16. imperative autograd and Gluon: (a) bench_lstm.py's LM written as a
+   Gluon ``HybridBlock`` (``nn.Embedding``, ``rnn.LSTM(1024,
+   num_layers=2, layout='TNC')``, a reshape, ``nn.Dense(10000,
+   flatten=False)``, ``SoftmaxCrossEntropyLoss``; seeded Xavier) at N=64,
+   T=256, fp32, trained imperative and then hybridized, 10
+   ``autograd.record()``/``backward()``/``trainer.step(N*T)`` steps each
+   on the repeated first batch (``gluon.Trainer`` SGD at lr 0.5: the
+   per-token mean's step): every step 2 ``lstm_seq_kernel`` and 2
+   ``lstm_seq_bwd_reg_kernel`` launches and no per-step one, the fused
+   update captured once, the loss falling, one cached op hybridized; ms
+   per step (CUDA events, median of 7), the host clock, one profiled step,
+   peak memory, beside phase 11's Module step; one Gluon step against
+   Module's classic step on the card from the same weights (the LSTM
+   pieces packed into ``lstm_parameters``, ``convert.pack_rnn_pieces``)
+   and batch, the mean loss and every gradient within 1e-5 of its largest
+   magnitude; the full-width step at N=4, T=16 against the port's CPU
+   path (loss 1e-5, gradients 1e-4); (b) ``nn.MultiHeadAttention`` (d_model
+   512, 8 heads, bf16, causal) forward and backward under ``record()`` at
+   (4, 2048): one wgmma forward and one wgmma backward launch; at S=256
+   against the CPU path at ATT_BWD_BF16_TOL; (c)
+   ``model_zoo.vision.get_model('resnet50_v2')`` hybridized, fp32 NCHW,
+   batch 64 at 224**2: 10 SGD-momentum steps on one seeded batch, the
+   loss falling, every moving statistic moved, one cached op a (shape,
+   train) key, no hand-written kernel, ms per step.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
-training path, 12c, 13c, 14a and 15's served bursts) sets its kernels'
-launch counts to 0 (13c: reads them) just before it runs and reads them
-just after, and fails if a kernel of the path was not launched (13c: if
-any hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+training path, 12c, 13c, 14a, 15's served bursts, and 16's Gluon LM (each
+mode) and attention layer) sets its kernels' launch counts to 0 (13c and
+16c: read them) just before it runs and reads them just after, and fails
+if a kernel of the path was not launched (13c and 16c: if any
+hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -4374,6 +4399,400 @@ def phase_serve(tf):
     return out
 
 
+# -- 16: imperative autograd and Gluon ------------------------------------
+
+# the Gluon LM trained: bench_lstm.py's width and shape, plain SGD at 0.5
+# with trainer.step(N * T): each update the per-token mean's, the descent
+# of Module at 0.5 / T (phase 11)
+GLUON_STEPS = 10
+GLUON_SGD = {"learning_rate": 0.5}
+# one Gluon step against Module's classic step on the card, same weights
+# and batch, both through B1's kernels: the per-token cross entropy's and
+# SoftmaxOutput's gradients are the same sums, in other orders; each
+# gradient held at GLUON_MODULE_TOL of its own largest magnitude
+GLUON_MODULE_TOL = 1e-5
+# the full-width Gluon step at a small batch, card against the port's CPU
+# path: the loss at GLUON_CPU_LOSS_TOL, each gradient at GLUON_CPU_GRAD_TOL
+# of its own largest magnitude (phase 11's card-against-CPU bound, 1e-5,
+# is for Module's graph over 8 steps; here 16 steps and the gradients of
+# the LSTM's four pieces a layer)
+GLUON_CPU_N, GLUON_CPU_T = 4, 16
+GLUON_CPU_LOSS_TOL = 1e-5
+GLUON_CPU_GRAD_TOL = 1e-4
+# nn.MultiHeadAttention at the transformer's width, bf16, causal: (B, S)
+# on the card for the launch counts, S = MHA_CPU_S against the CPU path
+# at the attention phases' bf16 tolerance (ATT_BWD_BF16_TOL of each
+# result's largest magnitude)
+MHA_D, MHA_HEADS, MHA_B, MHA_S, MHA_CPU_S = 512, 8, 4, 2048, 256
+# model_zoo's resnet50_v2, hybridized, fp32 NCHW at 224**2; the batch is
+# cut from bench_resnet's 256 to 64 (PERF.md section 4); SGD with momentum
+# on one repeated batch
+ZOO_BATCH, ZOO_SIZE, ZOO_STEPS = 64, 224, 10
+ZOO_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+
+
+def gluon_lm(mx, vocab, hidden, layers):
+    """bench_lstm.py's model as MXNet's Gluon word-language-model example
+    writes it (RNNModel without dropout or tied weights)."""
+    gluon = mx.gluon
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.encoder = gluon.nn.Embedding(vocab, hidden)
+                self.rnn = gluon.rnn.LSTM(hidden, num_layers=layers,
+                                          layout="TNC")
+                self.decoder = gluon.nn.Dense(vocab, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            out = self.rnn(self.encoder(x))
+            return self.decoder(F.reshape(out, shape=(-1, hidden)))
+
+    return RNNModel(prefix="lm_")
+
+
+def gluon_batch(mx, data, label, n, t, ctx=None):
+    """Module's (N, T) batch as the Gluon LM takes it: the tokens TNC, the
+    labels flattened N-major, as bench_lstm.py's graph reshapes them (its
+    output rows are T-major: each row is paired with the same label)."""
+    return (mx.nd.array(data[:n, :t].T, ctx=ctx),
+            mx.nd.array(label[:n, :t].reshape(-1), ctx=ctx))
+
+
+def gluon_init(mx, x, ctx=None, seed=0):
+    """The Gluon LM at full width from seeded Xavier, its deferred shapes
+    fixed by one forward."""
+    mx.random.seed(seed)
+    net = gluon_lm(mx, V, H, LAYERS)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(x)
+    return net
+
+
+def gluon_grads(mx, net, x, y):
+    """One recorded forward and backward: the per-token losses (host) and
+    every parameter's gradient (on its device)."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    return loss.asnumpy(), {k: p.grad()._data.clone()
+                            for k, p in net.collect_params().items()}
+
+
+def gluon_lm_train(mx, data, label, hybrid):
+    """GLUON_STEPS record/backward/trainer.step(N*T) steps of the Gluon LM
+    on the first batch, on the default context: every step 2 sequence
+    forward and 2 register-kernel backward launches and no per-step one,
+    the fused update captured once, the loss falling; then ms per step
+    (CUDA events, median of 7), the host clock, one profiled step and the
+    peak memory."""
+    x, y = gluon_batch(mx, data, label, TRAIN_N, TRAIN_T)
+    net = gluon_init(mx, x)
+    if hybrid:
+        net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD))
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(TRAIN_N * TRAIN_T)
+        return loss
+
+    label_ = "hybridized" if hybrid else "imperative"
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_step = [], []
+    zero_train_counts()  # the Gluon LM's path starts here
+    for _ in range(GLUON_STEPS):
+        before = train_counts()
+        loss = step()
+        per_step.append(tuple(a - b for a, b in zip(train_counts(), before)))
+        losses.append(float(loss.mean().asscalar()))
+        del loss
+    launches = train_counts()  # and ends here
+    peak = torch.cuda.max_memory_allocated()
+    captures = trainer._fused_apply.guard.count
+    log(f"[gluon] LM {label_} N={TRAIN_N} T={TRAIN_T}: {GLUON_STEPS} steps "
+        f"at {GLUON_SGD}, step({TRAIN_N * TRAIN_T}): cross-entropy "
+        f"{[round(v, 5) for v in losses]}; (lstm_sequence, "
+        f"lstm_sequence_backward, its register kernel, lstm_cell, "
+        f"lstm_cell_backward) launches per step {per_step}; fused update "
+        f"captures {captures}; cached ops "
+        f"{len(net._cached_ops) if hybrid else 0}; peak {peak} bytes")
+    if any(c != (LAYERS, LAYERS, LAYERS, 0, 0) for c in per_step):
+        raise RuntimeError(f"Gluon LM launches per step {per_step}, expected "
+                           f"{(LAYERS, LAYERS, LAYERS, 0, 0)}")
+    if captures != 1:
+        raise RuntimeError(f"the fused update was captured {captures} times")
+    if hybrid and len(net._cached_ops) != 1:
+        raise RuntimeError(f"cached ops {list(net._cached_ops)}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the Gluon LM's loss did not fall: {losses}")
+    for k, p in net.collect_params().items():
+        if not bool(torch.isfinite(p.data()._data).all()):
+            raise RuntimeError(f"parameter {k} not finite")
+    ms, runs, host = timed_steps(step)
+    tokens = TRAIN_N * TRAIN_T / ms * 1e3
+    log(f"[gluon] LM {label_} step: median {ms:.3f} ms (CUDA events) of "
+        f"{[round(v, 3) for v in runs]}, host clock median {host:.3f} ms; "
+        f"{tokens:.1f} tokens/s")
+    profile = profile_device(f"one Gluon LM step ({label_})", step)
+    return {"losses": losses, "per_step": per_step[0], "launches": launches,
+            "captures": captures, "step_ms": ms, "step_runs_ms": runs,
+            "step_host_ms": host, "tokens_per_s": tokens,
+            "peak_device_bytes": peak, "profile": profile}
+
+
+def gluon_vs_module(mx, data, label):
+    """One Gluon step against Module's classic step on the card, from the
+    same weights (the LSTM pieces packed into Module's ``lstm_parameters``)
+    and batch: the mean loss and every gradient."""
+    from mxnet_tpu_torch.convert import pack_rnn_pieces
+    x, y = gluon_batch(mx, data, label, TRAIN_N, TRAIN_T)
+    net = gluon_init(mx, x, seed=1)
+    loss, grads = gluon_grads(mx, net, x, y)
+    params = net.collect_params()
+    rnn = {k[len("lm_lstm0_"):]: p for k, p in params.items()
+           if k.startswith("lm_lstm0_")}
+    mod = mx.mod.Module(build_lm(mx, V, H, LAYERS, TRAIN_T, train=True))
+    mod.bind(data_shapes=[("data", (TRAIN_N, TRAIN_T))],
+             label_shapes=[("softmax_label", (TRAIN_N, TRAIN_T))])
+    mod.init_params(mx.init.Xavier())
+    mod.set_params({
+        "embed_weight": params["lm_embedding0_weight"].data(),
+        "lstm_parameters": mx.nd.array(pack_rnn_pieces(
+            {k: p.data() for k, p in rnn.items()}, LAYERS)),
+        "pred_weight": params["lm_dense0_weight"].data(),
+        "pred_bias": params["lm_dense0_bias"].data()}, {})
+    batch = mx.io.DataBatch([mx.nd.array(data[:TRAIN_N], ctx=mx.cpu())],
+                            [mx.nd.array(label[:TRAIN_N], ctx=mx.cpu())])
+    zero_train_counts()
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    if train_counts()[:2] != (LAYERS, LAYERS):
+        raise RuntimeError(f"Module's step launched {train_counts()}")
+    prob = mod.get_outputs()[0]._data
+    rows = torch.arange(TRAIN_N * TRAIN_T, device=prob.device)
+    labels = torch.tensor(label[:TRAIN_N].reshape(-1), device=prob.device)
+    ce = float(-torch.log(prob[rows, labels.long()]).mean())
+    mgrads = {k: v._data for k, v in mod._exec.grad_dict.items()}
+    pairs = {"embed_weight": grads["lm_embedding0_weight"],
+             "pred_weight": grads["lm_dense0_weight"],
+             "pred_bias": grads["lm_dense0_bias"],
+             "lstm_parameters": torch.tensor(pack_rnn_pieces(
+                 {k: grads["lm_lstm0_" + k].cpu().numpy() for k in rnn},
+                 LAYERS), device=prob.device)}
+    errs = {}
+    for name, g in pairs.items():
+        want = mgrads[name].float()
+        errs[name] = float((g.float() - want).abs().max()
+                           / want.abs().max())
+    loss_err = abs(float(loss.mean()) - ce) / abs(ce)
+    log(f"[gluon] one Gluon step against Module's classic step on the card "
+        f"(N={TRAIN_N} T={TRAIN_T}): mean loss {float(loss.mean()):.6f} "
+        f"against {ce:.6f} (relative {loss_err:.3g}); each gradient's "
+        f"largest difference over its largest magnitude {errs}")
+    if loss_err > GLUON_MODULE_TOL or any(e > GLUON_MODULE_TOL
+                                          for e in errs.values()):
+        raise RuntimeError("the Gluon step disagrees with Module's step "
+                           f"beyond {GLUON_MODULE_TOL}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs}
+
+
+def gluon_card_vs_cpu(mx, data, label):
+    """The full-width Gluon step at GLUON_CPU_N x GLUON_CPU_T on the card
+    and on the port's CPU path from the same weights."""
+    from mxnet_tpu_torch.convert import gluon_params_from_numpy
+    n, t = GLUON_CPU_N, GLUON_CPU_T
+    x, y = gluon_batch(mx, data, label, n, t)
+    xc, yc = gluon_batch(mx, data, label, n, t, ctx=mx.cpu())
+    net = gluon_init(mx, x, seed=2)
+    cpu = gluon_init(mx, xc, ctx=mx.cpu(), seed=3)
+    gluon_params_from_numpy(cpu, {k: p.data().asnumpy() for k, p in
+                                  net.collect_params().items()})
+    loss, grads = gluon_grads(mx, net, x, y)
+    loss_c, grads_c = gluon_grads(mx, cpu, xc, yc)
+    loss_err = float(np.abs(loss - loss_c).max() / np.abs(loss_c).max())
+    errs = {k: float((g.cpu() - grads_c[k]).abs().max()
+                     / grads_c[k].abs().max()) for k, g in grads.items()}
+    log(f"[gluon] full-width Gluon step N={n} T={t}, card against the CPU "
+        f"path: loss {loss_err:.3g}, gradients {errs}")
+    if loss_err > GLUON_CPU_LOSS_TOL or any(e > GLUON_CPU_GRAD_TOL
+                                            for e in errs.values()):
+        raise RuntimeError("the Gluon step on the card disagrees with the "
+                           "CPU path")
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs}
+
+
+def mha_run(mx, s, ctx=None, weights=None):
+    """nn.MultiHeadAttention (bf16, causal) forward and backward under
+    record() on (MHA_B, s, MHA_D) seeded inputs: the output, the input's
+    and every parameter's gradient (host fp32), and the weights."""
+    mx.random.seed(4)
+    att = mx.gluon.nn.MultiHeadAttention(MHA_D, MHA_HEADS, causal=True,
+                                         dtype="bfloat16", prefix="mha_")
+    att.initialize(mx.init.Xavier(), ctx=ctx)
+    if weights is not None:
+        for k, p in att.collect_params().items():
+            p.data()[:] = weights[k]
+    rng = np.random.RandomState(5)
+    x = mx.nd.array(rng.normal(0, 1, (MHA_B, s, MHA_D)), ctx=ctx,
+                    dtype="bfloat16")
+    cot = mx.nd.array(rng.normal(0, 1, (MHA_B, s, MHA_D)), ctx=ctx,
+                      dtype="bfloat16")
+    x.attach_grad()
+    with mx.autograd.record():
+        out = att(x)
+    out.backward(cot)
+    res = {"out": out.asnumpy(), "dx": x.grad.asnumpy()}
+    # a key bias moves every score of a query row alike, which the softmax
+    # cancels: its gradient is 0 up to rounding, with no scale to hold
+    res.update({k: p.grad().asnumpy()
+                for k, p in att.collect_params().items()
+                if k != "mha_key_bias"})
+    return res, {k: p.data().asnumpy() for k, p in
+                 att.collect_params().items()}
+
+
+def phase_gluon_attention(mx):
+    """(b) nn.MultiHeadAttention at the transformer's width: one forward
+    and backward at S=MHA_S, one wgmma forward and one wgmma backward
+    launch; at S=MHA_CPU_S against the port's CPU path."""
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
+    zero_attention_counts()  # the attention layer's path starts here
+    res, _ = mha_run(mx, MHA_S)
+    counts = {"forward": fa.launches, "wgmma_forward": fa.wgmma_launches,
+              "backward": fa.backward_launches,
+              "wgmma_backward": fa.wgmma_backward_launches}
+    if counts != {"forward": 1, "wgmma_forward": 1, "backward": 1,
+                  "wgmma_backward": 1}:
+        raise RuntimeError(f"nn.MultiHeadAttention launches {counts}")
+    if not all(np.isfinite(v).all() for v in res.values()):
+        raise RuntimeError("nn.MultiHeadAttention: a non-finite result")
+    card, weights = mha_run(mx, MHA_CPU_S)
+    cpu, _ = mha_run(mx, MHA_CPU_S, ctx=mx.cpu(), weights=weights)
+    errs = {k: float(np.abs(card[k] - cpu[k]).max()
+                     / max(np.abs(cpu[k]).max(), ATT_BWD_FLOOR))
+            for k in cpu}
+    log(f"[gluon] nn.MultiHeadAttention d_model={MHA_D} heads={MHA_HEADS} "
+        f"bf16 causal (B, S)=({MHA_B}, {MHA_S}): launches {counts}; at "
+        f"S={MHA_CPU_S} card against the CPU path, largest difference over "
+        f"largest magnitude {errs} (bound {ATT_BWD_BF16_TOL})")
+    if any(e > ATT_BWD_BF16_TOL for e in errs.values()):
+        raise RuntimeError("nn.MultiHeadAttention disagrees with the CPU path")
+    return {"launches": counts, "card_vs_cpu_rel_err": errs}
+
+
+def phase_gluon_resnet(mx):
+    """(c) model_zoo.vision.get_model('resnet50_v2'), hybridized, fp32
+    NCHW, ZOO_BATCH x 224**2: ZOO_STEPS SGD-momentum steps on one seeded
+    batch (the loss falls, the moving statistics move), one cached op for
+    each (shape, train) key, ms per step."""
+    net = mx.gluon.model_zoo.vision.get_model("resnet50_v2", classes=1000)
+    mx.random.seed(0)
+    net.initialize(mx.init.Xavier())
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(ZOO_BATCH, 3, ZOO_SIZE, ZOO_SIZE))
+    y = mx.nd.array(rng.randint(0, 1000, (ZOO_BATCH,)).astype(np.float32))
+    net.hybridize()
+    net(x)  # predict mode: fixes the deferred shapes (one cached op)
+    params = net.collect_params()
+    moving0 = {k: p.data()._data.clone() for k, p in params.items()
+               if "running" in k}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(params, "sgd", dict(ZOO_SGD))
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(ZOO_BATCH)
+        return loss
+
+    before = hand_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(ZOO_STEPS):
+        loss = step()
+        losses.append(float(loss.mean().asscalar()))
+        del loss
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(p.data()._data, moving0[k])
+                for k, p in params.items() if k in moving0)
+    keys = {k: op.calls for k, op in net._cached_ops.items()}
+    log(f"[gluon] resnet50_v2 hybridized fp32 NCHW batch {ZOO_BATCH}: "
+        f"{ZOO_STEPS} steps at {ZOO_SGD}: cross-entropy "
+        f"{[round(v, 4) for v in losses]}; moving statistics moved "
+        f"{moved} of {len(moving0)}; cached ops (key: calls) {keys}; fused "
+        f"update captures {trainer._fused_apply.guard.count}; peak {peak} "
+        "bytes")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the ResNet's loss did not fall: {losses}")
+    if moved != len(moving0):
+        raise RuntimeError("a BatchNorm's moving statistics did not move")
+    if sorted(k[1] for k in keys) != [False, True] or any(
+            n < 1 for n in keys.values()):
+        raise RuntimeError(f"cached ops {keys}: one a (shape, train) key")
+    if hand_kernel_counts() != before:
+        raise RuntimeError("the Gluon ResNet launched a hand-written kernel")
+    ms, runs, host = timed_steps(step)
+    log(f"[gluon] resnet50_v2 step: median {ms:.3f} ms (CUDA events) of "
+        f"{[round(v, 3) for v in runs]}, host clock median {host:.3f} ms; "
+        f"{ZOO_BATCH / ms * 1e3:.1f} img/s")
+    return {"losses": losses, "moved_statistics": moved,
+            "cached_ops": {str(k): n for k, n in keys.items()},
+            "step_ms": ms, "step_runs_ms": runs, "step_host_ms": host,
+            "img_per_s": ZOO_BATCH / ms * 1e3, "peak_device_bytes": peak}
+
+
+def gluon_records(records, gluon):
+    """Each kernel's launches on the Gluon paths (phase 16) beside its
+    record's main-path count."""
+    by_name = {r["name"]: r for r in records}
+    for mode in ("imperative", "hybridized"):
+        rec = gluon["lm_" + mode]
+        for name, i in (("lstm_sequence", 0), ("lstm_sequence_backward", 1)):
+            by_name[name].setdefault("gluon", {})[f"lm_{mode}"] = {
+                "launches": rec["launches"][i], "steps": GLUON_STEPS,
+                "path": f"the Gluon LM {mode}, {GLUON_STEPS} "
+                        "record/backward/trainer.step steps (phase 16a)"}
+    att = gluon["attention"]["launches"]
+    by_name["flash_attention"]["gluon"] = {
+        "launches": att["forward"], "wgmma_launches": att["wgmma_forward"],
+        "path": "nn.MultiHeadAttention, one forward (phase 16b)"}
+    by_name["flash_attention_backward"]["gluon"] = {
+        "launches": att["backward"],
+        "wgmma_launches": att["wgmma_backward"],
+        "path": "nn.MultiHeadAttention, one backward (phase 16b)"}
+
+
+def phase_gluon(bench):
+    """16: the Gluon LM imperative and hybridized, its step against
+    Module's and against the CPU path; nn.MultiHeadAttention; the Gluon
+    ResNet-50 (see the module docstring); ``bench`` is phase 11's."""
+    import mxnet_tpu_torch as mx
+    card = nvidia_smi_name_and_limit()
+    data, label, _ = train_data(mx)
+    out = {"card": card,
+           "lm_imperative": gluon_lm_train(mx, data, label, False),
+           "lm_hybridized": gluon_lm_train(mx, data, label, True),
+           "lm_vs_module": gluon_vs_module(mx, data, label),
+           "lm_card_vs_cpu": gluon_card_vs_cpu(mx, data, label),
+           "attention": phase_gluon_attention(mx),
+           "resnet50_v2": phase_gluon_resnet(mx)}
+    out["module_classic_step_ms"] = bench["step_ms"]
+    for name in ("lm_imperative", "lm_hybridized"):
+        rec = out[name]
+        log(f"[gluon] {name} on {card}: {rec['step_ms']:.3f} ms a step "
+            f"(idle share {rec['profile']['idle_share']:.4f}); Module's "
+            f"classic step (phase 11) {bench['step_ms']:.3f} ms")
+    log("[gluon] phase 16: " + json.dumps(out))
+    return out
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
@@ -4417,6 +4836,7 @@ def main():
     fused = phase_fused(bench, resnet)
     log("[fused] phase 14: " + json.dumps(fused))
     serve = phase_serve(tf)
+    gluon = phase_gluon(bench)
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -4548,6 +4968,7 @@ def main():
     records += attention_backward_records(att_bwd_errs, masked_bwd_launches,
                                           tf_train, att_bwd_timing,
                                           wgmma_bwd_build)
+    gluon_records(records, gluon)
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,12 +29,17 @@ the serving runtime: ``InferenceServer`` (admission, deadlines, the
 circuit breaker, coalescing into warmed buckets) and ``InflightBatcher``
 for decode, over ``Module.as_serving_backend()`` and the other backends,
 with the ``config`` knobs, ``resilience`` pieces and
-``compiler.batch_signature`` it reads.
+``compiler.batch_signature`` it reads. ``autograd`` (``record()``,
+``backward()``, ``NDArray.attach_grad``) records imperative ops with torch
+autograd, and ``gluon`` (blocks, hybridized cached ops, ``nn``, ``rnn``
+layers over the RNN op, ``loss``, the fused-update ``Trainer``, the ResNet
+zoo) trains models written as blocks.
 """
-from . import (analysis, c_predict, callback, compiler,  # noqa: F401
-               config, convert, initializer, io, lr_scheduler, metric,
-               model, models, module, ndarray, optimizer, perf, quant,
-               random, resilience, rnn, rtc, serving, symbol)
+from . import (analysis, autograd, c_predict, callback,  # noqa: F401
+               compiler, config, convert, gluon, initializer, io,
+               lr_scheduler, metric, model, models, module, ndarray,
+               optimizer, perf, quant, random, resilience, rnn, rtc,
+               serving, symbol)
 from .base import MXNetError, __version__  # noqa: F401
 from .context import Context, cpu, current_context, gpu, tpu  # noqa: F401
 from .ops import OP_TABLE  # noqa: F401

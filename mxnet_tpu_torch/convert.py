@@ -5,7 +5,10 @@ Both packages hold parameters as named arrays and write them as the same
 ``aux:<name>``. These helpers move numpy arrays (as either package's
 ``asnumpy()`` returns them) into the port and write the container bytes
 that both ``Predictor``s read; the transformer's nested parameter dict
-moves the same way.
+moves the same way. Gluon parameter names are the same in both packages
+(:func:`gluon_params_from_numpy`), and a Gluon RNN layer's per-layer pieces
+pack into the fused RNN op's one parameter vector, the ``Module`` LM's
+(:func:`pack_rnn_pieces`).
 """
 from __future__ import annotations
 
@@ -15,11 +18,13 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .context import Context, current_context
 from .ndarray import NDArray, array
 
 __all__ = ["params_from_numpy", "params_to_bytes",
-           "transformer_params_from_numpy"]
+           "transformer_params_from_numpy", "gluon_params_from_numpy",
+           "pack_rnn_pieces"]
 
 
 def params_from_numpy(arg_params: Mapping[str, np.ndarray],
@@ -59,3 +64,44 @@ def transformer_params_from_numpy(tree: Mapping[str, object],
             return {k: convert(v) for k, v in node.items()}
         return torch.tensor(np.asarray(node), device=device)
     return convert(tree)
+
+
+def gluon_params_from_numpy(net, arrays: Mapping[str, object]):
+    """Set every parameter of the port's Gluon block ``net`` from
+    ``arrays`` ({parameter name: value}, numpy arrays or NDArrays of
+    either package, e.g. ``{n: p.data().asnumpy() for n, p in
+    jax_net.collect_params().items()}``), each onto its parameter's
+    device. The block's parameters must be initialized, their deferred
+    shapes fixed (one forward does it); a missing name or shape raises."""
+    for name, param in net.collect_params().items():
+        if name not in arrays:
+            raise MXNetError(f"gluon_params_from_numpy: no value for {name}")
+        value = arrays[name]
+        host = value.asnumpy() if hasattr(value, "asnumpy") else value
+        data = param.data()
+        if tuple(np.shape(host)) != data.shape:
+            raise MXNetError(f"gluon_params_from_numpy: {name} has shape "
+                             f"{data.shape}, the value {np.shape(host)}")
+        data[:] = np.asarray(host)
+
+
+def pack_rnn_pieces(pieces: Mapping[str, object], num_layers: int,
+                    bidirectional: bool = False) -> np.ndarray:
+    """A Gluon RNN layer's pieces ({"l0_i2h_weight": value, ...; "r*" for
+    the reverse direction}, values as numpy arrays or NDArrays) as the
+    fused RNN op's one float32 parameter vector, in the op's order
+    (``gluon/rnn/rnn_layer.py:_collect_param_arrays``): every weight,
+    layer by layer and direction by direction, i2h then h2h, row-major;
+    then every bias in the same order."""
+    def host(v):
+        return np.asarray(v.asnumpy() if hasattr(v, "asnumpy") else v,
+                          dtype=np.float32)
+    dirs = ["l", "r"] if bidirectional else ["l"]
+    weights, biases = [], []
+    for i in range(num_layers):
+        for d in dirs:
+            weights += [host(pieces[f"{d}{i}_i2h_weight"]).ravel(),
+                        host(pieces[f"{d}{i}_h2h_weight"]).ravel()]
+            biases += [host(pieces[f"{d}{i}_i2h_bias"]),
+                       host(pieces[f"{d}{i}_h2h_bias"])]
+    return np.concatenate(weights + biases)

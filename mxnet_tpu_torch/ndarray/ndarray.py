@@ -9,11 +9,13 @@ slicing, ``copyto`` of equal types) are safe, and an array keeps the value
 it had when another array was derived from it, as with the JAX package's
 immutable arrays.
 
-Left out, raising :class:`MXNetError`: autograd (``attach_grad``,
-``backward``, ``grad``; queue A8), sparse storage (``tostype``
-to csr/row_sparse; queue A9) and ``imdecode`` (queue A10). numpy has no
-bfloat16, so a bf16 array's ``dtype`` is :data:`bfloat16` and its
-``asnumpy()`` is the exact float32 widening.
+Autograd (``attach_grad``, ``backward``, ``grad``, ``detach``) runs over
+torch autograd (:mod:`mxnet_tpu_torch.autograd`): inside ``record()`` an
+op runs with grad mode on over each array's graph tensor, outside it under
+``torch.no_grad()``. Left out, raising :class:`MXNetError`: sparse storage
+(``tostype`` to csr/row_sparse; queue A9) and ``imdecode`` (queue A10).
+numpy has no bfloat16, so a bf16 array's ``dtype`` is :data:`bfloat16` and
+its ``asnumpy()`` is the exact float32 widening.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional
 import numpy as _np
 import torch
 
+from .. import autograd
 from .. import random as _random
 from ..base import MXNetError, numeric_types
 from ..context import Context, context_of, current_context
@@ -103,21 +106,17 @@ def _negative_step_index(t: torch.Tensor, key):
 
 
 def _autograd_is_training() -> bool:
-    """Train mode comes with the imperative autograd of queue A8; until
-    then every imperative call runs in eval mode."""
-    return False
-
-
-def _training_slice(what):
-    raise MXNetError(f"{what} needs the imperative autograd of queue A8, "
-                     "not ported yet (symbolic training runs through "
-                     "Executor.backward and Module)")
+    """Whether imperative ops run in train mode (``autograd.record()``,
+    ``train_mode()``): Dropout draws, BatchNorm reads and moves its batch
+    statistics, the RNN op's dropout draws."""
+    return autograd.is_training()
 
 
 class NDArray:
     """Multi-dimensional array with MXNet semantics over a torch tensor."""
 
-    __slots__ = ("_data", "_version", "__weakref__")
+    __slots__ = ("_data", "_version", "_grad_buf", "_grad_req", "_ag_leaf",
+                 "__weakref__")
 
     # ensure ndarray <op> NDArray dispatches to us
     __array_priority__ = 100.0
@@ -129,6 +128,10 @@ class NDArray:
             raise MXNetError(f"NDArray wraps a torch.Tensor, got {type(data)}")
         self._data = data
         self._version = 0
+        self._grad_buf: Optional["NDArray"] = None
+        self._grad_req = "null"
+        # (tensor, leaf): the leaf autograd differentiates for that tensor
+        self._ag_leaf = None
 
     # -- core properties ----------------------------------------------------
     @property
@@ -223,19 +226,30 @@ class NDArray:
         raise MXNetError(f"storage type {stype!r} needs the sparse NDArrays "
                          "of queue A9, not ported yet")
 
-    # -- autograd (queue A8) ------------------------------------------------
+    # -- autograd -----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        _training_slice("attach_grad")
+        """Allocate a gradient buffer and make this array a leaf of later
+        recordings (its history, if any, is dropped)."""
+        if self._data.requires_grad:
+            self._data = self._data.detach()
+        self._ag_leaf = None
+        self._mark_variable(zeros_like(self), grad_req)
+
+    def _mark_variable(self, grad_nd, grad_req):
+        self._grad_buf = grad_nd
+        self._grad_req = grad_req
 
     @property
-    def grad(self):
-        return _training_slice("NDArray.grad")
+    def grad(self) -> Optional["NDArray"]:
+        return self._grad_buf
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data)
+        return NDArray(self._data.detach())
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        _training_slice("backward")
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph=retain_graph,
+                          train_mode=train_mode)
 
     # -- mutation -----------------------------------------------------------
     def __setitem__(self, key, value):
@@ -254,9 +268,22 @@ class NDArray:
         self._set_data(new)
 
     def __getitem__(self, key):
+        if autograd.is_recording():
+            return self._getitem_taped(key)
         if isinstance(key, NDArray):
             return NDArray(self._data[key._data.long()])
         return NDArray(_negative_step_index(self._data, _torch_key(key)))
+
+    def _getitem_taped(self, key):
+        """Indexing inside ``record()``: the same indexing of the array's
+        graph tensor with grad mode on, so gradients flow through basic
+        slices, integer and array keys alike (the JAX package routes them
+        through its slice ops for the same end)."""
+        t = autograd._graph_tensor(self)
+        with torch.enable_grad():
+            if isinstance(key, NDArray):
+                return NDArray(t[key._data.long()])
+            return NDArray(_negative_step_index(t, _torch_key(key)))
 
     # -- python protocol ----------------------------------------------------
     def __len__(self):
@@ -521,15 +548,21 @@ def imperative_invoke(op_name, inputs, attrs, out=None):
     written (cast to each target's dtype) behind the given ones. A call
     that may draw randomness (``opdef.uses_rng``) gets the device's
     ``random.generator``; an op that takes one but does not draw with these
-    attrs gets ``None``. The autograd tape is queue A8."""
+    attrs gets ``None``. Inside ``autograd.record()`` the op runs with grad
+    mode on over the inputs' graph tensors (``autograd._graph_tensor``), so
+    that torch autograd records it; outside, under ``torch.no_grad()``."""
     opdef = get_op(op_name) if isinstance(op_name, str) else op_name
     parsed = opdef.parse_attrs(attrs or {})
     first = next((x for x in inputs if isinstance(x, NDArray)), None)
     device = (first._data.device if first is not None
               else (_ctx_from_attr(parsed.get("ctx"))
                     or current_context()).torch_device())
-    vals = [x._data if isinstance(x, NDArray) else _to_tensor(x, device=device)
-            for x in inputs]
+    recording = autograd.is_recording()
+    # auxiliary states (BatchNorm's moving statistics) take no gradient
+    vals = [(autograd._graph_tensor(x)
+             if recording and i not in opdef.aux_inputs else x._data)
+            if isinstance(x, NDArray) else _to_tensor(x, device=device)
+            for i, x in enumerate(inputs)]
 
     call_attrs = dict(parsed)
     if opdef.key_var_num_args and not call_attrs.get(opdef.key_var_num_args):
@@ -540,7 +573,8 @@ def imperative_invoke(op_name, inputs, attrs, out=None):
     if opdef.needs_rng:
         vals = [_random.generator(device) if opdef.uses_rng(parsed)
                 else None] + vals
-    outputs = opdef.fn(*vals, **call_attrs)
+    with torch.enable_grad() if recording else torch.no_grad():
+        outputs = opdef.fn(*vals, **call_attrs)
     if not isinstance(outputs, tuple):
         outputs = (outputs,)
     if not inputs:

@@ -2,18 +2,20 @@
 
 Counterpart of ``mxnet_tpu/ops/attention_ops.py`` and of the
 ``_contrib_flash_attention`` registration in
-``mxnet_tpu/ops/pallas/attention.py``. ``MultiHeadAttention`` is plain
-torch, as the JAX op is plain jnp (``parallel/sequence.py:_full_attn``),
-and runs on one device: the port has no mesh yet, so a nonempty
-``seq_axis`` runs the local attention, as the JAX op does when no ambient
-mesh carries that axis. Sequence-parallel attention comes with the mesh.
+``mxnet_tpu/ops/pallas/attention.py``. The JAX ``MultiHeadAttention`` is
+plain jnp (``parallel/sequence.py:_full_attn``); the port's runs its core
+through the flash-attention kernels in bf16 where the kernels take the
+head dim and the masks agree, else as the JAX op does, on one device:
+the port has no mesh yet, so a nonempty ``seq_axis`` runs the local
+attention, as the JAX op does when no ambient mesh carries that axis.
+Sequence-parallel attention comes with the mesh.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import AttrSpec, MXNetError
-from .cuda.attention import flash_attention
+from .cuda.attention import MAX_HEAD_DIM, flash_attention
 from .registry import register
 
 _NEG = -1e30
@@ -50,6 +52,17 @@ def _full_attn(q, k, v, causal, scale):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def _flash_route(q, k, causal):
+    """Whether the op's core runs :func:`flash_attention`: bf16 heads of
+    a dim the kernels take (up to ``MAX_HEAD_DIM``), and a mask that is
+    the kernels' (not causal, or Sq = Sk; over Sq != Sk this op's causal
+    mask is top-left aligned and the kernels' diagonal is not). fp32
+    keeps :func:`_full_attn`'s cuBLAS products, and fp16 and wider heads,
+    which the kernels do not take, keep it too."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_HEAD_DIM
+            and not (causal and q.shape[2] != k.shape[2]))
+
+
 @register("MultiHeadAttention",
           attrs=AttrSpec(num_heads=("int",), causal=("bool", False),
                          seq_axis=("str", ""), seq_mode=("str", "auto"),
@@ -62,11 +75,18 @@ def _multi_head_attention(query, key, value, num_heads, causal=False,
                           head_axis="model"):
     """Scaled-dot-product multi-head attention over (B, S, E) inputs.
     ``seq_axis``, ``seq_mode``, ``batch_axis`` and ``head_axis`` name mesh
-    axes; with no mesh the attention is local, with identical numerics."""
+    axes; with no mesh the attention is local, with identical numerics.
+    The heads are (B, H, S, D) views of the projections; the core is
+    :func:`flash_attention` where :func:`_flash_route` says so (the
+    Hopper kernels B2, forward and backward, on CUDA tensors; their plain
+    versions on the CPU), else :func:`_full_attn`."""
     q = _split_heads(query, num_heads)
     k = _split_heads(key, num_heads)
     v = _split_heads(value, num_heads)
-    out = _full_attn(q, k, v, causal, None)
+    if _flash_route(q, k, causal):
+        out = flash_attention(q, k, v, causal)
+    else:
+        out = _full_attn(q, k, v, causal, None)
     return _merge_heads(out).to(query.dtype)
 
 

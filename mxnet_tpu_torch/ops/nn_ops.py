@@ -1,11 +1,13 @@
 """Neural-network layer ops of the LSTM LM and the CNN model zoo.
 
 Counterpart of the matching ops in ``mxnet_tpu/ops/nn_ops.py``:
-FullyConnected, Convolution, Pooling, BatchNorm, LRN, Activation, Dropout,
-softmax and SoftmaxOutput. The JAX package left these to XLA, so here they
-are torch calls: products go to cuBLAS (``torch.matmul``), convolutions to
-cuDNN (``torch.nn.functional.conv*d``), pooling and batch normalisation to
-torch's own kernels, and autograd differentiates them. Channel-last
+FullyConnected, Convolution, Deconvolution, Pooling, BatchNorm,
+InstanceNorm, LRN, Activation, LeakyReLU, Dropout, softmax, log_softmax
+and SoftmaxOutput. The JAX package left these to XLA, so here they are
+torch calls: products go to cuBLAS (``torch.matmul``), convolutions to
+cuDNN (``torch.nn.functional.conv*d`` and ``conv_transpose*d``), pooling
+and batch normalisation to torch's own kernels, and autograd
+differentiates them. Channel-last
 layouts (``NHWC`` and the others) hand those calls permuted views whose
 memory is torch's ``channels_last``, so no layout copy is made; weights
 keep the JAX package's stored layout (OHWI for NHWC) and ``.params`` files
@@ -142,6 +144,58 @@ def _convolution(*args, kernel, stride=(), dilate=(), pad=(), num_filter=0,
                         padding=_norm_spatial(pad, nsp, 0),
                         dilation=_norm_spatial(dilate, nsp, 1),
                         groups=num_group)
+    return _to_channel_last(out) if last else out
+
+
+def _deconv_param_shapes(attrs, shapes):
+    d = shapes[0]
+    nf = int(attrs["num_filter"])
+    g = int(attrs.get("num_group", 1) or 1)
+    cin = d[-1] if _channel_last(attrs.get("layout")) else d[1]
+    out = [d, (cin, nf // g) + tuple(attrs["kernel"])]
+    if len(shapes) > 2:
+        out.append((nf,))
+    return out
+
+
+_DECONV_FN = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+              3: F.conv_transpose3d}
+
+
+@register("Deconvolution",
+          num_inputs=None, input_names=["data", "weight", "bias"],
+          param_shapes=_deconv_param_shapes,
+          attrs=_CONV_SPEC)
+def _deconvolution(*args, kernel, stride=(), dilate=(), pad=(), num_filter=0,
+                   num_group=1, workspace=1024, no_bias=False, cudnn_tune=None,
+                   cudnn_off=False, layout=None, adj=(), target_shape=()):
+    """Transposed convolution (``mxnet_tpu/ops/nn_ops.py:159``) through
+    cuDNN on the card (``F.conv_transpose*d``): the weight is
+    (C_in, C_out / groups, *kernel) in every layout, ``adj`` adds rows at
+    the high end of each output dim (torch's ``output_padding``, which
+    must stay below the stride or the dilation there), and an ``N*C``
+    layout runs on a channels_last view of the data. ``target_shape`` is
+    ignored, as the JAX op ignores it."""
+    data, weight = args[0], args[1]
+    nsp = len(kernel)
+    if nsp not in _DECONV_FN or data.dim() != nsp + 2:
+        raise MXNetError(f"Deconvolution: kernel {tuple(kernel)} over data "
+                         f"of shape {tuple(data.shape)}")
+    stride = _norm_spatial(stride, nsp, 1)
+    dilate = _norm_spatial(dilate, nsp, 1)
+    adj = _norm_spatial(adj, nsp, 0)
+    if any(a >= max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        raise MXNetError(f"Deconvolution: adj {adj} must be below the "
+                         f"stride {stride} or the dilation {dilate}")
+    weight = weight.to(data.dtype)
+    bias = None if no_bias else args[2].to(data.dtype)
+    last = _channel_last(layout)
+    if last:
+        data = _to_channel_first(data)
+    out = _DECONV_FN[nsp](data, weight, bias, stride=stride,
+                          padding=_norm_spatial(pad, nsp, 0),
+                          output_padding=adj, groups=num_group,
+                          dilation=dilate)
     return _to_channel_last(out) if last else out
 
 
@@ -305,6 +359,22 @@ def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, axis=1):
     return data / torch.pow(knorm + alpha / nsize * ssum, beta)
 
 
+@register("InstanceNorm",
+          num_inputs=3, input_names=["data", "gamma", "beta"],
+          param_shapes=lambda attrs, shapes: [shapes[0], (shapes[0][1],),
+                                              (shapes[0][1],)],
+          attrs=AttrSpec(eps=("float", 1e-3)))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Instance normalisation (``mxnet_tpu/ops/nn_ops.py:356``): each
+    (sample, channel) over its spatial axes, by the biased variance, then
+    gamma and beta of the channel (axis 1)."""
+    axes = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=axes, correction=0, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape))
+
+
 # ---------------------------------------------------------------------------
 # Activation and Dropout (mxnet_tpu/ops/nn_ops.py:392-448)
 # ---------------------------------------------------------------------------
@@ -344,12 +414,66 @@ def _dropout(rng, data, p=0.5, mode="training", _is_train=False):
     return torch.where(mask, data / keep, 0)
 
 
+def _lrelu_param_shapes(attrs, shapes):
+    if len(shapes) == 1:
+        return list(shapes)
+    return [shapes[0], (shapes[0][1],)]
+
+
+@register("LeakyReLU",
+          num_inputs=None, input_names=["data", "gamma"],
+          param_shapes=_lrelu_param_shapes,
+          needs_rng=lambda attrs: attrs.get("act_type") == "rrelu",
+          needs_is_train=True,
+          attrs=AttrSpec(act_type=("str", "leaky"), slope=("float", 0.25),
+                         lower_bound=("float", 0.125),
+                         upper_bound=("float", 0.334)))
+def _leaky_relu(rng, *args, act_type="leaky", slope=0.25, lower_bound=0.125,
+                upper_bound=0.334, _is_train=False):
+    """``mxnet_tpu/ops/nn_ops.py:413``: leaky (``slope`` below 0), elu
+    (``slope * expm1``), prelu (the learned ``gamma`` of channel axis 1)
+    and rrelu: in training a slope uniform in [lower_bound, upper_bound)
+    drawn per element from ``rng`` (the device's ``random.generator``),
+    in eval their mean."""
+    data = args[0]
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        bshape = (1, -1) + (1,) * (data.dim() - 2)
+        return torch.where(data > 0, data,
+                           args[1].reshape(bshape).to(data.dtype) * data)
+    if act_type == "rrelu":
+        if _is_train:
+            if rng is None and data.device.type != "meta":
+                rng = _random.generator(data.device)
+            s = torch.empty(data.shape, dtype=data.dtype,
+                            device=data.device)
+            if data.device.type != "meta":
+                s.uniform_(lower_bound, upper_bound, generator=rng)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise MXNetError(f"unknown LeakyReLU act_type {act_type}")
+
+
 @register("softmax", attrs=AttrSpec(axis=("int", -1),
                                     temperature=("any", None)))
 def _softmax(data, axis=-1, temperature=None):
     if temperature not in (None, "None"):
         data = data / float(temperature)
     return torch.softmax(data, dim=axis)
+
+
+@register("log_softmax", attrs=AttrSpec(axis=("int", -1),
+                                        temperature=("any", None)))
+def _log_softmax(data, axis=-1, temperature=None):
+    """``mxnet_tpu/ops/nn_ops.py:459``: log of the softmax along ``axis``,
+    of ``data / temperature`` when one is given."""
+    if temperature not in (None, "None"):
+        data = data / float(temperature)
+    return torch.log_softmax(data, dim=axis)
 
 
 def _softmax_out_label_shape(attrs, shapes):

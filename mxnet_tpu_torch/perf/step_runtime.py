@@ -984,11 +984,20 @@ class FusedOptimizerApply:
     ``wd``, ``t`` and ``rescale`` reach it as one device array. The guard
     counts one capture a parameter-set signature; a changed signature
     raises its budget (a legitimate new set, not thrash).
+    ``loss_scale`` (a :class:`~mxnet_tpu_torch.quant.LossScaleConfig`, or
+    True for the default one; the Gluon Trainer's) arms the guard inside
+    the step: when any rescaled gradient is not finite every weight and
+    state keeps its value, and ``last_finite`` (read back once, after the
+    step) says whether the step applied.
     ``mesh``/``sharding`` (ZeRO, queue A11) raise."""
 
     def __init__(self, optimizer, name="fused-update", mesh=None,
-                 sharding=None):
+                 sharding=None, loss_scale=None):
         _refuse_unported(mesh, sharding)
+        if loss_scale is True:
+            loss_scale = _ls.LossScaleConfig()
+        self._ls_cfg = loss_scale or None
+        self.last_finite = True
         self._opt = optimizer
         self._kind = type(optimizer).__name__.lower()
         if not has_functional_update(optimizer):
@@ -1000,6 +1009,7 @@ class FusedOptimizerApply:
         self._sig = None
         self._graph = None
         self._bufs = None   # (ws, gs, ss, hyper) the graph reads and writes
+        self._finite = None  # the guard's device flag, written by the step
 
     def state_to_functional(self, state):
         return _imp_state_to_functional(self._kind, state)
@@ -1011,11 +1021,24 @@ class FusedOptimizerApply:
         """Each parameter's rule, in place; ``hyper[:, i]`` holds the i-th
         parameter's lr, wd, t and rescale. The gradient is rescaled in
         fp32 and rounded to its own dtype, as the update op multiplies it
-        by a Python float."""
+        by a Python float. Under the loss-scale guard a step with any
+        non-finite rescaled gradient selects every old value
+        (``guarded_select``) and writes the flag into ``self._finite``."""
+        def scaled(i, g):
+            return (g.float() * hyper[3, i]).to(g.dtype)
+
+        finite = None
+        if self._ls_cfg is not None:
+            finite = _ls.tree_all_finite(
+                [scaled(i, g) for i, g in enumerate(gs)]).to(hyper.device)
+            self._finite.copy_(finite)
         for i, (w, g, s) in enumerate(zip(ws, gs, ss)):
-            lr, wd, t, rescale = hyper[:, i]
-            g = (g.float() * rescale).to(g.dtype)
-            w2, s2 = self._update(w, g, s, lr, wd, t)
+            lr, wd, t, _ = hyper[:, i]
+            w2, s2 = self._update(w, scaled(i, g), s, lr, wd, t)
+            if finite is not None:
+                w2 = _ls.guarded_select(finite, w2, w)
+                s2 = _tree_map2(lambda new, old: _ls.guarded_select(
+                    finite, new, old), s2, s)
             w.copy_(w2)
             _copy_into(s, s2)
 
@@ -1044,6 +1067,9 @@ class FusedOptimizerApply:
         device = ws[0].device
         hyper = torch.tensor([lrs, wds, ts, [float(rescale)] * len(ws)],
                              dtype=torch.float32)
+        if self._ls_cfg is not None and (self._finite is None
+                                         or self._finite.device != device):
+            self._finite = torch.ones((), dtype=torch.bool, device=device)
         sig = tuple((tuple(x.shape), x.dtype)
                     for x in _tensors([ws, gs, ss]))
         if sig != self._sig:
@@ -1093,6 +1119,10 @@ def apply_fused_triples(apply, opt, triples, get_state):
         gs.append(g._data)
         ss.append(fs)
     new_ws, new_ss = apply(ws, gs, ss, lrs, wds, ts, opt.rescale_grad)
+    if getattr(apply, "_ls_cfg", None) is not None:
+        # one value read back after the step: the host-side loss-scale
+        # schedule needs the flag before the next loss is scaled
+        apply.last_finite = bool(apply._finite)
     for (i, w, _g), nw, ns in zip(triples, new_ws, new_ss):
         w._set_data(nw)
         state = get_state(i)

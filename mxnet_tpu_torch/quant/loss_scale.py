@@ -11,16 +11,20 @@ place by the step; the decision is taken on the device:
   state and auxiliary states keep their values bit for bit, and the scale
   backs off by ``backoff_factor`` (down to ``min_scale``).
 
-No value is read back to the host. Scales are powers of two, so scaling
-is exact. The host-side ``DynamicLossScale`` (the Gluon Trainer's) and the
-rest of ``quant/`` are queue A12.
+No value is read back to the host inside the step. Scales are powers of
+two, so scaling is exact. :class:`DynamicLossScale` is the host-side
+mirror the Gluon Trainer keeps, whose backward runs outside the fused
+update: the caller multiplies its loss by ``scale``, the update skips a
+non-finite step on the device, and the schedule advances from the step's
+finite flag, one value read back at the update's end. The rest of
+``quant/`` is queue A12.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["LossScaleConfig", "init_state", "tree_all_finite", "next_state",
-           "guarded_select"]
+__all__ = ["LossScaleConfig", "DynamicLossScale", "init_state",
+           "tree_all_finite", "next_state", "guarded_select"]
 
 
 class LossScaleConfig:
@@ -78,3 +82,32 @@ def next_state(state, finite, config: LossScaleConfig):
 def guarded_select(finite, updated, previous):
     """``updated`` where ``finite``, else ``previous`` unchanged."""
     return torch.where(finite, updated, previous)
+
+
+class DynamicLossScale:
+    """The host-side schedule of the Gluon Trainer
+    (``mxnet_tpu/quant/loss_scale.py:107-130``): the float ``scale`` the
+    caller multiplies its loss by, advanced by :meth:`update` from the
+    step's finite flag."""
+
+    def __init__(self, config: LossScaleConfig = None):
+        self.config = config or LossScaleConfig()
+        self.scale = self.config.init_scale
+        self._streak = 0
+        self.steps_skipped = 0
+
+    def update(self, finite: bool) -> bool:
+        """Advance the schedule; returns ``finite`` for chaining."""
+        cfg = self.config
+        if finite:
+            self._streak += 1
+            if self._streak >= cfg.growth_interval:
+                self.scale = min(cfg.max_scale, self.scale
+                                 * cfg.growth_factor)
+                self._streak = 0
+        else:
+            self.scale = max(cfg.min_scale, self.scale
+                             * cfg.backoff_factor)
+            self._streak = 0
+            self.steps_skipped += 1
+        return finite

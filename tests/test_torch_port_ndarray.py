@@ -547,16 +547,20 @@ def test_bf16_arrays():
 def test_left_out_parts_raise():
     with mxt.cpu():
         a = pnd.ones((2,))
-        for call in (a.attach_grad, a.backward, lambda: a.grad,
-                     lambda: a.tostype("csr"),
+        # backward of an array neither recorded nor marked raises, as in
+        # the JAX package (autograd itself is tests/test_torch_port_autograd)
+        for call in (a.backward, lambda: a.tostype("csr"),
                      lambda: pnd.cast_storage(a, stype="row_sparse"),
                      lambda: pnd.imdecode(b"")):
             with pytest.raises(MXNetError):
                 call()
         assert a.tostype("default") is a and a.detach().shape == (2,)
+        assert a.grad is None
+        a.attach_grad()
+        np.testing.assert_array_equal(a.grad.asnumpy(), [0.0, 0.0])
     # a call that may draw random numbers (RNN's dropout at p > 0) gets
-    # the device's generator; imperative calls run in eval mode (autograd
-    # is queue A8), where dropout draws nothing
+    # the device's generator; imperative calls outside autograd's train
+    # mode run in eval mode, where dropout draws nothing
     rng = np.random.RandomState(0)
     ins = [rng.normal(0, 1, (3, 2, 4)), rng.uniform(-0.3, 0.3, (460,)),
            np.zeros((2, 2, 5)), np.zeros((2, 2, 5))]

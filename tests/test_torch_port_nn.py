@@ -35,10 +35,12 @@ FP32_REL = 1e-5
 # largest magnitude; the bound is 4
 BF16_ULPS = 4
 # the ops of this file, with the nn ops ported before (the op-table count:
-# 196 ported names before these six)
+# 196 ported names before these six, and the four of
+# tests/test_torch_port_autograd.py: Deconvolution, InstanceNorm,
+# LeakyReLU and log_softmax)
 NN_OPS = ("Activation", "BatchNorm", "Convolution", "Dropout",
           "FullyConnected", "LRN", "Pooling", "SoftmaxOutput", "softmax")
-PORTED_OPS = 202
+PORTED_OPS = 206
 
 
 def _conv(layout, kernel, nf, **kw):
