@@ -221,14 +221,40 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    ``model_zoo.vision.get_model('resnet50_v2')`` hybridized, fp32 NCHW,
    batch 64 at 224**2: 10 SGD-momentum steps on one seeded batch, the
    loss falling, every moving statistic moved, one cached op a (shape,
-   train) key, no hand-written kernel, ms per step.
+   train) key, no hand-written kernel, ms per step;
+17. sequences: B1 forward and backward (the register kernel, by its plan
+   at N=32) against their plain versions at (T, N, H) = (10, 32, 1024) and
+   (60, 32, 1024), fp32, both directions, and one layer at each shape
+   timed against its bound; (a) upstream MXNet's
+   ``example/rnn/lstm_bucketing.py`` at the bench's width (Embedding
+   10000 -> 1024, ``FusedRNNCell(1024, num_layers=2)`` unrolled NTC,
+   FullyConnected(10000), ``SoftmaxOutput`` ignoring label 0; buckets
+   10-60, batch 32, SGD lr 0.01) over a seeded synthetic corpus of 4
+   batches a bucket: ``BucketSentenceIter`` and ``BucketingModule.fit`` for
+   one epoch on the default context, every bucket used, every step 2
+   ``lstm_seq_kernel`` and 2 ``lstm_seq_bwd_reg_kernel`` launches and no
+   per-step one, every bucket's module holding the default module's
+   parameter and gradient NDArrays, one capture of the fused update for
+   all six buckets, the corpus perplexity falling; ms a step by bucket
+   (CUDA events), tokens/s, one profiled step at T=60 (B1's kernels
+   counted by name), peak memory; one step of the buckets 10 and 20 at
+   N=4 on the card and on the port's CPU path from the same weights (loss
+   1e-5, gradients 1e-4 of their largest); (b) ``FusedRNNCell(1024,
+   2).unfuse()``, the fused weights carried by ``unpack_weights``, on the
+   bucket T=20, N=32: outputs and gradients within SEQ_FP32_TOL of the
+   fused graph's, no B1 launch (the fused graph 2 + 2); (c) a Gluon
+   ``SequentialRNNCell`` of two ``LSTMCell(1024)`` unrolled under
+   ``record()`` against ``gluon.rnn.LSTM(1024, num_layers=2)`` from the
+   same weights, fed by ``DataLoader(ArrayDataset(...), batch_size=32,
+   shuffle=True)`` at T=35: logits and gradients within SEQ_FP32_TOL, B1
+   launched only on the layer's side.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
-training path, 12c, 13c, 14a, 15's served bursts, and 16's Gluon LM (each
-mode) and attention layer) sets its kernels' launch counts to 0 (13c and
-16c: read them) just before it runs and reads them just after, and fails
-if a kernel of the path was not launched (13c and 16c: if any
-hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
+training path, 12c, 13c, 14a, 15's served bursts, 16's Gluon LM (each
+mode) and attention layer, and 17a's epoch) sets its kernels' launch
+counts to 0 (13c and 16c: read them) just before it runs and reads them
+just after, and fails if a kernel of the path was not launched (13c and
+16c: if any hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -4793,6 +4819,531 @@ def phase_gluon(bench):
     return out
 
 
+# -- 17: sequences: the bucketed LSTM LM -------------------------------------
+
+# upstream MXNet's example/rnn/lstm_bucketing.py defaults but for the width
+# (the bench's 2 x 1024, V=10000): its buckets, batch 32, SGD at lr 0.01,
+# label 0 invalid (the padding, ignored by the loss and the metric)
+SEQ_BUCKETS = (10, 20, 30, 40, 50, 60)
+SEQ_N = 32
+SEQ_SGD = {"learning_rate": 0.01}
+# the synthetic corpus (upstream reads PTB, which is not in the
+# repository): SEQ_BATCHES batches of sentences a bucket, lengths uniform
+# over the bucket's range (from 2 up to the first bucket), tokens from a
+# 1/rank unigram over 1..V-1 (a text's skew, which one epoch can learn)
+SEQ_BATCHES = 4
+# one step of two buckets at full width, card against the port's CPU path:
+# fp32 with TF32 off on both, sums in other orders through up to 20 steps
+# and the 10000-way softmax; the loss at SEQ_CPU_LOSS_TOL, each gradient
+# at SEQ_CPU_GRAD_TOL of its own largest magnitude
+SEQ_CPU_N, SEQ_CPU_BUCKETS = 4, (10, 20)
+SEQ_CPU_LOSS_TOL, SEQ_CPU_GRAD_TOL = 1e-5, 1e-4
+# B1 against its plain version at the bucketed path's shortest and longest
+# buckets (fp32, SEQ_FP32_TOL; dw relative to its magnitude)
+SEQ_B1_CASES = ((10, SEQ_N, H), (60, SEQ_N, H))
+# (b) the unfused twin's bucket; (c) the Gluon cells' length and rows (two
+# DataLoader batches)
+SEQ_TWIN_T = 20
+SEQ_GLUON_T, SEQ_GLUON_ROWS = 35, 2 * SEQ_N
+
+
+def seq_corpus(vocab, seed=0):
+    """SEQ_BATCHES * SEQ_N sentences a bucket of SEQ_BUCKETS, each of a
+    length drawn uniformly from its bucket's range, of tokens drawn from a
+    1/rank unigram over 1..vocab-1."""
+    rng = np.random.RandomState(seed)
+    prob = 1.0 / np.arange(1, vocab)
+    prob /= prob.sum()
+    sentences, low = [], 2
+    for key in SEQ_BUCKETS:
+        for length in rng.randint(low, key + 1, SEQ_BATCHES * SEQ_N):
+            sentences.append(list(rng.choice(vocab - 1, length, p=prob) + 1))
+        low = key + 1
+    return sentences
+
+
+def seq_sym_gen(mx, stack, vocab, hidden):
+    """Upstream lstm_bucketing.py's graph for a bucket's length over
+    ``stack`` (a fused cell, or its unfused twin), unrolled NTC."""
+    def sym_gen(seq_len):
+        data = mx.sym.var("data")
+        label = mx.sym.var("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=vocab, output_dim=hidden,
+                                 name="embed")
+        out, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True,
+                              layout="NTC")
+        pred = mx.sym.Reshape(out, shape=(-1, hidden))
+        pred = mx.sym.FullyConnected(pred, num_hidden=vocab, name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, label, name="softmax",
+                                    use_ignore=True, ignore_label=0)
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def seq_stack(mx):
+    return mx.rnn.FusedRNNCell(H, num_layers=LAYERS, mode="lstm",
+                               prefix="lstm_")
+
+
+def seq_err(got, want):
+    """The largest difference over max(1, the largest magnitude): the
+    kernels' fp32 rule for a sum (max_err_against's dw)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max()) / max(1.0,
+                                                float(want.abs().max()))
+
+
+def phase_seq_kernels():
+    """B1 at SEQ_B1_CASES: the training forward and the backward (the
+    register kernel, by its plan and its counter) against the plain
+    versions on the card's tensors, fp32, both directions; then one layer
+    at each shape timed (CUDA events): the training forward kernel, the
+    backward kernel alone and with its dw product, the plain versions,
+    against sequence_bound_ms and sequence_backward_bound_ms."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    out = {}
+    for steps, n, hdim in SEQ_B1_CASES:
+        plan = L.backward_plan(n, hdim, torch.device(CARD, 0))
+        if plan.variant != "register":
+            raise RuntimeError(f"backward plan T={steps} N={n} H={hdim}: "
+                               f"{plan}, expected the register kernel")
+        (xproj, h0, c0, w), (dout, dh, dc) = backward_case(
+            steps, n, hdim, torch.float32, seed=7 * steps + n)
+        worst = {"forward": 0.0, "backward": 0.0}
+        for reverse in (False, True):
+            saved = L.lstm_sequence_train(xproj, h0, c0, w, reverse)
+            plain = L.lstm_sequence_train_plain(xproj, h0, c0, w, reverse)
+            for name, g, p in zip(("out", "hT", "cT", "gates", "cs"), saved,
+                                  plain):
+                err, tol = max_err_against(g, p, "fp32", name)
+                if not err <= tol:
+                    raise RuntimeError(f"B1 forward T={steps} N={n} "
+                                       f"reverse={reverse} {name}: {err} > "
+                                       f"{tol}")
+                worst["forward"] = max(worst["forward"], err)
+            o, _, _, gates, cs = saved
+            case = (dout, dh, dc, gates, cs, o, h0, c0, w)
+            before = train_counts()
+            got = L.lstm_sequence_backward(*case, reverse=reverse)
+            torch.cuda.synchronize()
+            moved = tuple(a - b for a, b in zip(train_counts(), before))
+            if moved != (0, 1, 1, 0, 0):
+                raise RuntimeError(f"B1 backward T={steps} N={n} launched "
+                                   f"{moved}, expected the register kernel")
+            want = L.lstm_sequence_backward_plain(*case, reverse=reverse)
+            for name, g, p in zip(("dxproj", "dh0", "dc0", "dw"), got, want):
+                err, tol = max_err_against(g, p, "fp32", name)
+                if not err <= tol:
+                    raise RuntimeError(f"B1 backward T={steps} N={n} "
+                                       f"reverse={reverse} {name}: {err} > "
+                                       f"{tol}")
+                worst["backward"] = max(worst["backward"], err)
+        o, _, _, gates, cs = L.lstm_sequence_train(xproj, h0, c0, w)
+        case = (dout, dh, dc, gates, cs, o, h0, c0, w)
+        row = {
+            "max_abs_err": worst, "plan": plan._asdict(),
+            "forward_kernel_ms": time_on_stream(
+                lambda: L.lstm_sequence_train(xproj, h0, c0, w), iters=20),
+            "forward_plain_ms": time_on_stream(
+                lambda: L.lstm_sequence_train_plain(xproj, h0, c0, w),
+                iters=2),
+            "backward_kernel_ms": time_on_stream(
+                lambda: L._sequence_backward_launch(
+                    dout, dh, dc, gates, cs, h0, c0, w, False), iters=20),
+            "backward_route_ms": time_on_stream(
+                lambda: L.lstm_sequence_backward(*case), iters=20),
+            "backward_plain_ms": time_on_stream(
+                lambda: L.lstm_sequence_backward_plain(*case), iters=2)}
+        row["forward_bound_ms"], row["forward_bound_by"] = sequence_bound_ms(
+            steps, n, hdim, 4)
+        row["backward_bound_ms"], row["backward_bound_by"] = \
+            sequence_backward_bound_ms(steps, n, hdim, 4)
+        row["forward_share_of_bound"] = (row["forward_bound_ms"]
+                                         / row["forward_kernel_ms"])
+        row["backward_share_of_bound"] = (row["backward_bound_ms"]
+                                          / row["backward_kernel_ms"])
+        out[f"T={steps} N={n}"] = row
+        log(f"[seq-kernels] B1 T={steps} N={n} H={hdim} fp32, both "
+            f"directions: forward max|d| {worst['forward']:.3e}, backward "
+            f"{worst['backward']:.3e} (tol {SEQ_FP32_TOL}, dw relative); "
+            f"plan {plan.variant}")
+        log(f"[seq-kernels] one layer T={steps} N={n} H={hdim}: training "
+            f"forward kernel {row['forward_kernel_ms'] * 1e3:.1f} us, bound "
+            f"{row['forward_bound_ms'] * 1e3:.1f} us by "
+            f"{row['forward_bound_by']} (share "
+            f"{row['forward_share_of_bound']:.3f}), plain "
+            f"{row['forward_plain_ms'] * 1e3:.1f} us; backward kernel "
+            f"{row['backward_kernel_ms'] * 1e3:.1f} us, bound "
+            f"{row['backward_bound_ms'] * 1e3:.1f} us by "
+            f"{row['backward_bound_by']} (share "
+            f"{row['backward_share_of_bound']:.3f}), with its dw product "
+            f"{row['backward_route_ms'] * 1e3:.1f} us, plain "
+            f"{row['backward_plain_ms'] * 1e3:.1f} us")
+    return out
+
+
+def seq_first_batches(it):
+    """The first batch of each bucket in one pass over ``it``."""
+    first = {}
+    it.reset()
+    for batch in it:
+        first.setdefault(batch.bucket_key, batch)
+    it.reset()
+    return first
+
+
+def phase_seq_bucketing(mx):
+    """(a) the bucketed LM on the default context: BucketingModule over
+    BucketSentenceIter, seeded Xavier, one fit epoch (every bucket, every
+    step 2 + 2 B1 launches and no per-step one, every bucket module on the
+    default module's arrays, one update capture), the perplexity on the
+    corpus before and after; then ms a step by bucket, tokens/s, one
+    profiled step at the longest bucket and the peak memory."""
+    import random
+    sentences = seq_corpus(V)
+    random.seed(0)
+    np.random.seed(0)
+    mx.random.seed(0)
+    it = mx.rnn.BucketSentenceIter(sentences, SEQ_N,
+                                   buckets=list(SEQ_BUCKETS), invalid_label=0)
+    mod = mx.mod.BucketingModule(seq_sym_gen(mx, seq_stack(mx), V, H),
+                                 default_bucket_key=it.default_bucket_key)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    ppl_before = mod.score(it, mx.metric.Perplexity(ignore_label=0))[0][1]
+    it.reset()
+    marks = []
+    metric = mx.metric.Perplexity(ignore_label=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zero_train_counts()  # the bucketed LM's path starts here
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=SEQ_SGD,
+            eval_metric=metric,
+            batch_end_callback=lambda p: marks.append(
+                (mod._curr_bucket_key, train_counts())))
+    launches = train_counts()  # and ends here
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [(key, tuple(a - b for a, b in zip(c, prev)))
+                for (key, c), (_, prev) in zip(marks,
+                                               [(None, (0,) * 5)] + marks)]
+    ppl_after = mod.score(it, mx.metric.Perplexity(ignore_label=0))[0][1]
+    default = mod._buckets[max(SEQ_BUCKETS)]
+    unshared = [(key, n) for key, m in mod._buckets.items()
+                for n in default._param_names
+                if m._exec.arg_dict[n] is not default._exec.arg_dict[n]
+                or m._exec.grad_dict[n] is not default._exec.grad_dict[n]]
+    captures = default._updater._fused_apply.guard.count
+    by_key = {k: sum(1 for key, _ in per_step if key == k)
+              for k in SEQ_BUCKETS}
+    padded = sum(SEQ_N * k * n for k, n in by_key.items())
+    real = sum(len(s) for s in sentences)
+    log(f"[seq] bucketed LM V={V} H={H} layers={LAYERS} N={SEQ_N} buckets "
+        f"{list(SEQ_BUCKETS)}: one fit epoch of {len(per_step)} steps "
+        f"(by bucket {by_key}) at {SEQ_SGD} in {epoch_s:.3f} s (bucket "
+        f"modules bound and the update captured inside), training "
+        f"perplexity {metric.get()[1]:.2f}; corpus perplexity "
+        f"{ppl_before:.2f} before, {ppl_after:.2f} after; (lstm_sequence, "
+        f"lstm_sequence_backward, its register kernel, lstm_cell, "
+        f"lstm_cell_backward) launches per step "
+        f"{sorted(set(c for _, c in per_step))}, total {launches}; update "
+        f"captures {captures}; arrays not shared {unshared}; peak {peak} "
+        "bytes")
+    if sorted(mod._buckets) != list(SEQ_BUCKETS) or sorted(
+            by_key.values()) != [SEQ_BATCHES] * len(SEQ_BUCKETS):
+        raise RuntimeError(f"buckets used {by_key}, modules "
+                           f"{sorted(mod._buckets)}")
+    if any(c != (LAYERS, LAYERS, LAYERS, 0, 0) for _, c in per_step):
+        raise RuntimeError(f"bucketed steps launched {per_step}")
+    if unshared:
+        raise RuntimeError(f"bucket modules hold their own arrays: {unshared}")
+    if captures != 1:
+        raise RuntimeError(f"the update was captured {captures} times")
+    if not (math.isfinite(ppl_after) and ppl_after < ppl_before):
+        raise RuntimeError(f"the perplexity did not fall: {ppl_before} -> "
+                           f"{ppl_after}")
+    batches = seq_first_batches(it)
+    steps = {}
+    for key, batch in sorted(batches.items()):
+        def step(batch=batch):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+        ms, runs, host = timed_steps(step)
+        steps[key] = {"step_ms": ms, "step_runs_ms": runs,
+                      "step_host_ms": host,
+                      "tokens_per_s": SEQ_N * key / ms * 1e3}
+    steady = padded / sum(by_key[k] * steps[k]["step_ms"]
+                          for k in SEQ_BUCKETS) * 1e3
+    log("[seq] ms a step by bucket (CUDA events, median of "
+        f"{FUSED_TIMED}): " + ", ".join(
+            f"T={k} {v['step_ms']:.3f} (host {v['step_host_ms']:.3f})"
+            for k, v in steps.items())
+        + f"; the epoch's padded tokens at those rates {steady:.1f} tokens/s"
+        f"; the fit epoch {padded / epoch_s:.1f} padded and "
+        f"{real / epoch_s:.1f} real tokens/s")
+    longest = max(SEQ_BUCKETS)
+    batch = batches[longest]
+
+    def step_longest():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    profile = profile_device(f"one bucketed step T={longest} N={SEQ_N}",
+                             step_longest, keep_all=True)
+    b1 = replay_counts(profile, B1_KERNELS)
+    if b1 != B1_KERNELS:
+        raise RuntimeError(f"the profiled T={longest} step ran B1 kernels "
+                           f"{b1}, expected {B1_KERNELS}")
+    profile.pop("top_all")
+    return {"launches": launches, "steps": len(per_step),
+            "steps_by_bucket": by_key, "per_step": per_step[0][1],
+            "perplexity_before": ppl_before, "perplexity_after": ppl_after,
+            "fit_perplexity": metric.get()[1], "update_captures": captures,
+            "epoch_s": epoch_s, "padded_tokens": padded,
+            "real_tokens": real,
+            "epoch_tokens_per_s": padded / epoch_s,
+            "epoch_real_tokens_per_s": real / epoch_s,
+            "steady_tokens_per_s": steady, "by_bucket": steps,
+            "peak_device_bytes": peak, "profile": profile,
+            "profile_b1_kernels": b1,
+            "params": {k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+            "twin_batch": batches[SEQ_TWIN_T]}
+
+
+def seq_token_batch(mx, n, key, seed):
+    """``n`` seeded sentences of up to ``key`` tokens, padded with 0, and
+    their next-token labels, as BucketSentenceIter gives a bucket."""
+    rng = np.random.RandomState(seed)
+    data = np.zeros((n, key), np.float32)
+    for row in range(n):
+        length = rng.randint(2, key + 1)
+        data[row, :length] = rng.randint(1, V, length)
+    label = np.zeros_like(data)
+    label[:, :-1] = data[:, 1:]
+    return mx.io.DataBatch(
+        [mx.nd.array(data, ctx=mx.cpu())], [mx.nd.array(label, ctx=mx.cpu())],
+        bucket_key=key,
+        provide_data=[mx.io.DataDesc("data", (n, key))],
+        provide_label=[mx.io.DataDesc("softmax_label", (n, key))])
+
+
+def seq_buckets_step(mx, ctx, params=None):
+    """From the same weights (seeded Xavier, or ``params``), one step of
+    each of SEQ_CPU_BUCKETS through a BucketingModule on ``ctx`` (None: the
+    default context): each bucket's loss (the per-token mean cross-entropy
+    over the labels not ignored) and gradients, then its update."""
+    n, keys = SEQ_CPU_N, SEQ_CPU_BUCKETS
+    mod = mx.mod.BucketingModule(seq_sym_gen(mx, seq_stack(mx), V, H),
+                                 default_bucket_key=max(keys), context=ctx)
+    mod.bind(data_shapes=[("data", (n, max(keys)))],
+             label_shapes=[("softmax_label", (n, max(keys)))])
+    mx.random.seed(5)
+    if params is None:
+        mod.init_params(mx.init.Xavier())
+    else:
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SEQ_SGD)
+    start = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    out = {}
+    for key in keys:
+        batch = seq_token_batch(mx, n, key, seed=key)
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        metric = mx.metric.Perplexity(ignore_label=0)
+        mod.update_metric(metric, batch.label)
+        grads = {name: arr._data.cpu().clone() for name, arr in
+                 mod._curr_module._exec.grad_dict.items()
+                 if name in mod._curr_module._param_names}
+        out[key] = (math.log(metric.get()[1]), grads)
+        mod.update()
+    return start, out
+
+
+def seq_card_vs_cpu(mx):
+    """One step of two buckets at full width, N=SEQ_CPU_N, on the card and
+    on the port's CPU path from the same weights."""
+    params, card = seq_buckets_step(mx, None)
+    _, cpu = seq_buckets_step(mx, mx.cpu(), params)
+    errs = {}
+    for key in SEQ_CPU_BUCKETS:
+        loss, grads = card[key]
+        loss_c, grads_c = cpu[key]
+        errs[key] = {"loss": abs(loss - loss_c) / abs(loss_c), "grads": {
+            name: float((g - grads_c[name]).abs().max()
+                        / grads_c[name].abs().max())
+            for name, g in grads.items()}}
+    log(f"[seq] one step of buckets {list(SEQ_CPU_BUCKETS)} at N={SEQ_CPU_N}"
+        f", full width, card against the CPU path: {errs}")
+    if any(e["loss"] > SEQ_CPU_LOSS_TOL
+           or any(g > SEQ_CPU_GRAD_TOL for g in e["grads"].values())
+           for e in errs.values()):
+        raise RuntimeError("the bucketed step on the card disagrees with the "
+                           "CPU path")
+    return {str(k): v for k, v in errs.items()}
+
+
+def phase_seq_twin(mx, params, batch):
+    """(b) FusedRNNCell(H, LAYERS).unfuse(): two LSTMCells, the fused
+    weights carried over by unpack_weights; the same LM on one bucket
+    (T=SEQ_TWIN_T, N=SEQ_N) on the card, the fused graph and its twin:
+    outputs and gradients within SEQ_FP32_TOL, 2 + 2 B1 launches on the
+    fused graph, none on the twin."""
+    fused = seq_stack(mx)
+    twin = fused.unfuse()
+    unpacked = fused.unpack_weights(
+        {k: mx.nd.array(v) for k, v in params.items()})
+    runs = {}
+    for name, stack, args in (("fused", fused, params),
+                              ("twin", twin, unpacked)):
+        net = seq_sym_gen(mx, stack, V, H)(SEQ_TWIN_T)[0]
+        mod = mx.mod.Module(net)
+        mod.bind(data_shapes=[("data", (SEQ_N, SEQ_TWIN_T))],
+                 label_shapes=[("softmax_label", (SEQ_N, SEQ_TWIN_T))])
+        mod.init_params(arg_params={
+            k: mx.nd.array(v) if isinstance(v, np.ndarray) else v
+            for k, v in args.items()}, aux_params={})
+        before = train_counts()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(train_counts(), before))
+        grads = {k: mod._exec.grad_dict[k] for k in mod._param_names}
+        if name == "twin":
+            grads = fused.pack_weights(grads)
+        runs[name] = (mod.get_outputs()[0]._data, {k: g._data for k, g in
+                                                   grads.items()}, moved)
+    (fo, fg, f_moved), (to, tg, t_moved) = runs["fused"], runs["twin"]
+    out_err = float((to - fo).abs().max() / fo.abs().max())
+    errs = {k: seq_err(tg[k], g) for k, g in fg.items()}
+    log(f"[seq] unfused twin ({len(twin._cells)} cells) at T={SEQ_TWIN_T} "
+        f"N={SEQ_N} against the fused graph: outputs {out_err:.3e} of their "
+        f"largest, gradients {errs} (tol {SEQ_FP32_TOL}); launches fused "
+        f"{f_moved}, twin {t_moved}")
+    if f_moved != (LAYERS, LAYERS, LAYERS, 0, 0) or any(t_moved):
+        raise RuntimeError(f"launches fused {f_moved}, twin {t_moved}")
+    if sorted(tg) != sorted(fg) or out_err > SEQ_FP32_TOL or any(
+            e > SEQ_FP32_TOL for e in errs.values()):
+        raise RuntimeError("the unfused twin disagrees with the fused graph")
+    return {"output_rel_err": out_err, "grad_err": errs,
+            "launches_fused": f_moved, "launches_twin": t_moved}
+
+
+def phase_seq_gluon(mx):
+    """(c) gluon.rnn.SequentialRNNCell of LAYERS LSTMCells unrolled under
+    record() against gluon.rnn.LSTM(H, LAYERS) (B1) from the same weights,
+    between one Embedding and one Dense(V), each DataLoader batch
+    (ArrayDataset of seeded tokens, shuffled, SEQ_N rows, T=SEQ_GLUON_T):
+    the logits and every gradient within SEQ_FP32_TOL; B1 launches only on
+    the layer's side (2 + 2 a batch)."""
+    gluon = mx.gluon
+    t = SEQ_GLUON_T
+    rng = np.random.RandomState(11)
+    tokens = rng.randint(1, V, (SEQ_GLUON_ROWS, t + 1)).astype(np.float32)
+    np.random.seed(12)
+    loader = gluon.data.DataLoader(
+        gluon.data.ArrayDataset(tokens[:, :-1], tokens[:, 1:]),
+        batch_size=SEQ_N, shuffle=True)
+    mx.random.seed(13)
+    emb = gluon.nn.Embedding(V, H, prefix="emb_")
+    dec = gluon.nn.Dense(V, flatten=False, in_units=H, prefix="dec_")
+    layer = gluon.rnn.LSTM(H, num_layers=LAYERS, layout="NTC", input_size=H,
+                           prefix="lstm_")
+    cells = gluon.rnn.SequentialRNNCell(prefix="lstm_")
+    with cells.name_scope():
+        for i in range(LAYERS):
+            cells.add(gluon.rnn.LSTMCell(H, input_size=H, prefix=f"l{i}_"))
+    for block in (emb, dec, layer, cells):
+        block.initialize(mx.init.Xavier())
+    layer_params, cell_params = layer.collect_params(), cells.collect_params()
+    if sorted(layer_params) != sorted(cell_params):
+        raise RuntimeError(f"cell parameters {sorted(cell_params)} are not "
+                           f"the layer's {sorted(layer_params)}")
+    for k, p in layer_params.items():
+        cell_params[k].set_data(p.data())
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    shared = list(emb.collect_params().values()) + list(
+        dec.collect_params().values())
+    worst, counts, batches = {}, {}, 0
+    for x, y in loader:
+        batches += 1
+        runs = {}
+        for name, model, params in (("layer", layer, layer_params),
+                                    ("cells", cells, cell_params)):
+            before = train_counts()
+            with mx.autograd.record():
+                h = emb(x)
+                h = (model(h) if name == "layer" else
+                     model.unroll(t, h, layout="NTC", merge_outputs=True)[0])
+                logits = dec(h.reshape((-1, H)))
+                loss = loss_fn(logits, y.reshape((-1,)))
+            loss.backward()
+            torch.cuda.synchronize()
+            counts.setdefault(name, []).append(tuple(
+                a - b for a, b in zip(train_counts(), before)))
+            grads = {p.name: p.grad()._data.clone()
+                     for p in shared + list(params.values())}
+            runs[name] = (logits._data.detach().clone(), grads)
+        (lo, lg), (co, cg) = runs["layer"], runs["cells"]
+        errs = {"logits": seq_err(co, lo)}
+        errs.update({k: seq_err(cg[k], g) for k, g in lg.items()})
+        for k, e in errs.items():
+            worst[k] = max(worst.get(k, 0.0), e)
+    log(f"[seq] Gluon: a SequentialRNNCell of {LAYERS} LSTMCells against "
+        f"rnn.LSTM({H}, num_layers={LAYERS}) over {batches} DataLoader "
+        f"batches (N={SEQ_N}, T={t}): largest differences {worst} (tol "
+        f"{SEQ_FP32_TOL}); launches a batch {counts}")
+    if batches != SEQ_GLUON_ROWS // SEQ_N:
+        raise RuntimeError(f"the DataLoader gave {batches} batches")
+    if any(c != (LAYERS, LAYERS, LAYERS, 0, 0) for c in counts["layer"]) or \
+            any(any(c) for c in counts["cells"]):
+        raise RuntimeError(f"Gluon launches {counts}")
+    if any(e > SEQ_FP32_TOL for e in worst.values()):
+        raise RuntimeError("the Gluon cells disagree with rnn.LSTM")
+    return {"max_err": worst, "launches": counts, "batches": batches}
+
+
+def phase_seq():
+    """17: sequences (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    card = nvidia_smi_name_and_limit()
+    kernels = phase_seq_kernels()
+    bucketing = phase_seq_bucketing(mx)
+    params = bucketing.pop("params")
+    twin_batch = bucketing.pop("twin_batch")
+    out = {"card": card, "b1": kernels, "bucketing": bucketing,
+           "card_vs_cpu": seq_card_vs_cpu(mx),
+           "unfused_twin": phase_seq_twin(mx, params, twin_batch),
+           "gluon_cells": phase_seq_gluon(mx)}
+    log(f"[seq] phase 17 on {card}: " + json.dumps(out, default=str))
+    return out
+
+
+def seq_records(records, seq):
+    """B1's launches on the bucketed path (phase 17a) and its times at the
+    bucketed shapes beside its records' main-path numbers."""
+    by_name = {r["name"]: r for r in records}
+    bucketing = seq["bucketing"]
+    for name, i, prefix in (("lstm_sequence", 0, "forward"),
+                            ("lstm_sequence_backward", 2, "backward")):
+        by_name[name]["bucketing"] = {
+            "launches": bucketing["launches"][i],
+            "steps": bucketing["steps"],
+            "path": "the bucketed 2x1024 LSTM LM, one BucketingModule.fit "
+                    f"epoch over buckets {list(SEQ_BUCKETS)} at N={SEQ_N} "
+                    "(phase 17a)",
+            "by_shape": {shape: {
+                k: v for k, v in row.items()
+                if k.startswith(prefix) or k in ("max_abs_err", "plan")}
+                for shape, row in seq["b1"].items()}}
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
@@ -4837,6 +5388,7 @@ def main():
     log("[fused] phase 14: " + json.dumps(fused))
     serve = phase_serve(tf)
     gluon = phase_gluon(bench)
+    sequences = phase_seq()
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -4969,6 +5521,7 @@ def main():
                                           tf_train, att_bwd_timing,
                                           wgmma_bwd_build)
     gluon_records(records, gluon)
+    seq_records(records, sequences)
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,13 @@ with the ``config`` knobs, ``resilience`` pieces and
 ``compiler.batch_signature`` it reads. ``autograd`` (``record()``,
 ``backward()``, ``NDArray.attach_grad``) records imperative ops with torch
 autograd, and ``gluon`` (blocks, hybridized cached ops, ``nn``, ``rnn``
-layers over the RNN op, ``loss``, the fused-update ``Trainer``, the ResNet
-zoo) trains models written as blocks.
+layers over the RNN op and the stepwise cells, ``loss``, the fused-update
+``Trainer``, ``data`` with its samplers and ``DataLoader``, the ResNet
+zoo) trains models written as blocks. Sequences train through ``rnn``
+(the symbolic cells, ``BucketSentenceIter``) and ``mod.BucketingModule``,
+whose bucket modules share one set of parameter arrays;
+``mod.SequentialModule`` and ``mod.PythonLossModule`` chain modules and
+losses written in Python.
 """
 from . import (analysis, autograd, c_predict, callback,  # noqa: F401
                compiler, config, convert, gluon, initializer, io,

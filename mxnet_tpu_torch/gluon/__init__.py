@@ -4,9 +4,10 @@
 ``Block``/``HybridBlock`` define models imperatively; ``hybridize()`` runs
 a block through its cached ops (one a call signature). ``Trainer`` applies
 an optimizer to ``Parameter``s in one fused update; ``loss``, ``nn``,
-``rnn`` and ``model_zoo.vision`` (ResNet) supply layers and models.
-``gluon.data`` is queue A8's second half.
+``rnn`` (layers and cells) and ``model_zoo.vision`` (ResNet) supply layers
+and models; ``data`` the datasets, samplers and the DataLoader.
 """
+from . import data  # noqa: F401
 from . import loss  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import nn  # noqa: F401

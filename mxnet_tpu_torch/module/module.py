@@ -75,6 +75,7 @@ class Module(BaseModule):
         self._arg_params = self._aux_params = None
         self._params_dirty = False
         self._optimizer = self._kvstore = self._updater = None
+        self._update_on_kvstore = False
         self._preload_opt_states = None
         self._exec = None
         self._data_shapes = self._label_shapes = None
@@ -268,8 +269,12 @@ class Module(BaseModule):
                 req[name] = "null"
             else:
                 req[name] = grad_req
+        shared_exec = shared_module._exec if shared_module is not None \
+            else None
         self._exec = self._symbol.simple_bind(ctx=self._context,
-                                              grad_req=req, **shape_kwargs)
+                                              grad_req=req,
+                                              shared_exec=shared_exec,
+                                              **shape_kwargs)
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self.set_params(*shared_module.get_params())
@@ -296,7 +301,8 @@ class Module(BaseModule):
         if self._params_dirty:
             self._sync_params_from_devices()
         arg_dict = {n: self._exec.arg_dict[n] for n in self._param_names}
-        self._kvstore, _ = _create_kvstore(kvstore, 1, arg_dict)
+        self._kvstore, self._update_on_kvstore = _create_kvstore(
+            kvstore, 1, arg_dict)
         rescale_grad = 1.0 / self._data_shapes[0].shape[0]
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
@@ -322,12 +328,15 @@ class Module(BaseModule):
             self._preload_opt_states = None
 
     def borrow_optimizer(self, shared_module):
-        """Share another Module's optimizer and updater."""
+        """Share another Module's optimizer, updater and kvstore
+        (``BucketingModule``: every bucket updates through one optimizer
+        state)."""
         assert shared_module.optimizer_initialized
         self._sync_fused()
         self._invalidate_fused(drop=True)
         self._optimizer = shared_module._optimizer
         self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
 

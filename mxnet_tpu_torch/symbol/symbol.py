@@ -368,12 +368,16 @@ class Symbol:
         return {n: grad_req.get(n, "null") for n in names}
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **kwargs):
+                    shared_exec=None, **kwargs):
         """Infer shapes, allocate zero arrays on ``ctx`` (default: the
         current context), a gradient array for each argument whose
         ``grad_req`` (one string, a list in argument order, or a dict) is
         ``write`` or ``add``, and return the bound Executor (reference:
-        symbol.py:1250)."""
+        symbol.py:1250). With ``shared_exec``, an argument, auxiliary state
+        or gradient whose name, shape and dtype match one of that
+        executor's is that executor's own NDArray, not a copy: bucketing
+        executors see one set of parameters and gradients (reference: the
+        shared data pool, graph_executor.cc:879)."""
         from ..context import current_context
         from ..executor import Executor
         from ..ndarray import zeros as nd_zeros
@@ -381,16 +385,25 @@ class Symbol:
         ctx = ctx or current_context()
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         type_dict = type_dict or {}
-        args = {name: nd_zeros(shape, ctx=ctx,
-                               dtype=type_dict.get(name, "float32"))
+
+        def alloc(pool, name, shape, dtype):
+            shared = (getattr(shared_exec, pool).get(name)
+                      if shared_exec is not None else None)
+            if (shared is not None and shared.shape == tuple(shape)
+                    and shared._data.dtype == torch_dtype(dtype)):
+                return shared
+            return nd_zeros(shape, ctx=ctx, dtype=dtype)
+
+        args = {name: alloc("arg_dict", name, shape,
+                            type_dict.get(name, "float32"))
                 for name, shape in zip(self.list_arguments(), arg_shapes)}
-        aux = {name: nd_zeros(shape, ctx=ctx,
-                              dtype=type_dict.get(name, "float32"))
+        aux = {name: alloc("aux_dict", name, shape,
+                           type_dict.get(name, "float32"))
                for name, shape in zip(self.list_auxiliary_states(),
                                       aux_shapes)}
         reqs = self._grad_req_dict(grad_req)
-        grads = {name: nd_zeros(args[name].shape, ctx=ctx,
-                                dtype=args[name].dtype)
+        grads = {name: alloc("grad_dict", name, args[name].shape,
+                             args[name].dtype)
                  for name, req in reqs.items() if req != "null"}
         return Executor(self, ctx, args, grads, reqs, aux)
 
@@ -550,6 +563,11 @@ def symbol_invoke(opdef: OpDef, inputs: Sequence[Symbol], attrs: Dict,
 def _expected_inputs(opdef: OpDef, attrs: Dict) -> int:
     if opdef.name in ("Convolution", "FullyConnected"):
         return 2 if attrs.get("no_bias") else 3
+    if opdef.name == "RNN":
+        # only an LSTM has a cell state: a GRU or plain RNN takes data,
+        # parameters and state (the JAX package gives these modes a fourth
+        # variable, which its op then refuses)
+        return 4 if attrs.get("mode", "lstm") == "lstm" else 3
     return len(opdef.input_names or ["data"])
 
 
