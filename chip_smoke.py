@@ -23,7 +23,13 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    H=200, forward and reverse; the dense and masked bf16 attention cases
    (D = 64 and 128, ragged, Sq < Sk, the transformer's (B, S, H, D) views,
    lengths, packed segments) through the wgmma/TMA variant, by its launch
-   counter;
+   counter; and B5's rows (``phase_b5_kernels``): fp16 attention at D =
+   64 and 128 on the wgmma/TMA, mma.sync and CUDA-core variants, D = 256
+   (bf16, fp16) on mma.sync both ways, D = 320 and 588
+   on CUDA cores, dense, lengths and packed, forward and gradients; B1
+   at fp16 states and with fp32 xproj and w_h2h over bf16 and fp16
+   states, both directions, on the sequence, register, shared-memory and
+   per-step kernels; each launch held to its variant;
 4. LSTM slice: the 2x1024 LSTM language model (V=10000, T=128, random
    weights from a seed) behind ``PredictorBackend(dev_type=2)`` answers 8
    requests of 1 and 16 rows, each forward one sequence-kernel launch a
@@ -49,7 +55,11 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    ``scaled_dot_product_attention`` in turns, each with TFLOP/s and share
    of bound, and the same for B3 with lengths and with packed segments
    (SDPA given the mask as a bool tensor); Predictor and transformer
-   forward times; peak memory;
+   forward times; peak memory; B5's rows (``phase_b5_timing``): fp16 B2
+   and B3 (lengths) forward and backward at (4, 8, 2048, 64) beside SDPA
+   in fp16, bf16 at D = 256 (4, 8, 2048, 256) and fp32 at D = 320 beside
+   SDPA, B1 at fp16 (T=256, N=64) beside cuDNN's fp16 LSTM and with bf16
+   states over fp32 operands (T=64, N=16), each against its bound;
 8. profile: device time by kernel over one forward per bucket of each
    model, and the device's idle share of it;
 9. rtc kernels: Rtc bodies compiled by NVRTC (``csrc/rtc_runtime.cu``,
@@ -247,11 +257,29 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    ``record()`` against ``gluon.rnn.LSTM(1024, num_layers=2)`` from the
    same weights, fed by ``DataLoader(ArrayDataset(...), batch_size=32,
    shuffle=True)`` at T=35: logits and gradients within SEQ_FP32_TOL, B1
-   launched only on the layer's side.
+   launched only on the layer's side;
+18. B5, the dtypes and head dims (``phase_b5``): (a) the transformer LM at
+   ``TransformerConfig(dtype="float16")``'s width behind
+   ``CallableBackend`` answers requests of 1 and 4 rows at S=2048 (4
+   fp16 wgmma forwards each), then takes 5 ``train_step``s (4 forward
+   and 4 wgmma backward launches a step, the loss falling), its logits
+   within FP16_LOGIT_TOL of an fp32 forward on the card; (b) the LM at
+   ``TransformerConfig(d_model=2048, num_heads=8)`` (bf16, head dim 256,
+   399.5 M parameters) answers one request of 4 rows (4 mma.sync
+   forwards at D = 256) and takes 3 ``train_step``s (4 mma.sync
+   backwards a step), its logits within BF16_LOGIT_REL of its largest fp32
+   logit; (c) ``_contrib_flash_attention`` through ``mx.nd`` under
+   ``record()`` at fp16 D = 64, bf16 D = 256 and fp32 D = 320, output
+   and gradients against the plain versions; (d) phase 16's Gluon LSTM
+   LM cast to fp16 with fp16 begin states answers a batch and takes 3
+   ``record()``/``backward()``/``Trainer.step()`` steps, each 2
+   ``lstm_seq_kernel`` and 2 register-kernel backward launches at fp16,
+   the losses finite; (e) ``nd.RNN`` (2 x 1024, T=64, N=16) with bf16
+   states over fp32 data and parameters, card against the CPU path.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
 training path, 12c, 13c, 14a, 15's served bursts, 16's Gluon LM (each
-mode) and attention layer, and 17a's epoch) sets its kernels' launch
+mode) and attention layer, 17a's epoch, and 18a-e) sets its kernels' launch
 counts to 0 (13c and 16c: read them) just before it runs and reads them
 just after, and fails if a kernel of the path was not launched (13c and
 16c: if any hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
@@ -1307,12 +1335,30 @@ def phase_transformer_timing(tf):
     return out
 
 
-def profile_device(label, fn, keep_all=False):
+def profile_device(label, fn, keep_all=False, expect=None):
     """Device time by kernel over one call of ``fn`` and the device's idle
     share of its wall time (torch.profiler, CUPTI). Only device-side events
     (kernels, copies) are summed: a CPU op's device time repeats its
     kernels'. ``keep_all`` also returns every kernel's row
-    (``top_all``)."""
+    (``top_all``). ``expect`` ({kernel name: launches}, with ``keep_all``):
+    a window whose record falls short of those counts is taken again, up
+    to three windows, as one with no device time is; CUPTI now and then
+    drops a kernel's record (PERF.md section 7), and the caller's check
+    reads the last window's counts."""
+    for window in range(3):
+        out = profile_window(label, fn, keep_all)
+        if expect is None:
+            return out
+        counts = replay_counts(out, list(expect))
+        if counts == dict(expect):
+            return out
+        log(f"[profile] {label}: the window recorded {counts} of the named "
+            f"kernels, {dict(expect)} launched (window {window + 1} of 3)")
+    return out
+
+
+def profile_window(label, fn, keep_all):
+    """One profiled call of ``fn`` (see :func:`profile_device`)."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(3):
@@ -2710,8 +2756,9 @@ def attention_counts():
 def zero_attention_counts():
     from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
     for name in ("launches", "masked_launches", "wgmma_launches",
-                 "backward_launches", "masked_backward_launches",
-                 "mma_backward_launches", "wgmma_backward_launches"):
+                 "mma_launches", "backward_launches",
+                 "masked_backward_launches", "mma_backward_launches",
+                 "wgmma_backward_launches"):
         setattr(fa, name, 0)
 
 
@@ -3939,7 +3986,8 @@ def fused_main_path(mx, config, net, batch, sgd, loss, marks=None):
         del fused.check_ids
         fused.check_ids()
     profile = profile_device(f"one fused {config} step",
-                             lambda: stepper.step(batch), keep_all=True)
+                             lambda: stepper.step(batch), keep_all=True,
+                             expect=B1_KERNELS if config == "lstm" else None)
     kernels = replay_counts(profile, list(B1_KERNELS))
     profile["replay_kernels"] = kernels
     top_all = profile.pop("top_all")
@@ -5095,7 +5143,7 @@ def phase_seq_bucketing(mx):
         mod.update()
 
     profile = profile_device(f"one bucketed step T={longest} N={SEQ_N}",
-                             step_longest, keep_all=True)
+                             step_longest, keep_all=True, expect=B1_KERNELS)
     b1 = replay_counts(profile, B1_KERNELS)
     if b1 != B1_KERNELS:
         raise RuntimeError(f"the profiled T={longest} step ran B1 kernels "
@@ -5344,12 +5392,868 @@ def seq_records(records, seq):
                 for shape, row in seq["b1"].items()}}
 
 
+# -- B5: the dtypes and head dims (phase 3's and 7's rows, phase 18) ---------
+
+# fp16 attention, kernel against plain on the same card tensors: 2e-3 for
+# results of unit scale, scaled by the result's largest magnitude past 1
+# (one fp16 ulp at |x| in [4, 8) is 3.9e-3; PERF.md section 6)
+ATT_FP16_TOL = 2e-3
+# bf16 at D = 256 as today's bf16 cases (two bf16 ulps at 1.0), fp32 at
+# D = 320 summation order only, absolute
+ATT_B5_BF16_TOL = 1.6e-2
+ATT_B5_FP32_TOL = 2e-5
+# the LSTM at fp16 over up to 128 steps, h and c absolute (states of unit
+# scale rounded to fp16 every step, as the plain version rounds them)
+LSTM_FP16_TOL = 4e-3
+# fp16 logits of the transformer against an fp32 forward of the same
+# weights on the card: fp16 rounds at 2**-11 where bf16 rounds at 2**-8,
+# so an eighth of BF16_LOGIT_TOL, doubled for margin
+FP16_LOGIT_TOL = BF16_LOGIT_TOL / 4
+# bf16 logits of the head-dim-256 LM against its fp32 forward, relative to
+# the largest logit: BF16_LOGIT_TOL is 4% of the default LM's |2.4|
+BF16_LOGIT_REL = 0.05
+# (B, H, S, D) of the timed wide-head attention, and of the fp32 D = 320
+# one (the CUDA-core variant: 8 heads of a 1024-token row)
+ATT_D256_SHAPE = (4, 8, 2048, 256)
+ATT_D320_SHAPE = (1, 8, 1024, 320)
+# phase 18: (a) the fp16 LM's train steps; (b) the head-dim-256 LM's;
+# (d) the fp16 Gluon LM's steps and batch; (e) nd.RNN's shape
+B5_TF16_STEPS, B5_D256_STEPS, B5_GLUON_STEPS = 5, 3, 3
+B5_RNN_T, B5_RNN_N = 64, 16
+
+
+def b5_tol(dtype, ref):
+    """The B5 tolerance of a result ``ref`` in ``dtype``."""
+    if dtype == torch.float16:
+        return ATT_FP16_TOL * max(1.0, ref.float().abs().max().item())
+    if dtype == torch.bfloat16:
+        return ATT_B5_BF16_TOL * max(1.0, ref.float().abs().max().item())
+    return ATT_B5_FP32_TOL
+
+
+def b5_bound_ms(nbytes, flops, dtype):
+    """max(bytes / HBM rate, operations / the peak of the inputs' type):
+    the tensor cores' bf16/fp16 rate, or fp32's outside them."""
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_TENSOR_FLOPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def b5_attention_counts():
+    from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
+    return {k: getattr(fa, k) for k in (
+        "launches", "masked_launches", "wgmma_launches", "mma_launches",
+        "backward_launches", "masked_backward_launches",
+        "mma_backward_launches", "wgmma_backward_launches")}
+
+
+def b5_moved(before):
+    now = b5_attention_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+# (label, (B, H, Sq, Sk, D), dtype, causal, mask, offset, route, the
+# forward's and the backward's variant): route "mma" forces the mma.sync
+# variants (_mma_sync, _mma_sync_backward); offset 1 makes views no row of
+# which is 16-byte aligned (the CUDA-core variant)
+B5_ATT_CASES = [
+    ("fp16 D=64 causal", (2, 4, 1000, 1000, 64), torch.float16, True, None,
+     0, None, "wgmma", "wgmma"),
+    ("fp16 D=128 Sq<Sk", (2, 3, 300, 517, 128), torch.float16, False, None,
+     0, None, "wgmma", "wgmma"),
+    ("fp16 D=64 lengths", (4, 4, 1024, 1024, 64), torch.float16, True,
+     "lengths", 0, None, "wgmma", "wgmma"),
+    ("fp16 D=128 packed", (2, 4, 1000, 1000, 128), torch.float16, True,
+     "packed", 0, None, "wgmma", "wgmma"),
+    ("fp16 D=64 mma.sync", (2, 4, 1000, 1000, 64), torch.float16, True,
+     None, 0, "mma", "mma", "mma"),
+    ("fp16 D=128 mma.sync lengths", (2, 4, 500, 500, 128), torch.float16,
+     True, "lengths", 0, "mma", "mma", "mma"),
+    ("fp16 D=64 unaligned", (1, 4, 300, 300, 64), torch.float16, True, None,
+     1, None, "cuda_core", "cuda_core"),
+    ("bf16 D=256 causal", (2, 4, 1000, 1000, 256), torch.bfloat16, True,
+     None, 0, None, "mma", "mma"),
+    ("fp16 D=256 Sq<Sk", (2, 2, 300, 517, 256), torch.float16, True, None,
+     0, None, "mma", "mma"),
+    ("bf16 D=256 lengths", (4, 2, 600, 600, 256), torch.bfloat16, False,
+     "lengths", 0, None, "mma", "mma"),
+    ("fp16 D=256 packed", (2, 2, 600, 600, 256), torch.float16, True,
+     "packed", 0, None, "mma", "mma"),
+    ("fp32 D=320 causal", (2, 4, 500, 500, 320), torch.float32, True, None,
+     0, None, "cuda_core", "cuda_core"),
+    ("fp32 D=320 packed", (2, 2, 500, 500, 320), torch.float32, True,
+     "packed", 0, None, "cuda_core", "cuda_core"),
+    ("bf16 D=320 lengths", (4, 2, 400, 400, 320), torch.bfloat16, False,
+     "lengths", 0, None, "cuda_core", "cuda_core"),
+    ("fp16 D=588 causal", (1, 2, 200, 200, 588), torch.float16, True, None,
+     0, None, "cuda_core", "cuda_core"),
+]
+
+
+def b5_masks(kind, b, s):
+    if kind == "lengths":
+        lens = [s, (2 * s) // 3, s // 5, 0][:b] + [s] * max(0, b - 4)
+        return torch.tensor(lens, dtype=torch.int32, device=CARD), None
+    if kind == "packed":
+        return None, packed_segments(b, s)
+    return None, None
+
+
+def b5_attention_case(label, shape, dtype, causal, kind, offset, route,
+                      fwd_variant, bwd_variant, seed):
+    """One B5 attention case: the forward and its gradients through the
+    kernels against the plain versions on the same card tensors, each
+    launch held to the variant the case must take. Returns the largest
+    error of the forward and of the gradients."""
+    from mxnet_tpu_torch.ops.cuda.attention import (
+        _default_scale, _launch, _mma_sync_backward, attention_backward_plain,
+        attention_plain, flash_attention, masked_attention_backward_plain,
+        masked_attention_plain)
+    b, h, sq, sk, d = shape
+    q, k, v = attention_inputs(b, h, sq, sk, d, dtype, seed=seed,
+                               offset=offset)
+    do = attention_inputs(b, h, sq, sq, d, dtype, seed=seed + 1,
+                          offset=offset)[0]
+    lens, seg = b5_masks(kind, b, sk)
+    before = b5_attention_counts()
+    if route == "mma":
+        scale = _default_scale(d, None)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=CARD)
+        out = _launch(q, k, v, causal, scale, lens, seg, route=1, lse=lse)
+        grads = _mma_sync_backward(q, k, v, out, do, causal, scale, lens, seg,
+                                   lse=lse)
+    else:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=causal, lengths=lens,
+                              segment_ids=seg)
+        grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    moved = b5_moved(before)
+    fwd = {"wgmma": "wgmma_launches", "mma": "mma_launches"}
+    bwd = {"wgmma": "wgmma_backward_launches", "mma": "mma_backward_launches"}
+    want_moved = {key: 0 for key in moved}
+    want_moved["masked_launches" if kind else "launches"] = 1
+    want_moved["masked_backward_launches" if kind
+               else "backward_launches"] = 1
+    if fwd_variant in fwd:
+        want_moved[fwd[fwd_variant]] = 1
+    if bwd_variant in bwd:
+        want_moved[bwd[bwd_variant]] = 1
+    if moved != want_moved:
+        raise RuntimeError(f"B5 attention {label}: counters moved {moved}, "
+                           f"expected {want_moved}")
+    if kind is None:
+        want = attention_plain(q, k, v, causal)
+        wgrads = attention_backward_plain(q, k, v, want, do, causal)
+    else:
+        want = masked_attention_plain(q, k, v, lens, seg, causal)
+        wgrads = masked_attention_backward_plain(q, k, v, do, lens, seg,
+                                                 causal)
+    errs = []
+    for what, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                              (want, *wgrads)):
+        if got.dtype != dtype or got.shape != ref.shape:
+            raise RuntimeError(f"B5 attention {label} {what}: {got.dtype} "
+                               f"{tuple(got.shape)}")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = b5_tol(dtype, ref)
+        if not err <= tol:
+            raise RuntimeError(f"B5 attention {label} {what} disagrees with "
+                               f"its plain version: {err} > {tol}")
+        errs.append(err)
+    log(f"[kernels] B5 attention {label} {shape} {dtype} causal={causal} "
+        f"{kind or 'dense'}: forward on {fwd_variant}, backward on "
+        f"{bwd_variant}; max|d| out, dq, dk, dv "
+        + ", ".join(f"{e:.3e}" for e in errs)
+        + f" (tol {b5_tol(dtype, want):.3e} for out)")
+    return errs[0], max(errs[1:])
+
+
+# (label, T, N, H, states' dtype, xproj's and w_h2h's dtype, reverse, the
+# forward kernel, the backward kernel)
+B5_LSTM_CASES = [
+    ("fp16", T, 16, H, torch.float16, torch.float16, False, "sequence",
+     "register"),
+    ("fp16 reverse", T, 1, H, torch.float16, torch.float16, True, "sequence",
+     "register"),
+    ("fp16 ragged reverse", 7, 37, 200, torch.float16, torch.float16, True,
+     "sequence", "register"),
+    ("bf16 over fp32", 64, 16, H, torch.bfloat16, torch.float32, False,
+     "sequence", "register"),
+    ("fp16 over fp32 reverse", 32, 5, H, torch.float16, torch.float32, True,
+     "sequence", "register"),
+    ("fp16 shared backward", 8, 16, 1100, torch.float16, torch.float16,
+     False, "sequence", "shared"),
+    ("fp16 wide", 6, 2, WIDE_H, torch.float16, torch.float16, False,
+     "cell", "cell"),
+    ("bf16 over fp32 wide reverse", 4, 3, WIDE_H, torch.bfloat16,
+     torch.float32, True, "cell", "cell"),
+]
+
+
+def b5_lstm_inputs(steps, n, hdim, sdt, odt, seed):
+    """xproj (T, N, 4H) and w_h2h in ``odt``, h0 and c0 in ``sdt``, at the
+    LM's scale (phase 3's), and the cotangents of (out, hT, cT)."""
+    xproj, h0, c0, w = sequence_inputs(steps, n, hdim, torch.float32, seed)
+    rng = np.random.RandomState(seed + 7)
+    cot = [torch.tensor(rng.normal(0, 1, s), dtype=sdt, device=CARD)
+           for s in ((steps, n, hdim), (n, hdim), (n, hdim))]
+    return xproj.to(odt), h0.to(sdt), c0.to(sdt), w.to(odt), cot
+
+
+def b5_lstm_case(label, steps, n, hdim, sdt, odt, reverse, fwd_kernel,
+                 bwd_kernel, seed):
+    """One B1 case at a B5 dtype: the inference and the training forward
+    and the backward against their plain versions on the same card
+    tensors, each launch held to the kernel it must take. Returns the
+    largest forward and backward errors."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    xproj, h0, c0, w, cot = b5_lstm_inputs(steps, n, hdim, sdt, odt, seed)
+    counts = lambda: (L.lstm_sequence_fused.launches,  # noqa: E731
+                      L.lstm_cell_fused.launches,
+                      L.lstm_sequence_backward.launches,
+                      L.lstm_sequence_backward.register_launches,
+                      L.lstm_cell_backward.launches)
+    before = counts()
+    got = L.lstm_sequence_fused(xproj, h0, c0, w, reverse=reverse)
+    train = L.lstm_sequence_train(xproj, h0, c0, w, reverse)
+    grads = L.lstm_sequence_backward(*cot, train[3], train[4], train[0], h0,
+                                     c0, w, reverse)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(counts(), before))
+    want_moved = ((2, 0) if fwd_kernel == "sequence" else (0, 2 * steps)) + {
+        "register": (1, 1, 0), "shared": (1, 0, 0),
+        "cell": (0, 0, steps + 1)}[bwd_kernel]
+    if moved != want_moved:
+        raise RuntimeError(f"B5 lstm {label}: (sequence, cell, backward, "
+                           f"register backward, cell backward) launches "
+                           f"{moved}, expected {want_moved}")
+    want = L.lstm_sequence_plain(xproj, h0, c0, w, reverse=reverse)
+    wtrain = L.lstm_sequence_train_plain(xproj, h0, c0, w, reverse)
+    wgrads = L.lstm_sequence_backward_plain(*cot, wtrain[3], wtrain[4],
+                                            wtrain[0], h0, c0, w, reverse)
+    tol = LSTM_FP16_TOL if sdt == torch.float16 else BF16_TOL
+    errs = {}
+    for what, g, r in (("out", got[0], want[0]), ("hT", got[1], want[1]),
+                       ("cT", got[2], want[2]),
+                       ("train out", train[0], wtrain[0]),
+                       ("dh0", grads[1], wgrads[1]),
+                       ("dc0", grads[2], wgrads[2])):
+        if g.dtype != sdt or g.shape != r.shape:
+            raise RuntimeError(f"B5 lstm {label} {what}: {g.dtype}")
+        errs[what] = (g.float() - r.float()).abs().max().item()
+        if not errs[what] <= tol:
+            raise RuntimeError(f"B5 lstm {label} {what} disagrees with its "
+                               f"plain version: {errs[what]} > {tol}")
+    log(f"[kernels] B5 lstm {label} T={steps} N={n} H={hdim} states {sdt} "
+        f"xproj and w_h2h {odt} reverse={reverse}: forward on the "
+        f"{fwd_kernel} kernel, backward on the {bwd_kernel} kernel; max|d| "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {tol})")
+    return (max(errs[k] for k in ("out", "hT", "cT", "train out")),
+            max(errs["dh0"], errs["dc0"]))
+
+
+def phase_b5_kernels():
+    """Phase 3's B5 rows: every new attention variant (fp16 on the
+    wgmma/TMA, mma.sync and CUDA-core kernels at D = 64 and 128, D = 256
+    on mma.sync both ways, D = 320 and 588 on CUDA cores; dense, lengths,
+    packed)
+    and B1 at fp16 states and at fp32 operands over narrower states, both
+    directions, forward and backward, against their plain versions.
+    Returns the largest errors by kernel row of the kernels line."""
+    errs = {}
+    for i, case in enumerate(B5_ATT_CASES):
+        label, shape, dtype = case[:3]
+        fwd_err, bwd_err = b5_attention_case(*case, seed=700 + i)
+        key = ("fp16" if dtype == torch.float16 and shape[4] <= 128
+               else "d256" if shape[4] == 256 else "wide")
+        row = errs.setdefault(f"attention_{key}", {"forward": 0.0,
+                                                   "backward": 0.0})
+        row["forward"] = max(row["forward"], fwd_err)
+        row["backward"] = max(row["backward"], bwd_err)
+    for i, case in enumerate(B5_LSTM_CASES):
+        fwd_err, bwd_err = b5_lstm_case(*case, seed=800 + i)
+        key = "lstm_fp16" if case[5] == case[4] else "lstm_mixed"
+        row = errs.setdefault(key, {"forward": 0.0, "backward": 0.0})
+        row["forward"] = max(row["forward"], fwd_err)
+        row["backward"] = max(row["backward"], bwd_err)
+    from mxnet_tpu_torch.ops.cuda.attention import (MAX_HEAD_DIM,
+                                                    library_max_head_dim)
+    if library_max_head_dim() != MAX_HEAD_DIM:
+        raise RuntimeError(f"the library takes D up to "
+                           f"{library_max_head_dim()}, the wrapper states "
+                           f"{MAX_HEAD_DIM}")
+    log(f"[kernels] B5: largest errors by row {errs}; the library's head "
+        f"dim limit {MAX_HEAD_DIM}")
+    return errs
+
+
+def b5_turns(fns, order, iters):
+    """CUDA-event ms of each of ``fns`` over ``iters`` calls, in the turns
+    ``order`` gives: {name: (mean, [turns])}."""
+    turns = {name: [] for name in fns}
+    for name in order:
+        turns[name].append(time_on_stream(fns[name], iters=iters))
+    return {name: (statistics.mean(t), t) for name, t in turns.items()}
+
+
+def b5_attention_timing(label, shape, dtype, kind=None):
+    """Phase 7's B5 attention rows at ``shape``, causal: the forward and
+    the backward kernels (given the forward's lse) in turns with
+    scaled_dot_product_attention's forward and autograd backward on the
+    same inputs (kernel, library, library, kernel), the plain versions,
+    and the bounds (4 D operations a live pair forward, 10 D backward, at
+    the inputs' type's peak)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda.attention import (
+        _backward_launch, _combined_mask, _launch, attention_backward_plain,
+        attention_plain, masked_attention_backward_plain,
+        masked_attention_plain)
+    b, h, s, d = shape
+    scale = 1.0 / d ** 0.5
+    q, k, v, do = attention_grad_inputs(b, h, s, s, d, dtype, seed=900)
+    lens, seg = b5_masks(kind, b, s)
+    mask = (None if kind is None
+            else _combined_mask(s, s, True, lens, seg, q.device))
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=CARD)
+    out = _launch(q, k, v, True, scale, lens, seg, lse=lse)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_kw = {"is_causal": True} if mask is None else {"attn_mask": mask}
+    y = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+    fwd = {"kernel": lambda: _launch(q, k, v, True, scale, lens, seg),
+           "library": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                             **sdpa_kw)}
+    bwd = {"kernel": lambda: _backward_launch(q, k, v, out, do, True, scale,
+                                              lens, seg, lse),
+           "library": lambda: torch.autograd.grad(y, leaves, do,
+                                                  retain_graph=True)}
+    order = ("kernel", "library", "library", "kernel")
+    iters = 20 if d <= 128 else 5
+    f_t, b_t = b5_turns(fwd, order, iters), b5_turns(bwd, order, iters)
+    if kind is None:
+        live = b * h * s * (s + 1) // 2
+        plain_f = lambda: attention_plain(q, k, v, True)  # noqa: E731
+        plain_b = lambda: attention_backward_plain(  # noqa: E731
+            q, k, v, out, do, True)
+    else:
+        live = h * int(mask.sum().item())
+        plain_f = lambda: masked_attention_plain(  # noqa: E731
+            q, k, v, lens, seg, True)
+        plain_b = lambda: masked_attention_backward_plain(  # noqa: E731
+            q, k, v, do, lens, seg, True)
+    elem = q.element_size()
+    rows = {}
+    for part, t, plain, ops, io in (("forward", f_t, plain_f, 4, 4),
+                                    ("backward", b_t, plain_b, 10, 8)):
+        bound_ms, bound_by = b5_bound_ms(elem * b * h * d * s * io,
+                                         ops * d * live, dtype)
+        ms = t["kernel"][0]
+        rows[part] = {"kernel_ms": ms, "kernel_turns_ms": t["kernel"][1],
+                      "library_ms": t["library"][0],
+                      "library_turns_ms": t["library"][1],
+                      "plain_ms": time_on_stream(plain, iters=2),
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / ms,
+                      "tflops": ops * d * live / ms / 1e9,
+                      "live_pairs": live}
+        log(f"[timing] B5 {label} {part} {shape} {dtype} causal"
+            f"{' ' + kind if kind else ''}: kernel {ms * 1e3:.3f} us (turns "
+            f"{[round(x * 1e3, 3) for x in t['kernel'][1]]}), library "
+            f"{t['library'][0] * 1e3:.3f} us (turns "
+            f"{[round(x * 1e3, 3) for x in t['library'][1]]}), plain "
+            f"{rows[part]['plain_ms'] * 1e3:.1f} us; bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by}, share "
+            f"{rows[part]['share_of_bound']:.4f}, "
+            f"{rows[part]['tflops']:.2f} TFLOP/s")
+    return rows
+
+
+def b5_lstm_timing(steps, n, hdim, sdt, odt, library):
+    """Phase 7's B1 rows at a B5 dtype: one layer's forward (the sequence
+    kernel, given xproj; and the port's input projection plus the kernel)
+    and backward (the kernel alone; and the layer's whole backward, dw's
+    product included) in turns with cuDNN's ``torch.nn.LSTM`` in the
+    states' dtype (its forward, input projection included, and its
+    autograd backward: data, state and weight gradients) where
+    ``library``; the plain versions; the bounds (the products at the fp32
+    rate the kernels compute at)."""
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    xproj, h0, c0, w, cot = b5_lstm_inputs(steps, n, hdim, sdt, odt, 990)
+    train = L.lstm_sequence_train(xproj, h0, c0, w)
+    rng = np.random.RandomState(991)
+    x = torch.tensor(rng.normal(0, 1, (steps, n, hdim)), dtype=odt,
+                     device=CARD)
+    w_i2h = torch.tensor(rng.uniform(-0.05, 0.05, (4 * hdim, hdim)),
+                         dtype=odt, device=CARD)
+    bias = torch.zeros(4 * hdim, dtype=odt, device=CARD)
+    fwd = {"kernel": lambda: L.lstm_sequence_fused(xproj, h0, c0, w),
+           "projection_plus_kernel": lambda: L.lstm_sequence_fused(
+               torch.addmm(bias, x.view(-1, hdim), w_i2h.t()).view(
+                   steps, n, 4 * hdim), h0, c0, w)}
+    w_k = L._operand(w, sdt)
+    bwd = {"kernel": lambda: L._sequence_backward_launch(
+               *cot, train[3], train[4], h0, c0, w_k, False),
+           "layer": lambda: L.lstm_sequence_backward(
+               *cot, train[3], train[4], train[0], h0, c0, w)}
+    order = ("kernel", "projection_plus_kernel", "library", "library",
+             "projection_plus_kernel", "kernel")
+    border = ("kernel", "layer", "library", "library", "layer", "kernel")
+    if library:
+        cell = torch.nn.LSTM(hdim, hdim).to(CARD, sdt)
+        xl = x.to(sdt).requires_grad_()
+        hc = (h0[None], c0[None])
+        fwd["library"] = lambda: cell(xl, hc)
+        leaves = [xl] + list(cell.parameters())
+        y, _ = cell(xl, hc)
+        bwd["library"] = lambda: torch.autograd.grad(y, leaves, cot[0],
+                                                     retain_graph=True)
+    else:
+        order = ("kernel", "projection_plus_kernel", "projection_plus_kernel",
+                 "kernel")
+        border = ("kernel", "layer", "layer", "kernel")
+    f_t, b_t = b5_turns(fwd, order, 5), b5_turns(bwd, border, 5)
+    rows = {}
+    elem = torch.tensor([], dtype=sdt).element_size()
+    for part, t, plain, bound, extra in (
+            ("forward", f_t,
+             lambda: L.lstm_sequence_plain(xproj, h0, c0, w),
+             sequence_bound_ms(steps, n, hdim, elem),
+             "projection_plus_kernel"),
+            ("backward", b_t,
+             lambda: L.lstm_sequence_backward_plain(
+                 *cot, train[3], train[4], train[0], h0, c0, w),
+             sequence_backward_bound_ms(steps, n, hdim, elem), "layer")):
+        ms = t["kernel"][0]
+        rows[part] = {"kernel_ms": ms, "kernel_turns_ms": t["kernel"][1],
+                      f"{extra}_ms": t[extra][0],
+                      "library_ms": t["library"][0] if library else None,
+                      "library_turns_ms": (t["library"][1] if library
+                                           else None),
+                      "plain_ms": time_on_stream(plain, iters=1),
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "share_of_bound": bound[0] / ms}
+        log(f"[timing] B5 lstm {part} T={steps} N={n} H={hdim} states {sdt} "
+            f"over {odt}: kernel {ms * 1e3:.1f} us (turns "
+            f"{[round(x * 1e3, 1) for x in t['kernel'][1]]}), {extra} "
+            f"{t[extra][0] * 1e3:.1f} us"
+            + (f", cuDNN torch.nn.LSTM {t['library'][0] * 1e3:.1f} us"
+               if library else "")
+            + f", plain {rows[part]['plain_ms'] * 1e3:.1f} us; bound "
+            f"{bound[0] * 1e3:.1f} us by {bound[1]}, share "
+            f"{rows[part]['share_of_bound']:.4f}")
+    return rows
+
+
+def phase_b5_timing():
+    """Phase 7's B5 rows (CUDA events, each kernel in turns with its
+    library call): fp16 B2 and B3 (lengths) forward and backward at the
+    transformer's (4, 8, 2048, 64) against SDPA in fp16; bf16 at D = 256,
+    (4, 8, 2048, 256), against SDPA; fp32 at D = 320 on CUDA cores against
+    SDPA; B1 at fp16 (T=256, N=64, H=1024) against cuDNN's fp16 LSTM; and
+    B1 with bf16 states over fp32 operands at phase 18e's shape (no
+    library call takes that mix)."""
+    out = {"attention_fp16": b5_attention_timing(
+               "B2 fp16", ATT_SHAPE, torch.float16),
+           "attention_fp16_lengths": b5_attention_timing(
+               "B3 fp16", ATT_SHAPE, torch.float16, "lengths"),
+           "attention_d256": b5_attention_timing(
+               "B2 D=256", ATT_D256_SHAPE, torch.bfloat16),
+           "attention_wide": b5_attention_timing(
+               "B2 fp32 D=320", ATT_D320_SHAPE, torch.float32),
+           "lstm_fp16": b5_lstm_timing(TRAIN_T, TRAIN_N, H, torch.float16,
+                                       torch.float16, True),
+           "lstm_mixed": b5_lstm_timing(B5_RNN_T, B5_RNN_N, H,
+                                        torch.bfloat16, torch.float32,
+                                        False)}
+    return out
+
+
+def b5_serve(lm, rows_list, label):
+    """Serve ``lm`` behind CallableBackend: one request a batch of
+    ``rows_list`` at TF_S tokens; the attention counters moved by each
+    forward, the logits of the first request, and ms per request."""
+    from mxnet_tpu_torch.serving import CallableBackend
+    backend = CallableBackend(
+        lambda arrays: lm.logits(arrays["data"]).cpu().numpy(),
+        input_specs={"data": (TF_S,)})
+    backend.load()
+    reqs = np.random.RandomState(31)
+    per_forward, served_ms, kept = [], [], None
+    for rows in rows_list:
+        batch = reqs.randint(0, lm.cfg.vocab_size, (rows, TF_S)).astype(
+            np.float32)
+        before = b5_attention_counts()
+        t0 = time.perf_counter()
+        (out,) = backend.infer({"data": batch})
+        served_ms.append((time.perf_counter() - t0) * 1e3)
+        per_forward.append(b5_moved(before))
+        if (out.shape != (rows, TF_S, lm.cfg.vocab_size)
+                or not np.isfinite(out).all()):
+            raise RuntimeError(f"{label}: logits {out.shape}, or not finite")
+        if kept is None:
+            kept = (batch, out)
+    return per_forward, served_ms, kept
+
+
+def b5_train(lm, steps, label):
+    """``steps`` train_steps on one repeated batch of (4, TF_S + 1)
+    tokens: the losses and the attention counters moved by each step."""
+    from mxnet_tpu_torch.models.transformer import _leaves
+    toks = torch.tensor(np.random.RandomState(0).randint(
+        0, lm.cfg.vocab_size, (TF_TRAIN_B, TF_TRAIN_S + 1)), device=CARD)
+    losses, per_step, ms = [], [], []
+    for _ in range(steps):
+        before = b5_attention_counts()
+        e, _ = step_ms(lambda: losses.append(lm.train_step(
+            toks, lr=TF_TRAIN_LR)))
+        ms.append(e)
+        per_step.append(b5_moved(before))
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{label}: non-finite loss {losses}")
+    for name, p in _leaves(lm.params):
+        if not bool(torch.isfinite(p).all()):
+            raise RuntimeError(f"{label}: parameter {name} not finite")
+    return losses, per_step, ms
+
+
+def b5_check_counts(label, moved, want):
+    for i, m in enumerate(moved):
+        got = {k: m[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"{label} {i}: attention launches {got}, "
+                               f"expected {want}")
+
+
+def phase_b5_transformers():
+    """18 (a) and (b): the fp16 transformer LM at TransformerConfig()'s
+    width and the bf16 one at d_model 2048, 8 heads (head dim 256), each
+    served through CallableBackend and trained by train_step on the
+    default context."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM, forward)
+    out = {}
+    for key, cfg, rows_list, steps in (
+            ("fp16", TransformerConfig(dtype="float16"), (1, 4),
+             B5_TF16_STEPS),
+            ("d256", TransformerConfig(d_model=2048, num_heads=8), (4,),
+             B5_D256_STEPS)):
+        label = f"[b5] ({'a' if key == 'fp16' else 'b'}) {key} LM"
+        torch.cuda.reset_peak_memory_stats()
+        zero_attention_counts()  # the path's run starts here
+        lm = TransformerLM(cfg, seed=0)
+        n_params = sum(p.numel() for p in lm.params["blocks"].values()) + sum(
+            lm.params[k].numel() for k in ("embed", "ln_f", "head"))
+        per_forward, served_ms, (batch, logits) = b5_serve(lm, rows_list,
+                                                           label)
+        losses, per_step, step_ms_ = b5_train(lm, steps, label)
+        launches = b5_attention_counts()  # and ends here
+        peak = torch.cuda.max_memory_allocated()
+        L_ = cfg.num_layers
+        variant = "wgmma_launches" if key == "fp16" else "mma_launches"
+        b5_check_counts(f"{label} forward", per_forward,
+                        {"launches": L_, "masked_launches": 0, variant: L_})
+        want_step = {"launches": L_, "backward_launches": L_,
+                     "masked_launches": 0, variant: L_}
+        if key == "fp16":
+            want_step["wgmma_backward_launches"] = L_
+        else:  # D = 256 trains on the mma.sync backward
+            want_step.update(wgmma_backward_launches=0,
+                             mma_backward_launches=L_)
+        b5_check_counts(f"{label} train step", per_step, want_step)
+        if key == "fp16" and not losses[-1] < losses[0]:
+            raise RuntimeError(f"{label}: the loss did not fall at lr "
+                               f"{TF_TRAIN_LR}: {losses}")
+        cfg32 = TransformerConfig(d_model=cfg.d_model,
+                                  num_heads=cfg.num_heads, dtype="float32")
+        with torch.inference_mode():
+            ref32 = forward(lm.params, torch.tensor(batch[:1], device=CARD),
+                            cfg32).cpu().numpy()
+        err = float(np.abs(logits[:1] - ref32).max())
+        mag = float(np.abs(ref32).max())
+        tol = FP16_LOGIT_TOL if key == "fp16" else BF16_LOGIT_REL * mag
+        log(f"{label}: {cfg.vocab_size} vocab, {L_} x {cfg.d_model}, "
+            f"{cfg.num_heads} heads of {cfg.head_dim}, {cfg.dtype}, "
+            f"{n_params} parameters; served requests of {rows_list} rows x "
+            f"{TF_S}: ms {[round(x, 3) for x in served_ms]}, launches per "
+            f"forward {per_forward}; {steps} train_steps on "
+            f"({TF_TRAIN_B}, {TF_TRAIN_S + 1}) at lr {TF_TRAIN_LR}: loss "
+            f"{losses}, ms {[round(x, 3) for x in step_ms_]}, launches per "
+            f"step {per_step}; logits against fp32 on the card, 1 x {TF_S}: "
+            f"max|d| {err:.3e} (tol {tol:.3e}), largest |logit| {mag:.3e}; "
+            f"peak {peak} bytes")
+        if not err <= tol:
+            raise RuntimeError(f"{label}: logits and the fp32 forward "
+                               f"disagree: {err} > {tol}")
+        out[key] = {"parameters": n_params, "per_forward": per_forward[0],
+                    "served_ms": served_ms, "losses": losses,
+                    "step_ms": step_ms_, "per_step": per_step[0],
+                    "launches": launches, "vs_fp32_max_abs": err,
+                    "peak_device_bytes": peak}
+        del lm
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_b5_contrib():
+    """18 (c): ``_contrib_flash_attention`` through ``mx.nd`` on the card,
+    forward and gradients under ``autograd.record()``, at fp16 D = 64,
+    bf16 D = 256 and fp32 D = 320, against the plain versions."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda.attention import (attention_backward_plain,
+                                                    attention_plain)
+    out = {}
+    zero_attention_counts()  # the path's run starts here
+    for label, dtype, d in (("fp16 D=64", torch.float16, 64),
+                            ("bf16 D=256", torch.bfloat16, 256),
+                            ("fp32 D=320", torch.float32, 320)):
+        q, k, v, do = attention_grad_inputs(2, 4, 512, 512, d, dtype,
+                                            seed=950 + d)
+        arrays = [mx.nd.array(t.float().cpu().numpy(), dtype=str(
+            dtype).split(".")[1]) for t in (q, k, v)]
+        for a in arrays:
+            a.attach_grad()
+        before = b5_attention_counts()
+        with mx.autograd.record():
+            y = mx.nd._contrib_flash_attention(*arrays, causal=True)
+        y.backward(mx.nd.array(do.float().cpu().numpy(),
+                               dtype=str(dtype).split(".")[1]))
+        torch.cuda.synchronize()
+        moved = b5_moved(before)
+        if (moved["launches"], moved["backward_launches"]) != (1, 1):
+            raise RuntimeError(f"[b5] (c) {label}: launches {moved}")
+        want = attention_plain(q, k, v, True)
+        wgrads = attention_backward_plain(q, k, v, want, do, True)
+        errs = []
+        for got, ref in zip([y] + [a.grad for a in arrays], (want, *wgrads)):
+            t = got._data
+            if t.device.type != "cuda" or t.dtype != dtype:
+                raise RuntimeError(f"[b5] (c) {label}: {t.device} {t.dtype}")
+            err = (t.float() - ref.float()).abs().max().item()
+            if not err <= b5_tol(dtype, ref):
+                raise RuntimeError(f"[b5] (c) {label} disagrees with the "
+                                   f"plain version: {err}")
+            errs.append(err)
+        out[label] = {"max_abs_err": errs, "moved": moved}
+        log(f"[b5] (c) _contrib_flash_attention {label} (2, 4, 512, {d}) "
+            f"causal through mx.nd under record(): out, dq, dk, dv max|d| "
+            f"{[f'{e:.3e}' for e in errs]}; launches {moved}")
+    out["launches"] = b5_attention_counts()  # and ends here
+    return out
+
+
+def phase_b5_gluon():
+    """18 (d): phase 16's 2x1024 Gluon LSTM LM cast to fp16,
+    with fp16 begin states (``begin_state(N, dtype='float16')``): one
+    batch answered, then B5_GLUON_STEPS record()/backward()/
+    Trainer.step() steps on it, each 2 lstm_seq_kernel and 2 backward
+    launches (the register kernel) at fp16 and no per-step one; the
+    losses finite."""
+    import mxnet_tpu_torch as mx
+    gluon = mx.gluon
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.encoder = gluon.nn.Embedding(V, H)
+                self.rnn = gluon.rnn.LSTM(H, num_layers=LAYERS,
+                                          layout="TNC")
+                self.decoder = gluon.nn.Dense(V, flatten=False)
+
+        def hybrid_forward(self, F, x, h0, c0):
+            out, _ = self.rnn(self.encoder(x), [h0, c0])
+            return self.decoder(F.reshape(out, shape=(-1, H)))
+
+    data, label = train_data(mx)[:2]
+    x, y = gluon_batch(mx, data, label, TRAIN_N, TRAIN_T)
+    mx.random.seed(0)
+    net = RNNModel(prefix="lm_")
+    net.initialize(mx.init.Xavier())
+    net(x, *net.rnn.begin_state(TRAIN_N))  # fixes the deferred shapes
+    net.cast("float16")
+    states = net.rnn.begin_state(TRAIN_N, dtype="float16")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD))
+    zero_train_counts()  # the path's run starts here
+    answered = net(x, *states)
+    if (answered.dtype != np.float16
+            or not np.isfinite(answered.asnumpy()).all()):
+        raise RuntimeError(f"[b5] (d) fp16 Gluon LM answered {answered.dtype}")
+    per_step, losses = [], []
+    for _ in range(B5_GLUON_STEPS):
+        before = train_counts()
+        with mx.autograd.record():
+            loss = loss_fn(net(x, *states), y)
+        loss.backward()
+        trainer.step(TRAIN_N * TRAIN_T)
+        losses.append(float(loss.mean().asscalar()))
+        per_step.append(tuple(a - b for a, b in zip(train_counts(), before)))
+    launches = train_counts()  # and ends here
+    log(f"[b5] (d) the 2x{H} Gluon LSTM LM cast to fp16, fp16 begin states, "
+        f"N={TRAIN_N} T={TRAIN_T}: answered {tuple(answered.shape)} "
+        f"{answered.dtype}; {B5_GLUON_STEPS} steps at {GLUON_SGD}: "
+        f"cross-entropy {losses}; (lstm_sequence, lstm_sequence_backward, its "
+        f"register kernel, lstm_cell, lstm_cell_backward) launches per step "
+        f"{per_step}, total {launches}")
+    if any(c != (LAYERS, LAYERS, LAYERS, 0, 0) for c in per_step):
+        raise RuntimeError(f"[b5] (d) launches per step {per_step}")
+    if launches[0] != LAYERS * (B5_GLUON_STEPS + 1):
+        raise RuntimeError(f"[b5] (d) forward launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"[b5] (d) non-finite losses {losses}")
+    for k, p in net.collect_params().items():
+        t = p.data()._data
+        if t.dtype != torch.float16 or not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"[b5] (d) parameter {k}: {t.dtype}")
+    return {"losses": losses, "per_step": per_step[0], "launches": launches}
+
+
+def phase_b5_rnn():
+    """18 (e): ``nd.RNN`` (two LSTM layers, H = 1024) with bf16 states over
+    fp32 data and parameters on the card, against the port's CPU path (the
+    plain versions) on the same inputs: one sequence-kernel launch a
+    layer, reading the fp32 xproj and w_h2h as they are."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda import lstm as L
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_param_size
+    rng = np.random.RandomState(960)
+    size = rnn_param_size(LAYERS, H, H, "lstm", False)
+    arrays = [rng.normal(0, 1, (B5_RNN_T, B5_RNN_N, H)).astype(np.float32),
+              rng.uniform(-0.05, 0.05, (size,)).astype(np.float32),
+              rng.uniform(-1, 1, (LAYERS, B5_RNN_N, H)).astype(np.float32),
+              rng.uniform(-1, 1, (LAYERS, B5_RNN_N, H)).astype(np.float32)]
+    dtypes = ("float32", "float32", "bfloat16", "bfloat16")
+    kw = dict(state_size=H, num_layers=LAYERS, mode="lstm",
+              state_outputs=True)
+    inputs = [mx.nd.array(a, dtype=t) for a, t in zip(arrays, dtypes)]
+    zero_train_counts()  # the path's run starts here
+    got = mx.nd.RNN(*inputs, **kw)
+    got = [o._data.float().cpu() for o in got]
+    launches = (L.lstm_sequence_fused.launches,  # and ends here
+                L.lstm_cell_fused.launches)
+    with mx.cpu():
+        want = mx.nd.RNN(*(mx.nd.array(a, dtype=t) for a, t in zip(
+            arrays, dtypes)), **kw)
+    errs = [(g - w._data.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    log(f"[b5] (e) nd.RNN 2 x LSTM({H}) T={B5_RNN_T} N={B5_RNN_N}, bf16 "
+        f"states over fp32 data and parameters: card against the CPU path, "
+        f"max|d| out, hy, cy {[f'{e:.3e}' for e in errs]} (tol {BF16_TOL}); "
+        f"(sequence, per-step) launches {launches}")
+    if launches != (LAYERS, 0):
+        raise RuntimeError(f"[b5] (e) launches {launches}")
+    if not max(errs) <= BF16_TOL:
+        raise RuntimeError(f"[b5] (e) nd.RNN disagrees with the CPU path: "
+                           f"{errs}")
+    return {"max_abs_err": errs, "launches": launches[0]}
+
+
+def phase_b5():
+    """18: the B5 paths (see the module docstring)."""
+    card = nvidia_smi_name_and_limit()
+    out = phase_b5_transformers()
+    out["contrib"] = phase_b5_contrib()
+    out["gluon_fp16"] = phase_b5_gluon()
+    out["rnn_mixed"] = phase_b5_rnn()
+    out["card"] = card
+    log(f"[b5] phase 18 on {card}: " + json.dumps(out, default=str))
+    return out
+
+
+def b5_records(records, errs, timing, b5):
+    """The kernels line's B5 rows: each new variant by name, with its
+    launches on phase 18's paths, its largest error in phase 3, and its
+    times in phase 7."""
+    source_fwd = "mxnet_tpu_torch/csrc/flash_attention.cu"
+    source_bwd = "mxnet_tpu_torch/csrc/flash_attention_bwd.cu"
+    source_lstm = "mxnet_tpu_torch/csrc/lstm_cell.cu"
+    card = b5["card"]
+    rows = (
+        ("flash_attention_fp16", source_fwd, "attention.py:32",
+         b5["fp16"]["launches"]["wgmma_launches"], "attention_fp16",
+         "forward", "attention_fp16",
+         "the fp16 transformer LM served and trained (phase 18a)",
+         f"(B,H,S,D)={ATT_SHAPE} fp16 causal, flash_fwd_wgmma_kernel<__half>"),
+        ("flash_attention_backward_fp16", source_bwd, "attention.py:158",
+         b5["fp16"]["launches"]["wgmma_backward_launches"], "attention_fp16",
+         "backward", "attention_fp16",
+         "the fp16 transformer LM trained (phase 18a)",
+         f"(B,H,S,D)={ATT_SHAPE} fp16 causal, flash_bwd_wgmma_kernel<__half>"),
+        ("flash_attention_d256", source_fwd, "attention.py:32",
+         b5["d256"]["launches"]["mma_launches"], "attention_d256", "forward",
+         "attention_d256",
+         "the head-dim-256 transformer LM served and trained (phase 18b)",
+         f"(B,H,S,D)={ATT_D256_SHAPE} bf16 causal, "
+         "flash_fwd_mma_kernel<bf16, 256>"),
+        ("flash_attention_backward_d256", source_bwd, "attention.py:158",
+         b5["d256"]["launches"]["mma_backward_launches"], "attention_d256",
+         "backward", "attention_d256",
+         "the head-dim-256 transformer LM trained (phase 18b)",
+         f"(B,H,S,D)={ATT_D256_SHAPE} bf16 causal, the mma.sync K1 (two "
+         "column halves) and K2 at D = 256"),
+        ("flash_attention_wide", source_fwd, "attention.py:32",
+         b5["contrib"]["launches"]["launches"], "attention_wide", "forward",
+         "attention_wide",
+         "_contrib_flash_attention through mx.nd (phase 18c)",
+         f"(B,H,S,D)={ATT_D320_SHAPE} fp32 causal, flash_fwd_kernel's wide "
+         "tiles"),
+        ("flash_attention_backward_wide", source_bwd, "attention.py:158",
+         b5["contrib"]["launches"]["backward_launches"], "attention_wide",
+         "backward", "attention_wide",
+         "_contrib_flash_attention through mx.nd (phase 18c)",
+         f"(B,H,S,D)={ATT_D320_SHAPE} fp32 causal, the CUDA-core wide "
+         "tiles"),
+        ("lstm_sequence_fp16", source_lstm, "lstm.py:43",
+         b5["gluon_fp16"]["launches"][0], "lstm_fp16", "forward", "lstm_fp16",
+         "the fp16 Gluon LSTM LM (phase 18d)",
+         f"one layer T={TRAIN_T} N={TRAIN_N} H={H} fp16, "
+         "lstm_seq_kernel<__half>"),
+        ("lstm_sequence_backward_fp16", source_lstm, "lstm.py:77",
+         b5["gluon_fp16"]["launches"][1], "lstm_fp16", "backward",
+         "lstm_fp16", "the fp16 Gluon LSTM LM trained (phase 18d)",
+         f"one layer T={TRAIN_T} N={TRAIN_N} H={H} fp16, "
+         "lstm_seq_bwd_reg_kernel<__half, 8>"),
+        ("lstm_sequence_mixed", source_lstm, "lstm.py:43",
+         b5["rnn_mixed"]["launches"], "lstm_mixed", "forward", "lstm_mixed",
+         "nd.RNN with bf16 states over fp32 parameters (phase 18e)",
+         f"one layer T={B5_RNN_T} N={B5_RNN_N} H={H} bf16 states, fp32 "
+         "xproj and w_h2h"),
+    )
+    for (name, source, line, launches, err_key, part, timing_key, path,
+         shape) in rows:
+        t = timing[timing_key][part]
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"mxnet_tpu/ops/pallas/{line}",
+            "launches": launches, "launches_path": path,
+            "max_abs_err": errs[err_key][part],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": ("scaled_dot_product_attention on the same inputs"
+                        if "attention" in name else
+                        "torch.nn.LSTM in fp16 (cuDNN), input projection "
+                        "included" if "fp16" in name else None),
+            "shape": shape, "share_of_bound": t["share_of_bound"],
+            "kernel_turns_ms": t["kernel_turns_ms"],
+            "library_turns_ms": t["library_turns_ms"], "card": card})
+    by_name = {r["name"]: r for r in records}
+    by_name["flash_attention_fp16"]["masked_lengths"] = timing[
+        "attention_fp16_lengths"]
+    by_name["flash_attention_fp16"]["phase_18a"] = b5["fp16"]
+    by_name["flash_attention_d256"]["phase_18b"] = b5["d256"]
+    by_name["flash_attention_wide"]["phase_18c"] = b5["contrib"]
+    by_name["lstm_sequence_mixed"]["phase_18e"] = b5["rnn_mixed"]
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
     errs = phase_kernels()
     seq_errs = phase_sequence_kernel()
     att_errs = phase_attention_kernels()
+    b5_errs = phase_b5_kernels()
     backend, requests, launches, peak, prob_err = phase_slice()
     wide_launches, wide_prob_err = phase_wide_lstm()
     tf = phase_transformer()
@@ -5357,6 +6261,7 @@ def main():
     cells, forward = phase_timing(backend, requests)
     seq = phase_sequence_timing()
     att = phase_attention_timing()
+    b5_timing = phase_b5_timing()
     tf_timing = phase_transformer_timing(tf)
     profiled = phase_profile(backend, requests)
     tf_profiled = phase_transformer_profile(tf)
@@ -5389,6 +6294,7 @@ def main():
     serve = phase_serve(tf)
     gluon = phase_gluon(bench)
     sequences = phase_seq()
+    b5 = phase_b5()
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -5522,6 +6428,7 @@ def main():
                                           wgmma_bwd_build)
     gluon_records(records, gluon)
     seq_records(records, sequences)
+    b5_records(records, b5_errs, b5_timing, b5)
     print(json.dumps({"kernels": records}), flush=True)
     print(nvidia_smi_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

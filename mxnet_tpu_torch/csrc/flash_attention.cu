@@ -27,11 +27,15 @@
 // Three variants, all with no score matrix leaving the block, K tiles
 // wholly above the causal diagonal (or past the batch element's length)
 // skipped, and strides as arguments, so that the transposed (B, S, H, D)
-// views the transformer makes are read in place:
+// views the transformer makes are read in place. Each takes every dtype
+// the JAX kernel takes in 16 bits, bf16 and fp16 (one template over the
+// element type: the tensor-core products in their .bf16 or .f16 form, P
+// rounded to the inputs' type before the P V product); fp32 runs on CUDA
+// cores:
 //
 // - the Hopper variant (flash_fwd_wgmma_kernel), taken for the dense core
-//   (B2) and the masked core (B3: key lengths, segment ids) in bf16 with
-//   D = 64 or 128 when TMA can describe q, k and v: one block of a TMA
+//   (B2) and the masked core (B3: key lengths, segment ids) in bf16 or
+//   fp16 with D = 64 or 128 when TMA can describe q, k and v: one block of a TMA
 //   producer warpgroup and three wgmma consumer warpgroups per
 //   (batch*head, 192 query rows), K/V tiles (128 keys at D = 64, 64 at
 //   D = 128) in a ring of 3 stages guarded by mbarriers, S = Q K^T and
@@ -41,24 +45,43 @@
 //   answers are set out above the kernel;
 // - the mma.sync tensor-core variant (flash_fwd_mma_kernel), kept for
 //   views TMA cannot take (and, through route 1, for timing beside the
-//   Hopper one), bf16 with D = 64
-//   or 128 and 16-byte aligned rows: one block of 4 warps of 16 query rows
+//   Hopper one), bf16 or fp16 with D = 64 or 128 and 16-byte aligned
+//   rows, and the variant for D = 256 (see below): one block of 4 warps of 16 query rows
 //   per (batch*head, 64 rows), mma.sync m16n8k16 (the Ampere instruction,
 //   below the wgmma rate on Hopper), K/V double buffered by cp.async from
 //   the computing threads, read by ldmatrix; the tensor cores idle while
 //   the softmax runs. It measured 0.10 of the bound at the shape above
 //   with lengths (PERF.md);
-// - the CUDA-core variant (flash_fwd_kernel) for fp32, for other D up to
-//   128 and for unaligned views: 8 warps of 8 query rows, q (times scale),
+// - the CUDA-core variant (flash_fwd_kernel) for fp32, for every other D
+//   and for unaligned views: 8 warps of 8 query rows, q (times scale),
 //   K and V staged as fp32, a lane scoring 2 keys with fp32 FMAs, p through
 //   shared memory, a lane accumulating D/32 output columns. It runs at the
-//   fp32 rate (67 TFLOP/s), far below the tensor-core bound.
+//   fp32 rate (67 TFLOP/s), far below the tensor-core bound. Past D = 128
+//   the masks are read at run time rather than compiled in (the D-long
+//   dot products dwarf the test); past D = 256 its tiles shrink to 32
+//   query rows (4 a warp) and 32 keys (one a lane), so that q, K and V
+//   staged as fp32 fit in 227 KB up to D = 592. The backward's CUDA-core tiles stop at
+//   D = 588 (flash_attention_bwd.cu), so the library takes D up to 588:
+//   kMaxD.
+//
+// Head dims past 128 (B5). At D = 256 a 64-row fp32 output accumulator is
+// 128 registers a thread of a warpgroup, on top of the score tile and the
+// P fragments; the wgmma kernel's three consumer warpgroups would have to
+// become one or two with a new register split and four 64-column TMA boxes
+// a row. The mma.sync variant takes D = 256 with no new layout: a warp's
+// 16 rows hold their 16 x 256 fp32 output (128 registers) and its 16 x 64
+// scores; Q's fragments, 64 more registers at D = 256, are read again from
+// shared memory by ldmatrix for every K tile instead of being kept. Its
+// tiles (64 query rows, two 64-key K and V stages, bf16 or fp16) take
+// 169,728 bytes. So bf16 and fp16 at D = 256 run on mma.sync tensor cores
+// (below the wgmma rate), and every other D past 128 on CUDA cores.
 //
 // The library links the CUDA driver (-lcuda) for cuTensorMapEncodeTiled:
 // the Hopper variant's tensor maps are encoded on the host at each call.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -73,8 +96,9 @@ constexpr int kBlockQ = 64;                   // query rows of a block
 constexpr int kBlockK = 64;                   // keys of a K/V tile
 constexpr int kThreads = 256;                 // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kBlockQ / kWarps;       // query rows of a warp
-constexpr int kMaxD = 128;
+constexpr int kNarrowD = 128;  // CUDA-core masks compiled in up to it
+constexpr int kWideD = 256;    // the CUDA-core variant's 32-row tiles past it
+constexpr int kMaxD = 588;     // the backward's CUDA-core tiles' limit
 constexpr size_t kMaxSharedBytes = 232448;    // 227 KB, the most a block may use
 constexpr float kNeg = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;  // lse from log2 units
@@ -92,6 +116,7 @@ struct Params {
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int B, H, Sq, Sk, D;
+  int causal;
   float scale;
 };
 
@@ -99,6 +124,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -109,6 +135,30 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// two floats rounded to a 16-bit type, packed into one 32-bit register
+// (the lower one first): an mma/wgmma A fragment pair, or a stored pair
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(lo, hi);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -125,16 +175,30 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The masks a kernel applies: each template flag may compile a mask out,
+// and a kernel compiled with a flag on still reads whether the call has
+// that mask (p.causal, a lengths or ids pointer), so that one
+// instantiation can serve every mask where the test costs little.
+template <bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
+struct Masks {
+  bool causal, len, seg;
+  __device__ __forceinline__ explicit Masks(const Params& p)
+      : causal(CAUSAL && p.causal != 0),
+        len(HAS_LEN && p.lengths != nullptr),
+        seg(HAS_SEG && p.seg != nullptr) {}
+};
+
 // Whether query row `row` attends to key `key`: in bounds, on or below the
 // causal diagonal, before the batch element's key length, and in the same
 // nonzero segment.
-template <bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
-__device__ __forceinline__ bool attends(const Params& p, int row, int key,
-                                        int len, int seg_row, int seg_key) {
+template <typename M>
+__device__ __forceinline__ bool attends(const Params& p, const M& mk, int row,
+                                        int key, int len, int seg_row,
+                                        int seg_key) {
   bool ok = key < p.Sk;
-  if (CAUSAL) ok = ok && key <= row + (p.Sk - p.Sq);
-  if (HAS_LEN) ok = ok && key < len;
-  if (HAS_SEG) ok = ok && seg_row > 0 && seg_key == seg_row;
+  if (mk.causal) ok = ok && key <= row + (p.Sk - p.Sq);
+  if (mk.len) ok = ok && key < len;
+  if (mk.seg) ok = ok && seg_row > 0 && seg_key == seg_row;
   return ok;
 }
 
@@ -144,123 +208,142 @@ __device__ __forceinline__ bool attends(const Params& p, int row, int key,
 // reading one float4 column of 8 keys hit distinct banks.
 __host__ __device__ inline int row_stride(int d) { return (d + 3) & ~3; }
 
-__host__ __device__ inline size_t shared_bytes(int d) {
-  const int ldq = row_stride(d);
-  return sizeof(float) * (static_cast<size_t>(kBlockQ) * ldq +
-                          static_cast<size_t>(kBlockK) * (ldq + 4) +
-                          static_cast<size_t>(kBlockK) * ldq +
-                          static_cast<size_t>(kBlockQ) * kBlockK) +
-         sizeof(int) * (kBlockQ + kBlockK);
-}
+// The CUDA-core variant's tiles: R query rows a warp (kWarps * R a block)
+// and KL keys a lane (32 * KL a K/V tile). Up to kWideD: 64 and 64; past
+// it 32 and 32, so that D up to 592 fits in shared memory.
+template <int R, int KL>
+struct ScalarTile {
+  static constexpr int BQ = kWarps * R;
+  static constexpr int BK = 32 * KL;
+  static size_t smem(int d) {
+    const size_t ldq = row_stride(d);
+    return sizeof(float) * (BQ * ldq + BK * (ldq + 4) + BK * ldq +
+                            static_cast<size_t>(BQ) * BK) +
+           sizeof(int) * (BQ + BK);
+  }
+};
+using NarrowTile = ScalarTile<8, 2>;
+using WideTile = ScalarTile<4, 1>;
 
 // DC: 32-wide column chunks of the output a lane holds (D <= 32 * DC).
-template <typename T, int DC, bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
+template <typename T, int DC, int R, int KL, bool CAUSAL, bool HAS_LEN,
+          bool HAS_SEG>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Params p) {
+  constexpr int BQ = ScalarTile<R, KL>::BQ, BK = ScalarTile<R, KL>::BK;
   extern __shared__ __align__(16) float smem[];
+  const Masks<CAUSAL, HAS_LEN, HAS_SEG> mk(p);
   const int D = p.D;
   const int ldq = row_stride(D);
   const int ldk = ldq + 4;
-  float* q_s = smem;                          // [kBlockQ][ldq], times scale
-  float* k_s = q_s + kBlockQ * ldq;           // [kBlockK][ldk]
-  float* v_s = k_s + kBlockK * ldk;           // [kBlockK][ldq]
-  float* p_s = v_s + kBlockK * ldq;           // [kBlockQ][kBlockK]
-  int* seg_q = reinterpret_cast<int*>(p_s + kBlockQ * kBlockK);
-  int* seg_k = seg_q + kBlockQ;
+  float* q_s = smem;                          // [BQ][ldq], times scale
+  float* k_s = q_s + BQ * ldq;                // [BK][ldk]
+  float* v_s = k_s + BK * ldk;                // [BK][ldq]
+  float* p_s = v_s + BK * ldq;                // [BQ][BK]
+  int* seg_q = reinterpret_cast<int*>(p_s + BQ * BK);
+  int* seg_k = seg_q + BQ;
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest rows first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int r0 = warp * kRows;
+  const int r0 = warp * R;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const int* seg = HAS_SEG ? p.seg + static_cast<size_t>(b) * p.Sk : nullptr;
+  const int* seg = mk.seg ? p.seg + static_cast<size_t>(b) * p.Sk : nullptr;
 
-  for (int i = tid; i < kBlockQ * ldq; i += kThreads) {
+  for (int i = tid; i < BQ * ldq; i += kThreads) {
     const int r = i / ldq, c = i % ldq;
     const int row = q0 + r;
     q_s[i] = (row < p.Sq && c < D)
                  ? to_float(q[row * p.q_ss + c]) * p.scale
                  : 0.f;
   }
-  if (HAS_SEG) {
-    for (int i = tid; i < kBlockQ; i += kThreads) {
+  if (mk.seg) {
+    for (int i = tid; i < BQ; i += kThreads) {
       seg_q[i] = q0 + i < p.Sq ? seg[q0 + i] : 0;
     }
   }
 
   // keys this block can see: none past the length, none above the
   // diagonal of its last row
-  const int len = HAS_LEN ? p.lengths[b] : p.Sk;
+  const int len = mk.len ? p.lengths[b] : p.Sk;
   int n_keys = p.Sk;
-  if (HAS_LEN) n_keys = min(n_keys, max(len, 0));
-  if (CAUSAL) {
-    const int last_row = min(q0 + kBlockQ, p.Sq) - 1;
+  if (mk.len) n_keys = min(n_keys, max(len, 0));
+  if (mk.causal) {
+    const int last_row = min(q0 + BQ, p.Sq) - 1;
     n_keys = min(n_keys, last_row + (p.Sk - p.Sq) + 1);
   }
-  const int n_tiles = (n_keys + kBlockK - 1) / kBlockK;
+  const int n_tiles = (n_keys + BK - 1) / BK;
 
-  float m[kRows], l[kRows], acc[kRows][DC];
+  float m[R], l[R], acc[R][DC];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     m[r] = kNeg;
     l[r] = 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
   }
-  float* p_w = p_s + r0 * kBlockK;  // this warp's rows of p
+  float* p_w = p_s + r0 * BK;  // this warp's rows of p
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlockK;
+    const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockK * ldq; i += kThreads) {
+    for (int i = tid; i < BK * ldq; i += kThreads) {
       const int r = i / ldq, c = i % ldq;
       const int key = k0 + r;
       const bool in = key < p.Sk && c < D;
       k_s[r * ldk + c] = in ? to_float(k[key * p.k_ss + c]) : 0.f;
       v_s[r * ldq + c] = in ? to_float(v[key * p.v_ss + c]) : 0.f;
     }
-    if (HAS_SEG) {
-      for (int i = tid; i < kBlockK; i += kThreads) {
+    if (mk.seg) {
+      for (int i = tid; i < BK; i += kThreads) {
         seg_k[i] = k0 + i < p.Sk ? seg[k0 + i] : 0;
       }
     }
     __syncthreads();
 
-    // scores of keys (lane, lane + 32) for the warp's rows
-    float s[kRows][2];
+    // scores of keys lane + 32 j (j < KL) for the warp's rows
+    float s[R][KL];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* ka = k_s + lane * ldk;
-    const float* kb = k_s + (lane + 32) * ldk;
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < KL; ++j) s[r][j] = 0.f;
+    }
     for (int c = 0; c < ldq; c += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(ka + c);
-      const float4 bb = *reinterpret_cast<const float4*>(kb + c);
+      float4 kv[KL];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int j = 0; j < KL; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(k_s + (lane + 32 * j) * ldk +
+                                                 c);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
         const float4 qv =
             *reinterpret_cast<const float4*>(q_s + (r0 + r) * ldq + c);
-        s[r][0] += qv.x * a.x + qv.y * a.y + qv.z * a.z + qv.w * a.w;
-        s[r][1] += qv.x * bb.x + qv.y * bb.y + qv.z * bb.z + qv.w * bb.w;
+#pragma unroll
+        for (int j = 0; j < KL; ++j) {
+          s[r][j] += qv.x * kv[j].x + qv.y * kv[j].y + qv.z * kv[j].z +
+                     qv.w * kv[j].w;
+        }
       }
     }
 
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int row = q0 + r0 + r;
-      bool live[2];
+      bool live[KL];
       float mx = kNeg;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = attends<CAUSAL, HAS_LEN, HAS_SEG>(
-            p, row, k0 + lane + 32 * j, len,
-            HAS_SEG ? seg_q[r0 + r] : 0, HAS_SEG ? seg_k[lane + 32 * j] : 0);
+      for (int j = 0; j < KL; ++j) {
+        const bool ok = attends(p, mk, row, k0 + lane + 32 * j, len,
+                                mk.seg ? seg_q[r0 + r] : 0,
+                                mk.seg ? seg_k[lane + 32 * j] : 0);
         live[j] = ok;
         mx = fmaxf(mx, ok ? s[r][j] : kNeg);
       }
@@ -268,43 +351,47 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m[r], mx);
       // p is zeroed where the mask is false: while every key so far is
       // masked, m_new == kNeg and exp(s - m_new) would be 1
-      const float pa = live[0] ? expf(s[r][0] - m_new) : 0.f;
-      const float pb = live[1] ? expf(s[r][1] - m_new) : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KL; ++j) {
+        const float pv = live[j] ? expf(s[r][j] - m_new) : 0.f;
+        p_w[r * BK + lane + 32 * j] = pv;
+        sum += pv;
+      }
       const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(pa + pb);
+      l[r] = l[r] * alpha + warp_sum(sum);
       m[r] = m_new;
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
-      p_w[r * kBlockK + lane] = pa;
-      p_w[r * kBlockK + lane + 32] = pb;
     }
     __syncwarp();
 
-    for (int j = 0; j < kBlockK; j += 4) {
-      float vv[4][DC];
+    // O += P V: 4 keys at a time, each V value read once for all R rows
+    for (int j = 0; j < BK; j += 4) {
+      float4 pv[R];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = lane + 32 * c;
-          vv[jj][c] = d < D ? v_s[(j + jj) * ldq + d] : 0.f;
-        }
+      for (int r = 0; r < R; ++r) {
+        pv[r] = *reinterpret_cast<const float4*>(p_w + r * BK + j);
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pv =
-            *reinterpret_cast<const float4*>(p_w + r * kBlockK + j);
+      for (int c = 0; c < DC; ++c) {
+        const int d = lane + 32 * c;
+        float vv[4];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc[r][c] += pv.x * vv[0][c] + pv.y * vv[1][c] + pv.z * vv[2][c] +
-                       pv.w * vv[3][c];
+        for (int jj = 0; jj < 4; ++jj) {
+          vv[jj] = d < D ? v_s[(j + jj) * ldq + d] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[r][c] += pv[r].x * vv[0] + pv[r].y * vv[1] + pv[r].z * vv[2] +
+                       pv[r].w * vv[3];
         }
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = q0 + r0 + r;
     if (row >= p.Sq) continue;
     const float norm = fmaxf(l[r], 1e-30f);
@@ -321,11 +408,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant: bf16 inputs, D = 64 or 128, 16-byte aligned rows.
-// One block of 4 warps per (batch*head, tile of 64 query rows); a warp owns
-// 16 rows. Scores S = Q K^T and the output O += P V are mma.sync m16n8k16
-// bf16 products with fp32 accumulation; the warp holds its Q fragments, its
-// 16 x 64 score tile and its 16 x D output in registers, and the online
+// The tensor-core variant: bf16 or fp16 inputs (T), D = 64, 128 or 256,
+// 16-byte aligned rows. One block of 4 warps per (batch*head, tile of 64
+// query rows); a warp owns 16 rows. Scores S = Q K^T and the output
+// O += P V are mma.sync m16n8k16 products in T with fp32 accumulation; the
+// warp holds its Q fragments (up to D = 128; at 256 it reads them from
+// shared memory a K tile), its 16 x 64 score tile and its 16 x D output in
+// registers, and the online
 // softmax runs on the score fragments (a row spans the 4 lanes of a quad),
 // in log2 units so that exp2 serves. K and V tiles (rows padded by 16
 // bytes, so that ldmatrix rows fall in distinct banks) are double
@@ -333,28 +422,32 @@ __global__ void __launch_bounds__(kThreads)
 // reads the K fragments, and with .trans the V fragments of the row-major
 // V tile. Tiles no mask touches skip the per-score mask. The scale
 // multiplies the fp32 scores (it is inexact in bf16 for D = 128), and p is
-// rounded to bf16 for the P V product, as tensor-core flash attention does.
+// rounded to T for the P V product, as tensor-core flash attention does.
 
 constexpr int kMmaThreads = 128;  // 4 warps of 16 query rows
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* ptr) {
+__device__ __forceinline__ uint32_t ld_pair(const void* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a . b for a 16 x 16 bf16 A (row-major fragment), a 16 x 8 bf16 B
-// (column-major fragment) and a 16 x 8 fp32 C.
+// c += a . b for a 16 x 16 A of T (row-major fragment), a 16 x 8 B of T
+// (column-major fragment) and a 16 x 8 fp32 C; T bf16 or fp16.
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kIsF16<T>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -408,14 +501,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// q tile, two K and two V tiles (rows padded by 16 bytes), segment ids
+// q tile, two K and two V tiles of 16-bit values (rows padded by 16
+// bytes), segment ids
 template <int D>
 constexpr size_t mma_shared_bytes() {
   return sizeof(__nv_bfloat16) * (kBlockQ + 4 * kBlockK) * (D + 8) +
          sizeof(int) * (kBlockQ + 2 * kBlockK);
 }
 
-template <int D, bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
+template <typename T, int D, bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + 8;          // row stride of the q, k and v tiles
@@ -424,11 +518,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int NK = kBlockK / 8;    // 8-key tiles of the scores
   constexpr int V8 = D / 8;          // 16-byte vectors in a row
   constexpr float kLog2e = 1.4426950408889634f;
-  using bf16 = __nv_bfloat16;
+  constexpr bool kQRegs = D <= 128;  // Q's fragments kept in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockQ][LD]
-  bf16* k_s = q_s + kBlockQ * LD;                 // [2][kBlockK][LD]
-  bf16* v_s = k_s + 2 * kBlockK * LD;             // [2][kBlockK][LD]
+  const Masks<CAUSAL, HAS_LEN, HAS_SEG> mk(p);
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [kBlockQ][LD]
+  T* k_s = q_s + kBlockQ * LD;                 // [2][kBlockK][LD]
+  T* v_s = k_s + 2 * kBlockK * LD;             // [2][kBlockK][LD]
   int* seg_q = reinterpret_cast<int*>(v_s + 2 * kBlockK * LD);
   int* seg_k = seg_q + kBlockQ;                   // [2][kBlockK]
 
@@ -444,16 +539,16 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int lr = lane % 8;  // and its row in it
   const int wr = warp * 16;
 
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-  const int* seg = HAS_SEG ? p.seg + static_cast<size_t>(b) * p.Sk : nullptr;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int* seg = mk.seg ? p.seg + static_cast<size_t>(b) * p.Sk : nullptr;
 
-  const int len = HAS_LEN ? p.lengths[b] : p.Sk;
+  const int len = mk.len ? p.lengths[b] : p.Sk;
   int n_keys = p.Sk;
-  if (HAS_LEN) n_keys = min(n_keys, max(len, 0));
-  if (CAUSAL) {
+  if (mk.len) n_keys = min(n_keys, max(len, 0));
+  if (mk.causal) {
     const int last_row = min(q0 + kBlockQ, p.Sq) - 1;
     n_keys = min(n_keys, last_row + (p.Sk - p.Sq) + 1);
   }
@@ -462,8 +557,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   // K/V tile kt into buffer buf, by cp.async; rows past Sk are zeros
   const auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * kBlockK;
-    bf16* kd = k_s + buf * kBlockK * LD;
-    bf16* vd = v_s + buf * kBlockK * LD;
+    T* kd = k_s + buf * kBlockK * LD;
+    T* vd = v_s + buf * kBlockK * LD;
     for (int i = tid; i < kBlockK * V8; i += kMmaThreads) {
       const int r = i / V8, c = (i % V8) * 8;
       const bool in = k0 + r < p.Sk;
@@ -471,7 +566,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       cp_async_16(kd + r * LD + c, k + key * p.k_ss + c, in);
       cp_async_16(vd + r * LD + c, v + key * p.v_ss + c, in);
     }
-    if (HAS_SEG) {
+    if (mk.seg) {
       for (int i = tid; i < kBlockK; i += kMmaThreads) {
         seg_k[buf * kBlockK + i] = k0 + i < p.Sk ? seg[k0 + i] : 0;
       }
@@ -488,26 +583,30 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     *reinterpret_cast<uint4*>(q_s + r * LD + c) = val;
   }
-  if (HAS_SEG) {
+  if (mk.seg) {
     for (int i = tid; i < kBlockQ; i += kMmaThreads) {
       seg_q[i] = q0 + i < p.Sq ? seg[q0 + i] : 0;
     }
   }
   __syncthreads();
 
-  uint32_t qa[KC][4];
+  // the A fragment of Q's 16-wide chunk kc for the warp's 16 rows
+  const auto q_frag = [&](uint32_t (&a)[4], int kc) {
+    const T* base = q_s + (wr + g) * LD + kc * 16 + 2 * t;
+    a[0] = ld_pair(base);
+    a[1] = ld_pair(base + 8 * LD);
+    a[2] = ld_pair(base + 8);
+    a[3] = ld_pair(base + 8 * LD + 8);
+  };
+  uint32_t qa[kQRegs ? KC : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const bf16* base = q_s + (wr + g) * LD + kc * 16 + 2 * t;
-    qa[kc][0] = ld_pair(base);
-    qa[kc][1] = ld_pair(base + 8 * LD);
-    qa[kc][2] = ld_pair(base + 8);
-    qa[kc][3] = ld_pair(base + 8 * LD + 8);
+    for (int kc = 0; kc < KC; ++kc) q_frag(qa[kc], kc);
   }
   const int row_a = q0 + wr + g;  // this lane's two rows
   const int row_b = row_a + 8;
-  const int seg_a = HAS_SEG ? seg_q[wr + g] : 0;
-  const int seg_b = HAS_SEG ? seg_q[wr + g + 8] : 0;
+  const int seg_a = mk.seg ? seg_q[wr + g] : 0;
+  const int seg_b = mk.seg ? seg_q[wr + g + 8] : 0;
   // scores are kept in log2 units, so that exp2 gives the softmax's exp
   const float scale_log2 = p.scale * kLog2e;
 
@@ -529,28 +628,37 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();  // tile kt is in shared memory for every warp
     // a tile wholly above this warp's part of the diagonal adds nothing
-    if (!CAUSAL || k0 <= q0 + wr + 15 + (p.Sk - p.Sq)) {
-      const bf16* kb = k_s + buf * kBlockK * LD;
-      const bf16* vb = v_s + buf * kBlockK * LD;
+    if (!mk.causal || k0 <= q0 + wr + 15 + (p.Sk - p.Sq)) {
+      const T* kb = k_s + buf * kBlockK * LD;
+      const T* vb = v_s + buf * kBlockK * LD;
       const int* sk = seg_k + buf * kBlockK;
       float s[NK][4];
 #pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-        for (int kc = 0; kc < KC; kc += 2) {
+      for (int kc = 0; kc < KC; kc += 2) {
+        uint32_t a0[4], a1[4];  // Q's fragments of chunks kc and kc + 1
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a0[e] = qa[kc][e], a1[e] = qa[kc + 1][e];
+        } else {
+          q_frag(a0, kc);
+          q_frag(a1, kc + 1);
+        }
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
           uint32_t kf[4];  // B fragments of chunks kc and kc + 1
           ldmatrix_x4(kf, kb + (n * 8 + lr) * LD + kc * 16 + lm * 8);
-          mma_16816(s[n], qa[kc], kf[0], kf[1]);
-          mma_16816(s[n], qa[kc + 1], kf[2], kf[3]);
+          mma_16816<T>(s[n], a0, kf[0], kf[1]);
+          mma_16816<T>(s[n], a1, kf[2], kf[3]);
         }
       }
 
       // no key of the tile is masked for any row of the warp
       const bool full =
-          !HAS_SEG && k0 + kBlockK <= p.Sk &&
-          (!HAS_LEN || k0 + kBlockK <= len) &&
-          (!CAUSAL || k0 + kBlockK - 1 <= q0 + wr + (p.Sk - p.Sq));
+          !mk.seg && k0 + kBlockK <= p.Sk &&
+          (!mk.len || k0 + kBlockK <= len) &&
+          (!mk.causal || k0 + kBlockK - 1 <= q0 + wr + (p.Sk - p.Sq));
       unsigned live = 0u;  // bit 4n + e: score s[n][e] is attended
       float mx_a = kNeg, mx_b = kNeg;
 #pragma unroll
@@ -559,9 +667,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int e = 0; e < 4; ++e) {
           const int kk = n * 8 + 2 * t + (e & 1);
           const bool ok =
-              full || attends<CAUSAL, HAS_LEN, HAS_SEG>(
-                          p, e < 2 ? row_a : row_b, k0 + kk, len,
-                          e < 2 ? seg_a : seg_b, HAS_SEG ? sk[kk] : 0);
+              full || attends(p, mk, e < 2 ? row_a : row_b, k0 + kk, len,
+                              e < 2 ? seg_a : seg_b, mk.seg ? sk[kk] : 0);
           live |= static_cast<unsigned>(ok) << (4 * n + e);
           s[n][e] = ok ? s[n][e] * scale_log2 : kNeg;
           if (e < 2) {
@@ -605,17 +712,17 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
 #pragma unroll
       for (int j = 0; j < kBlockK / 16; ++j) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                                pack_bf16(s[2 * j][2], s[2 * j][3]),
-                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const uint32_t pa[4] = {pack2<T>(s[2 * j][0], s[2 * j][1]),
+                                pack2<T>(s[2 * j][2], s[2 * j][3]),
+                                pack2<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack2<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
         for (int nd = 0; nd < ND; nd += 2) {
           uint32_t vf[4];  // B fragments of column tiles nd and nd + 1
           ldmatrix_x4_trans(
               vf, vb + (j * 16 + lr + 8 * (lm & 1)) * LD + (nd + lm / 2) * 8);
-          mma_16816(acc[nd], pa, vf[0], vf[1]);
-          mma_16816(acc[nd + 1], pa, vf[2], vf[3]);
+          mma_16816<T>(acc[nd], pa, vf[0], vf[1]);
+          mma_16816<T>(acc[nd + 1], pa, vf[2], vf[3]);
         }
       }
     }
@@ -633,18 +740,19 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int nd = 0; nd < ND; ++nd) {
     const int col = nd * 8 + 2 * t;
     if (row_a < p.Sq) {
-      *reinterpret_cast<__nv_bfloat162*>(o + row_a * p.o_ss + col) =
-          __floats2bfloat162_rn(acc[nd][0] / norm_a, acc[nd][1] / norm_a);
+      store2<T>(o + row_a * p.o_ss + col, acc[nd][0] / norm_a,
+                acc[nd][1] / norm_a);
     }
     if (row_b < p.Sq) {
-      *reinterpret_cast<__nv_bfloat162*>(o + row_b * p.o_ss + col) =
-          __floats2bfloat162_rn(acc[nd][2] / norm_b, acc[nd][3] / norm_b);
+      store2<T>(o + row_b * p.o_ss + col, acc[nd][2] / norm_b,
+                acc[nd][3] / norm_b);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// The Hopper variant (flash_fwd_wgmma_kernel): bf16, D = 64 or 128, the
+// The Hopper variant (flash_fwd_wgmma_kernel): bf16 or fp16 (TE), D = 64
+// or 128, the
 // dense and the masked core, q, k and v views that TMA can describe
 // (16-byte aligned bases, strides of whole 16-byte units).
 //
@@ -659,7 +767,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 //   wgmma with Q and K read from shared memory through 128-byte-swizzled
 //   matrix descriptors, the online softmax on the accumulator fragment in
 //   registers (a row spans a quad of lanes; exp2, the scale in log2
-//   units), P packed to bf16 in registers and fed as wgmma's register A
+//   units), P packed to TE in registers and fed as wgmma's register A
 //   operand for O += P V with V read as stored (MN-major, the descriptor's
 //   transpose bit). S of tile kt is issued with P V of tile kt - 1, so the
 //   tensor cores run the latter while the softmax of kt runs. A consumer
@@ -739,14 +847,14 @@ struct WgParams {
   float scale_log2;
 };
 
-template <int D, bool CAUSAL, bool HAS_SEG>
+template <typename TE, int D, bool CAUSAL, bool HAS_SEG>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ WgParams p) {
   using T = WgTile<D>;
   constexpr int BK = T::BK;
   constexpr int NS = BK / 2;  // score accumulator floats of a thread
   constexpr int CPT = BK / kSegChunk;  // id chunks of a K tile
-  using bf16 = __nv_bfloat16;
+  constexpr bool F16 = kIsF16<TE>;     // the .f16 products, else .bf16
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats over 1024 bytes: tiles start on such a
   // boundary, so that TMA's and wgmma's swizzles agree
@@ -945,7 +1053,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   };
 
   float sacc[NS];           // scores of the tile in flight
-  uint32_t pa[BK / 16][4];  // P of the previous tile, bf16 A fragments
+  uint32_t pa[BK / 16][4];  // P of the previous tile, A fragments in TE
   float oacc[T::PANELS][32];
 #pragma unroll
   for (int i = 0; i < NS; ++i) sacc[i] = 0.f;
@@ -973,9 +1081,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           q_s + pn * T::Q_PANEL + c * 64 * kPanelBytes + off, 16, 1024);
       const uint64_t db = smem_desc(ks + pn * T::KV_PANEL + off, 16, 1024);
       if constexpr (BK == 128) {
-        wgmma_m64n128k16_ss(sacc, da, db, kk > 0);
+        wgmma_m64n128k16_ss<F16>(sacc, da, db, kk > 0);
       } else {
-        wgmma_m64n64k16_ss(sacc, da, db, kk > 0);
+        wgmma_m64n64k16_ss<0, 0, F16>(sacc, da, db, kk > 0);
       }
     }
     wgmma_commit();
@@ -992,7 +1100,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int j = 0; j < BK / 16; ++j) {
 #pragma unroll
       for (int pn = 0; pn < T::PANELS; ++pn) {
-        wgmma_m64n64k16_rs(
+        wgmma_m64n64k16_rs<F16>(
             oacc[pn], pa[j],
             smem_desc(vs + pn * T::KV_PANEL + j * 16 * kPanelBytes, 1024,
                       1024));
@@ -1097,10 +1205,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const auto pack_p = [&]() {
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
-      pa[j][0] = pack_bf16(sacc[8 * j + 0], sacc[8 * j + 1]);
-      pa[j][1] = pack_bf16(sacc[8 * j + 2], sacc[8 * j + 3]);
-      pa[j][2] = pack_bf16(sacc[8 * j + 4], sacc[8 * j + 5]);
-      pa[j][3] = pack_bf16(sacc[8 * j + 6], sacc[8 * j + 7]);
+      pa[j][0] = pack2<TE>(sacc[8 * j + 0], sacc[8 * j + 1]);
+      pa[j][1] = pack2<TE>(sacc[8 * j + 2], sacc[8 * j + 3]);
+      pa[j][2] = pack2<TE>(sacc[8 * j + 4], sacc[8 * j + 5]);
+      pa[j][3] = pack2<TE>(sacc[8 * j + 6], sacc[8 * j + 7]);
     }
   };
   const auto rescale_o = [&](float alpha_a, float alpha_b) {
@@ -1180,21 +1288,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (row_a < p.Sq) lse[row_a] = (m_a + log2f(norm_a)) * kLn2;
     if (row_b < p.Sq) lse[row_b] = (m_b + log2f(norm_b)) * kLn2;
   }
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  TE* o = static_cast<TE*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int pn = 0; pn < T::PANELS; ++pn) {
 #pragma unroll
     for (int nd = 0; nd < 8; ++nd) {
       const int col = pn * 64 + nd * 8 + 2 * t4;
       if (row_a < p.Sq) {
-        *reinterpret_cast<__nv_bfloat162*>(o + row_a * p.o_ss + col) =
-            __floats2bfloat162_rn(oacc[pn][4 * nd] / norm_a,
-                                  oacc[pn][4 * nd + 1] / norm_a);
+        store2<TE>(o + row_a * p.o_ss + col, oacc[pn][4 * nd] / norm_a,
+                   oacc[pn][4 * nd + 1] / norm_a);
       }
       if (row_b < p.Sq) {
-        *reinterpret_cast<__nv_bfloat162*>(o + row_b * p.o_ss + col) =
-            __floats2bfloat162_rn(oacc[pn][4 * nd + 2] / norm_b,
-                                  oacc[pn][4 * nd + 3] / norm_b);
+        store2<TE>(o + row_b * p.o_ss + col, oacc[pn][4 * nd + 2] / norm_b,
+                   oacc[pn][4 * nd + 3] / norm_b);
       }
     }
   }
@@ -1204,38 +1310,40 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 template <typename Kernel>
 int launch(Kernel kernel, const Params& p, size_t smem, int threads,
-           cudaStream_t stream) {
+           int block_q, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.B * p.H);
+  const dim3 grid((p.Sq + block_q - 1) / block_q, p.B * p.H);
   kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int R, int KL>
 struct ScalarKernel {
   template <bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
   static int run(const Params& p, cudaStream_t s) {
-    return launch(flash_fwd_kernel<T, DC, CAUSAL, HAS_LEN, HAS_SEG>, p,
-                  shared_bytes(p.D), kThreads, s);
+    using Tile = ScalarTile<R, KL>;
+    return launch(flash_fwd_kernel<T, DC, R, KL, CAUSAL, HAS_LEN, HAS_SEG>, p,
+                  Tile::smem(p.D), kThreads, Tile::BQ, s);
   }
 };
 
-template <int D>
+template <typename T, int D>
 struct MmaKernel {
   template <bool CAUSAL, bool HAS_LEN, bool HAS_SEG>
   static int run(const Params& p, cudaStream_t s) {
-    return launch(flash_fwd_mma_kernel<D, CAUSAL, HAS_LEN, HAS_SEG>, p,
-                  mma_shared_bytes<D>(), kMmaThreads, s);
+    return launch(flash_fwd_mma_kernel<T, D, CAUSAL, HAS_LEN, HAS_SEG>, p,
+                  mma_shared_bytes<D>(), kMmaThreads, kBlockQ, s);
   }
 };
 
 template <typename K>
-int dispatch_mask(const Params& p, bool causal, cudaStream_t s) {
+int dispatch_mask(const Params& p, cudaStream_t s) {
+  const bool causal = p.causal != 0;
   const bool len = p.lengths != nullptr, seg = p.seg != nullptr;
   if (!len && !seg) {
     return causal ? K::template run<true, false, false>(p, s)
@@ -1253,10 +1361,36 @@ int dispatch_mask(const Params& p, bool causal, cudaStream_t s) {
                 : K::template run<false, true, true>(p, s);
 }
 
+// The kernels that read their lengths and ids at run time (Masks): one
+// instantiation a causal flag.
+template <typename K>
+int dispatch_causal(const Params& p, cudaStream_t s) {
+  return p.causal ? K::template run<true, true, true>(p, s)
+                  : K::template run<false, true, true>(p, s);
+}
+
+// The CUDA-core variant: every mask compiled in up to D = 128; past it,
+// in chunks of 64 columns (19 chunks of 32 for the last 12), the masks
+// read at run time, on the 64-row tiles up to kWideD and the 32-row ones
+// past it.
 template <typename T>
-int dispatch_scalar(const Params& p, bool causal, cudaStream_t s) {
-  return p.D <= 64 ? dispatch_mask<ScalarKernel<T, 2>>(p, causal, s)
-                   : dispatch_mask<ScalarKernel<T, 4>>(p, causal, s);
+int dispatch_scalar(const Params& p, cudaStream_t s) {
+  if (p.D <= 64) return dispatch_mask<ScalarKernel<T, 2, 8, 2>>(p, s);
+  if (p.D <= kNarrowD) return dispatch_mask<ScalarKernel<T, 4, 8, 2>>(p, s);
+#define MXT_WIDE(DC, R, KL)                                       \
+  if (p.D <= 32 * (DC)) {                                         \
+    return dispatch_causal<ScalarKernel<T, DC, R, KL>>(p, s);     \
+  }
+  MXT_WIDE(6, 8, 2)
+  MXT_WIDE(8, 8, 2)
+  MXT_WIDE(10, 4, 1)
+  MXT_WIDE(12, 4, 1)
+  MXT_WIDE(14, 4, 1)
+  MXT_WIDE(16, 4, 1)
+  MXT_WIDE(18, 4, 1)
+  MXT_WIDE(19, 4, 1)
+#undef MXT_WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The tensor-core variant reads q, k and v in 16-byte vectors and writes o
@@ -1273,13 +1407,20 @@ bool mma_aligned(const Params& p) {
          p.o_ss % 2 == 0;
 }
 
+template <typename T>
+int dispatch_mma(const Params& p, cudaStream_t s) {
+  if (p.D == 64) return dispatch_mask<MmaKernel<T, 64>>(p, s);
+  if (p.D == 128) return dispatch_mask<MmaKernel<T, 128>>(p, s);
+  return dispatch_causal<MmaKernel<T, 256>>(p, s);
+}
+
 
 // seg_scratch: flash_attention_seg_scratch_ints(B, Sk) int32 on the card,
 // 16-byte aligned, when p.seg is not null: the padded ids (B, s_pad), then
 // their chunk ranges (B, s_pad / kSegChunk, 4), both written by
 // seg_ranges_kernel ahead of the attention kernel on the same stream, with
 // no host sync.
-template <int D, bool CAUSAL, bool HAS_SEG>
+template <typename TE, int D, bool CAUSAL, bool HAS_SEG>
 int launch_wgmma(const Params& p, int* seg_scratch, cudaStream_t stream) {
   using T = WgTile<D>;
   WgParams w;
@@ -1311,7 +1452,7 @@ int launch_wgmma(const Params& p, int* seg_scratch, cudaStream_t stream) {
   w.o_sb = p.o_sb, w.o_sh = p.o_sh, w.o_ss = p.o_ss;
   w.H = p.H, w.Sq = p.Sq, w.Sk = p.Sk;
   w.scale_log2 = p.scale * 1.4426950408889634f;
-  const auto kernel = flash_fwd_wgmma_kernel<D, CAUSAL, HAS_SEG>;
+  const auto kernel = flash_fwd_wgmma_kernel<TE, D, CAUSAL, HAS_SEG>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM));
@@ -1321,15 +1462,21 @@ int launch_wgmma(const Params& p, int* seg_scratch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int dispatch_wgmma(const Params& p, bool causal, int* seg_scratch,
-                   cudaStream_t s) {
+template <typename TE, int D>
+int dispatch_wgmma(const Params& p, int* seg_scratch, cudaStream_t s) {
+  const bool causal = p.causal != 0;
   if (p.seg != nullptr) {
-    return causal ? launch_wgmma<D, true, true>(p, seg_scratch, s)
-                  : launch_wgmma<D, false, true>(p, seg_scratch, s);
+    return causal ? launch_wgmma<TE, D, true, true>(p, seg_scratch, s)
+                  : launch_wgmma<TE, D, false, true>(p, seg_scratch, s);
   }
-  return causal ? launch_wgmma<D, true, false>(p, nullptr, s)
-                : launch_wgmma<D, false, false>(p, nullptr, s);
+  return causal ? launch_wgmma<TE, D, true, false>(p, nullptr, s)
+                : launch_wgmma<TE, D, false, false>(p, nullptr, s);
+}
+
+template <typename TE>
+int dispatch_wgmma_d(const Params& p, int* seg_scratch, cudaStream_t s) {
+  return p.D == 64 ? dispatch_wgmma<TE, 64>(p, seg_scratch, s)
+                   : dispatch_wgmma<TE, 128>(p, seg_scratch, s);
 }
 
 // The Hopper variant reads q, k and v through TMA maps (tma_operand) and
@@ -1355,12 +1502,13 @@ extern "C" {
 // are int32 on the card, or null; with segment_ids, seg_scratch holds
 // flash_attention_seg_scratch_ints(B, Sk) int32 on the card, 16-byte
 // aligned (the Hopper variant's tile skipping writes it). dtype: 0 =
-// float32, 1 = bfloat16. route: 0 picks the variant by dtype, D and
-// alignment; 1 takes the mma.sync variant wherever it applies (bf16, D =
-// 64 or 128, aligned rows), so that it can be timed beside the Hopper one.
-// *variant is set to the variant launched: 0 the CUDA-core one, 1
-// mma.sync, 2 wgmma. Returns the cudaError_t of the launch, or kCuBase +
-// a CUresult of the TMA map encoding.
+// float32, 1 = bfloat16, 2 = float16. D: 1 to kMaxD (588). route: 0 picks
+// the variant by dtype, D and alignment; 1 takes the mma.sync variant
+// wherever it applies (bf16 or fp16, D = 64, 128 or 256, aligned rows), so
+// that it can be timed beside the Hopper one. *variant is set to the
+// variant launched: 0 the CUDA-core one, 1 mma.sync, 2 wgmma. Returns the
+// cudaError_t of the launch, or kCuBase + a CUresult of the TMA map
+// encoding.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, void* lse, const void* lengths,
                             const void* segment_ids, void* seg_scratch,
@@ -1368,7 +1516,7 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
                             int Sk, int D, float scale, int causal, int dtype,
                             int route, int* variant, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > kMaxD ||
-      B * H > 65535 || shared_bytes(D) > kMaxSharedBytes ||
+      B * H > 65535 || dtype < 0 || dtype > 2 ||
       (segment_ids != nullptr && Sq != Sk) || route < 0 || route > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1385,12 +1533,14 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
   p.v_sb = strides[6], p.v_sh = strides[7], p.v_ss = strides[8];
   p.o_sb = strides[9], p.o_sh = strides[10], p.o_ss = strides[11];
   p.B = B, p.H = H, p.Sq = Sq, p.Sk = Sk, p.D = D;
+  p.causal = causal != 0;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool c = causal != 0;
-  const bool mma = dtype == 1 && (D == 64 || D == 128) && mma_aligned(p);
+  const bool half = dtype == 2;
+  const bool mma =
+      dtype != 0 && (D == 64 || D == 128 || D == 256) && mma_aligned(p);
   if (route == 1 && !mma) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == 0 && dtype == 1 && (D == 64 || D == 128) &&
+  if (route == 0 && dtype != 0 && (D == 64 || D == 128) &&
       wgmma_aligned(p)) {
     int* scratch = static_cast<int*>(seg_scratch);
     if (segment_ids != nullptr &&
@@ -1398,19 +1548,24 @@ int flash_attention_forward(const void* q, const void* k, const void* v,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     *variant = 2;
-    return D == 64 ? dispatch_wgmma<64>(p, c, scratch, s)
-                   : dispatch_wgmma<128>(p, c, scratch, s);
+    return half ? dispatch_wgmma_d<__half>(p, scratch, s)
+                : dispatch_wgmma_d<__nv_bfloat16>(p, scratch, s);
   }
   if (mma) {
     *variant = 1;
-    return D == 64 ? dispatch_mask<MmaKernel<64>>(p, c, s)
-                   : dispatch_mask<MmaKernel<128>>(p, c, s);
+    return half ? dispatch_mma<__half>(p, s)
+                : dispatch_mma<__nv_bfloat16>(p, s);
   }
+  const size_t smem = D <= kWideD ? NarrowTile::smem(D) : WideTile::smem(D);
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   *variant = 0;
-  if (dtype == 0) return dispatch_scalar<float>(p, c, s);
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_scalar<__nv_bfloat16>(p, c, s);
+  if (dtype == 0) return dispatch_scalar<float>(p, s);
+  return half ? dispatch_scalar<__half>(p, s)
+              : dispatch_scalar<__nv_bfloat16>(p, s);
 }
+
+// the largest head dim the library takes
+int flash_attention_max_head_dim() { return kMaxD; }
 
 // the int32 scratch the Hopper variant takes with segment ids
 size_t flash_attention_seg_scratch_ints(int B, int S) {

@@ -33,9 +33,11 @@
 //
 // Three variants, all with strides as arguments (the transformer's v and
 // dO are (B, H, S, D) views of (B, S, H, D) memory), chosen before the
-// launch by dtype, D and alignment:
+// launch by dtype, D and alignment. The tensor-core ones take bf16 and
+// fp16 (one template over the element type; P and dS rounded to it for
+// their products, as the forward rounds P):
 // - the Hopper variant (flash_bwd_wgmma_kernel and its two passes), taken
-//   for bf16 at D = 64 or 128 when TMA can describe q, k, v and dO and the
+//   for bf16 or fp16 at D = 64 or 128 when TMA can describe q, k, v and dO and the
 //   forward's lse is at hand: one TMA + wgmma kernel a block per 128 keys
 //   (64 at D = 128) that keeps its K and V tiles in shared memory, walks
 //   the query tiles that see them, writes dK and dV once and adds dQ's
@@ -43,17 +45,23 @@
 //   design is set out above the kernel. Not deterministic in dq's last
 //   bits (the reduce-adds arrive in any order);
 // - the mma.sync variant (the first design: K0 delta, K1 dK dV, K2 dQ),
-//   kept for aligned bf16 views TMA cannot take and, through route 1, for
+//   kept for aligned 16-bit views TMA cannot take, taken at D = 256 (B5:
+//   K1 in two column halves, see below) and, through route 1, for
 //   timing beside the Hopper one: 4 warps of 16 rows, each product an
 //   mma.sync m16n8k16 from ldmatrix fragments, the walked tiles double
 //   buffered by cp.async; K1 owns 64 keys and K2 64 query rows, so every
 //   gradient is written once and the result does not depend on block
 //   order. The tensor cores wait while the softmax runs;
-// - the CUDA-core variant (fp32, other D up to 128, unaligned views): the
+// - the CUDA-core variant (fp32, every other D, unaligned views): the
 //   same three launches, K1 and K2 with 8 warps of 8 rows, the tiles
 //   staged as fp32 in shared memory, a lane scoring 2 keys (or 2 queries)
 //   with fp32 FMAs, P and dS through shared memory, a lane summing D/32
-//   columns.
+//   columns. Past D = 128 (B5) a block owns 32 rows or keys (4 a warp),
+//   and past D = 256 16 (2 a warp) walking tiles of 32 (one a lane), so
+//   that its four D-wide fp32 tiles fit in 227 KB: K1's, the larger, up
+//   to D = 588, the library's limit (kMaxD; the forward's tiles would
+//   reach 592). It is a simple kernel at the fp32 rate, far below the
+//   tensor-core bound.
 // All three read the forward's lse; the earlier two share K0
 // (flash_bwd_delta_rows_kernel), which computes delta alone.
 //
@@ -61,6 +69,7 @@
 // the Hopper variant's tensor maps are encoded on the host at each call.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -75,12 +84,13 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;        // rows (or keys) a block owns
 constexpr int kThreads = 256;    // CUDA-core variant: 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kTile / kWarps;  // rows of a warp
 constexpr int kMmaThreads = 128;       // tensor-core variant: 4 warps of 16
-constexpr int kMaxD = 128;
+constexpr int kNarrowD = 128;  // the CUDA-core variant's 64-row tiles
+constexpr int kWideD = 256;    // its 32-row tiles up to it, 16-row past it
+constexpr int kMaxD = 588;     // the largest D whose K1 tiles fit
+constexpr size_t kMaxSharedBytes = 232448;  // 227 KB, the most a block may use
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -110,6 +120,7 @@ struct Params {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -121,12 +132,41 @@ template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
+// two floats rounded to a 16-bit type, packed into one 32-bit register
+// (the lower one first): an mma/wgmma A fragment pair, or a stored pair
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(lo, hi);
+}
+
+// a pair of 16-bit values of T in one register as two floats
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t x);
+template <>
+__device__ __forceinline__ float2 unpack2<bf16>(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t x) {
+  return __half22float2(*reinterpret_cast<__half2*>(&x));
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -203,29 +243,41 @@ __device__ void zero_rows(T* base, long long ss, int r0, int r1, int D,
 // of D rounded up to 4 (zero padded), so rows are read as float4; the
 // tiles a lane reads by its own row get 4 more floats, so that the 8
 // lanes of a quarter warp reading one float4 column hit distinct banks.
+// A block owns BR = 8 R rows (K2) or keys (K1), R a warp, and walks tiles
+// of BW = 32 KL keys (K2) or rows (K1), KL a lane: 64 and 64 up to
+// kNarrowD, 32 and 64 up to kWideD, 16 and 32 past it.
 
 __host__ __device__ inline int row_stride(int d) { return (d + 3) & ~3; }
 
-// fp32 copy of rows [r0, r0 + kTile) of a (S, D) slice with row stride ss
-// into a [kTile][ld] tile, times `mul`; zeros past `limit` rows and D.
+template <int R, int KL>
+struct ScalarTile {
+  static constexpr int BR = kWarps * R;
+  static constexpr int BW = 32 * KL;
+  // K2: q and dO of the block, K and V walked, dS
+  static size_t dq_smem(int d) {
+    const size_t ld = row_stride(d);
+    return sizeof(float) * (2 * BR * ld + 2 * BW * (ld + 4) +
+                            static_cast<size_t>(BR) * BW);
+  }
+  // K1: K and V of the block, q and dO walked, P^T and dS^T, lse and delta
+  static size_t dkdv_smem(int d) {
+    const size_t ld = row_stride(d);
+    return sizeof(float) * (2 * BR * ld + 2 * BW * (ld + 4) +
+                            2 * static_cast<size_t>(BR) * BW + 2 * BW);
+  }
+};
+using WideTile = ScalarTile<2, 1>;  // past kWideD
+
+// fp32 copy of rows [r0, r0 + rows) of a (S, D) slice with row stride ss
+// into a [rows][ld] tile, times `mul`; zeros past `limit` rows and D.
 template <typename T>
 __device__ void stage(float* dst, int ld, const T* src, long long ss, int r0,
-                      int limit, int D, float mul, int tid) {
-  for (int i = tid; i < kTile * ld; i += kThreads) {
+                      int rows, int limit, int D, float mul, int tid) {
+  for (int i = tid; i < rows * ld; i += kThreads) {
     const int r = i / ld, c = i % ld;
     dst[i] = (r0 + r < limit && c < D) ? to_float(src[(r0 + r) * ss + c]) * mul
                                        : 0.f;
   }
-}
-
-size_t dq_shared_bytes(int d) {
-  const int ld = row_stride(d);
-  return sizeof(float) * kTile * (2 * ld + 2 * (ld + 4) + kTile);
-}
-
-size_t dkdv_shared_bytes(int d) {
-  const int ld = row_stride(d);
-  return sizeof(float) * kTile * (2 * ld + 2 * (ld + 4) + 2 * kTile + 2);
 }
 
 // K0 of the earlier two variants: delta = rowsum(dO * O) of 64 query
@@ -239,29 +291,51 @@ __global__ void __launch_bounds__(kThreads)
                  kWarps, threadIdx.x % 32);
 }
 
-// K2: dq of 64 query rows. A lane scores keys lane, lane + 32 for the
-// warp's 8 rows (S and dP), writes dS to shared memory, then sums
+// acc[r][c] += sum over 4 walked rows j .. j + 3 of w[r][jj] * m[j + jj][d]
+// for d = lane + 32 c: x holds the R rows' 4 weights, m the walked tile
+// (row stride ld); each value of m is read once for all R rows.
+template <int R, int DC>
+__device__ __forceinline__ void sum_rows(float (&acc)[R][DC],
+                                         const float4 (&x)[R], const float* m,
+                                         int ld, int j, int D, int lane) {
+#pragma unroll
+  for (int c = 0; c < DC; ++c) {
+    const int d = lane + 32 * c;
+    float mm[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) mm[jj] = d < D ? m[(j + jj) * ld + d] : 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[r][c] += x[r].x * mm[0] + x[r].y * mm[1] + x[r].z * mm[2] +
+                   x[r].w * mm[3];
+    }
+  }
+}
+
+// K2: dq of BR query rows. A lane scores keys lane + 32 j (j < KL) for the
+// warp's R rows (S and dP), writes dS to shared memory, then sums
 // dq[row][d] over the tile's keys for d = lane + 32 c.
-template <typename T, int DC>
+template <typename T, int DC, int R, int KL>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const Params p) {
+  constexpr int BR = ScalarTile<R, KL>::BR, BW = ScalarTile<R, KL>::BW;
   extern __shared__ __align__(16) float smem[];
   const int D = p.D;
   const int ldq = row_stride(D);
   const int ldk = ldq + 4;
-  float* q_s = smem;                  // [kTile][ldq], times scale
-  float* do_s = q_s + kTile * ldq;    // [kTile][ldq]
-  float* k_s = do_s + kTile * ldq;    // [kTile][ldk]
-  float* v_s = k_s + kTile * ldk;     // [kTile][ldk]
-  float* ds_s = v_s + kTile * ldk;    // [kTile][kTile]
+  float* q_s = smem;                  // [BR][ldq], times scale
+  float* do_s = q_s + BR * ldq;       // [BR][ldq]
+  float* k_s = do_s + BR * ldq;       // [BW][ldk]
+  float* v_s = k_s + BW * ldk;        // [BW][ldk]
+  float* ds_s = v_s + BW * ldk;       // [BR][BW]
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int r0 = warp * kRows;
+  const int r0 = warp * R;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -271,84 +345,77 @@ __global__ void __launch_bounds__(kThreads)
   const float* lse = p.lse + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const float* delta = p.delta + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const int len = key_limit(p, b);
-  const int n_tiles = (keys_seen(p, len, q0 + kTile) + kTile - 1) / kTile;
+  const int n_tiles = (keys_seen(p, len, q0 + BR) + BW - 1) / BW;
 
-  stage(q_s, ldq, q, p.q_ss, q0, p.Sq, D, p.scale, tid);
-  stage(do_s, ldq, dout, p.do_ss, q0, p.Sq, D, 1.f, tid);
-  float lse_r[kRows], delta_r[kRows], acc[kRows][DC];
+  stage(q_s, ldq, q, p.q_ss, q0, BR, p.Sq, D, p.scale, tid);
+  stage(do_s, ldq, dout, p.do_ss, q0, BR, p.Sq, D, 1.f, tid);
+  float lse_r[R], delta_r[R], acc[R][DC];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = q0 + r0 + r;
     lse_r[r] = row < p.Sq ? lse[row] : 0.f;
     delta_r[r] = row < p.Sq ? delta[row] : 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
   }
-  float* ds_w = ds_s + r0 * kTile;  // this warp's rows of dS
+  float* ds_w = ds_s + r0 * BW;  // this warp's rows of dS
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * BW;
     __syncthreads();
-    stage(k_s, ldk, k, p.k_ss, k0, p.Sk, D, 1.f, tid);
-    stage(v_s, ldk, v, p.v_ss, k0, p.Sk, D, 1.f, tid);
+    stage(k_s, ldk, k, p.k_ss, k0, BW, p.Sk, D, 1.f, tid);
+    stage(v_s, ldk, v, p.v_ss, k0, BW, p.Sk, D, 1.f, tid);
     __syncthreads();
-    float s[kRows][2], dp[kRows][2];
+    float s[R][KL], dp[R][KL];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < KL; ++j) s[r][j] = dp[r][j] = 0.f;
+    }
     for (int c = 0; c < ldq; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(k_s + lane * ldk + c);
-      const float4 kb =
-          *reinterpret_cast<const float4*>(k_s + (lane + 32) * ldk + c);
-      const float4 va = *reinterpret_cast<const float4*>(v_s + lane * ldk + c);
-      const float4 vb =
-          *reinterpret_cast<const float4*>(v_s + (lane + 32) * ldk + c);
+      float4 kv[KL], vv[KL];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int j = 0; j < KL; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(k_s + (lane + 32 * j) * ldk + c);
+        vv[j] = *reinterpret_cast<const float4*>(v_s + (lane + 32 * j) * ldk + c);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
         const float4 qv =
             *reinterpret_cast<const float4*>(q_s + (r0 + r) * ldq + c);
         const float4 dv =
             *reinterpret_cast<const float4*>(do_s + (r0 + r) * ldq + c);
-        s[r][0] += qv.x * ka.x + qv.y * ka.y + qv.z * ka.z + qv.w * ka.w;
-        s[r][1] += qv.x * kb.x + qv.y * kb.y + qv.z * kb.z + qv.w * kb.w;
-        dp[r][0] += dv.x * va.x + dv.y * va.y + dv.z * va.z + dv.w * va.w;
-        dp[r][1] += dv.x * vb.x + dv.y * vb.y + dv.z * vb.z + dv.w * vb.w;
+#pragma unroll
+        for (int j = 0; j < KL; ++j) {
+          s[r][j] += qv.x * kv[j].x + qv.y * kv[j].y + qv.z * kv[j].z +
+                     qv.w * kv[j].w;
+          dp[r][j] += dv.x * vv[j].x + dv.y * vv[j].y + dv.z * vv[j].z +
+                      dv.w * vv[j].w;
+        }
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int row = q0 + r0 + r;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < KL; ++j) {
         const bool live = attends(p, row, k0 + lane + 32 * j, len, seg);
         const float pv = live ? expf(s[r][j] - lse_r[r]) : 0.f;
-        ds_w[r * kTile + lane + 32 * j] = pv * (dp[r][j] - delta_r[r]) * p.scale;
+        ds_w[r * BW + lane + 32 * j] = pv * (dp[r][j] - delta_r[r]) * p.scale;
       }
     }
     __syncwarp();
-    for (int j = 0; j < kTile; j += 4) {
-      float kk[4][DC];
+    for (int j = 0; j < BW; j += 4) {
+      float4 dsv[R];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = lane + 32 * c;
-          kk[jj][c] = d < D ? k_s[(j + jj) * ldk + d] : 0.f;
-        }
+      for (int r = 0; r < R; ++r) {
+        dsv[r] = *reinterpret_cast<const float4*>(ds_w + r * BW + j);
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 dsv =
-            *reinterpret_cast<const float4*>(ds_w + r * kTile + j);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc[r][c] += dsv.x * kk[0][c] + dsv.y * kk[1][c] + dsv.z * kk[2][c] +
-                       dsv.w * kk[3][c];
-        }
-      }
+      sum_rows<R, DC>(acc, dsv, k_s, ldk, j, D, lane);
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = q0 + r0 + r;
     if (row >= p.Sq) continue;
 #pragma unroll
@@ -359,33 +426,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K1: dk and dv of 64 keys. A lane scores queries lane, lane + 32 for the
-// warp's 8 keys (S^T and dP^T), writes P^T and dS^T to shared memory, then
-// sums dv[key][d] and dk[key][d] over the tile's queries for
+// K1: dk and dv of BR keys. A lane scores queries lane + 32 j (j < KL) for
+// the warp's R keys (S^T and dP^T), writes P^T and dS^T to shared memory,
+// then sums dv[key][d] and dk[key][d] over the tile's queries for
 // d = lane + 32 c.
-template <typename T, int DC>
+template <typename T, int DC, int R, int KL>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const Params p) {
+  constexpr int BR = ScalarTile<R, KL>::BR, BW = ScalarTile<R, KL>::BW;
   extern __shared__ __align__(16) float smem[];
   const int D = p.D;
   const int ldk = row_stride(D);   // the block's own keys: read broadcast
   const int ldq = ldk + 4;         // the walked query tiles: a row a lane
-  float* k_s = smem;                  // [kTile][ldk]
-  float* v_s = k_s + kTile * ldk;     // [kTile][ldk]
-  float* q_s = v_s + kTile * ldk;     // [kTile][ldq], unscaled
-  float* do_s = q_s + kTile * ldq;    // [kTile][ldq]
-  float* p_s = do_s + kTile * ldq;    // [kTile keys][kTile queries]
-  float* ds_s = p_s + kTile * kTile;  // [kTile keys][kTile queries]
-  float* lse_s = ds_s + kTile * kTile;
-  float* delta_s = lse_s + kTile;
+  float* k_s = smem;                  // [BR][ldk]
+  float* v_s = k_s + BR * ldk;        // [BR][ldk]
+  float* q_s = v_s + BR * ldk;        // [BW][ldq], unscaled
+  float* do_s = q_s + BW * ldq;       // [BW][ldq]
+  float* p_s = do_s + BW * ldq;       // [BR keys][BW queries]
+  float* ds_s = p_s + BR * BW;        // [BR keys][BW queries]
+  float* lse_s = ds_s + BR * BW;
+  float* delta_s = lse_s + BW;
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
-  const int k0 = blockIdx.x * kTile;  // the most work first (causal)
+  const int k0 = blockIdx.x * BR;  // the most work first (causal)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int r0 = warp * kRows;
+  const int r0 = warp * R;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -396,96 +464,87 @@ __global__ void __launch_bounds__(kThreads)
   const float* lse = p.lse + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const float* delta = p.delta + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const int len = key_limit(p, b);
-  const int k1 = min(k0 + kTile, p.Sk);
+  const int k1 = min(k0 + BR, p.Sk);
   if (k0 >= len) {  // no query sees these keys
     zero_rows(dk, p.dk_ss, k0, k1, D, tid, kThreads);
     zero_rows(dv, p.dv_ss, k0, k1, D, tid, kThreads);
     return;
   }
-  stage(k_s, ldk, k, p.k_ss, k0, p.Sk, D, 1.f, tid);
-  stage(v_s, ldk, v, p.v_ss, k0, p.Sk, D, 1.f, tid);
-  float acc_k[kRows][DC], acc_v[kRows][DC];
+  stage(k_s, ldk, k, p.k_ss, k0, BR, p.Sk, D, 1.f, tid);
+  stage(v_s, ldk, v, p.v_ss, k0, BR, p.Sk, D, 1.f, tid);
+  float acc_k[R][DC], acc_v[R][DC];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
   }
-  float* p_w = p_s + r0 * kTile;
-  float* ds_w = ds_s + r0 * kTile;
+  float* p_w = p_s + r0 * BW;
+  float* ds_w = ds_s + r0 * BW;
 
-  for (int qt = first_row(p, k0) / kTile; qt * kTile < p.Sq; ++qt) {
-    const int q0 = qt * kTile;
+  for (int qt = first_row(p, k0) / BW; qt * BW < p.Sq; ++qt) {
+    const int q0 = qt * BW;
     __syncthreads();
-    stage(q_s, ldq, q, p.q_ss, q0, p.Sq, D, 1.f, tid);
-    stage(do_s, ldq, dout, p.do_ss, q0, p.Sq, D, 1.f, tid);
-    for (int i = tid; i < kTile; i += kThreads) {
+    stage(q_s, ldq, q, p.q_ss, q0, BW, p.Sq, D, 1.f, tid);
+    stage(do_s, ldq, dout, p.do_ss, q0, BW, p.Sq, D, 1.f, tid);
+    for (int i = tid; i < BW; i += kThreads) {
       lse_s[i] = q0 + i < p.Sq ? lse[q0 + i] : 0.f;
       delta_s[i] = q0 + i < p.Sq ? delta[q0 + i] : 0.f;
     }
     __syncthreads();
-    float s[kRows][2], dp[kRows][2];
+    float s[R][KL], dp[R][KL];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < KL; ++j) s[r][j] = dp[r][j] = 0.f;
+    }
     for (int c = 0; c < ldk; c += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(q_s + lane * ldq + c);
-      const float4 qb =
-          *reinterpret_cast<const float4*>(q_s + (lane + 32) * ldq + c);
-      const float4 da = *reinterpret_cast<const float4*>(do_s + lane * ldq + c);
-      const float4 db =
-          *reinterpret_cast<const float4*>(do_s + (lane + 32) * ldq + c);
+      float4 qa[KL], da[KL];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int j = 0; j < KL; ++j) {
+        qa[j] = *reinterpret_cast<const float4*>(q_s + (lane + 32 * j) * ldq + c);
+        da[j] = *reinterpret_cast<const float4*>(do_s + (lane + 32 * j) * ldq + c);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
         const float4 kv =
             *reinterpret_cast<const float4*>(k_s + (r0 + r) * ldk + c);
         const float4 vv =
             *reinterpret_cast<const float4*>(v_s + (r0 + r) * ldk + c);
-        s[r][0] += kv.x * qa.x + kv.y * qa.y + kv.z * qa.z + kv.w * qa.w;
-        s[r][1] += kv.x * qb.x + kv.y * qb.y + kv.z * qb.z + kv.w * qb.w;
-        dp[r][0] += vv.x * da.x + vv.y * da.y + vv.z * da.z + vv.w * da.w;
-        dp[r][1] += vv.x * db.x + vv.y * db.y + vv.z * db.z + vv.w * db.w;
+#pragma unroll
+        for (int j = 0; j < KL; ++j) {
+          s[r][j] += kv.x * qa[j].x + kv.y * qa[j].y + kv.z * qa[j].z +
+                     kv.w * qa[j].w;
+          dp[r][j] += vv.x * da[j].x + vv.y * da[j].y + vv.z * da[j].z +
+                      vv.w * da[j].w;
+        }
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int key = k0 + r0 + r;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < KL; ++j) {
         const int col = lane + 32 * j;
         const bool live = attends(p, q0 + col, key, len, seg);
         const float pv = live ? expf(s[r][j] * p.scale - lse_s[col]) : 0.f;
-        p_w[r * kTile + col] = pv;
-        ds_w[r * kTile + col] = pv * (dp[r][j] - delta_s[col]) * p.scale;
+        p_w[r * BW + col] = pv;
+        ds_w[r * BW + col] = pv * (dp[r][j] - delta_s[col]) * p.scale;
       }
     }
     __syncwarp();
-    for (int j = 0; j < kTile; j += 4) {
-      float qq[4][DC], dd[4][DC];
+    for (int j = 0; j < BW; j += 4) {
+      float4 pv[R], dsv[R];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int d = lane + 32 * c;
-          qq[jj][c] = d < D ? q_s[(j + jj) * ldq + d] : 0.f;
-          dd[jj][c] = d < D ? do_s[(j + jj) * ldq + d] : 0.f;
-        }
+      for (int r = 0; r < R; ++r) {
+        pv[r] = *reinterpret_cast<const float4*>(p_w + r * BW + j);
+        dsv[r] = *reinterpret_cast<const float4*>(ds_w + r * BW + j);
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(p_w + r * kTile + j);
-        const float4 dsv =
-            *reinterpret_cast<const float4*>(ds_w + r * kTile + j);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[r][c] += pv.x * dd[0][c] + pv.y * dd[1][c] + pv.z * dd[2][c] +
-                         pv.w * dd[3][c];
-          acc_k[r][c] += dsv.x * qq[0][c] + dsv.y * qq[1][c] +
-                         dsv.z * qq[2][c] + dsv.w * qq[3][c];
-        }
-      }
+      sum_rows<R, DC>(acc_v, pv, do_s, ldq, j, D, lane);
+      sum_rows<R, DC>(acc_k, dsv, q_s, ldq, j, D, lane);
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int key = k0 + r0 + r;
     if (key >= p.Sk) continue;
 #pragma unroll
@@ -500,11 +559,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core variant: bf16, D = 64 or 128, 16-byte aligned rows.
-// Tiles in shared memory as bf16 with rows padded by 16 bytes, so that
+// The tensor-core variant: bf16 or fp16 (T), D = 64, 128 or 256, 16-byte
+// aligned rows. Tiles in shared memory in T with rows padded by 16 bytes, so that
 // ldmatrix's 8 row addresses fall in distinct banks. A warp owns 16 rows
 // of the block's tile; the walked tiles hold NT rows (64 at D = 64, 32 at
-// D = 128, which keeps K1's two D-wide sums in registers).
+// D = 128 and 256, which keeps K1's two sums in registers). At D = 256
+// K1's two sums of a 16 x 256 block would take 256 registers a thread, so
+// each K1 block sums DO = 128 of the columns (blockIdx.z picks which) and
+// computes S^T and dP^T, over the whole D, once for each half: 12 D
+// operations a live pair in K1 where 8 D would do.
 //
 // Fragments of mma.sync m16n8k16 (g = lane / 4, t = lane % 4): A (16 x 16,
 // row-major) a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
@@ -514,44 +577,40 @@ __global__ void __launch_bounds__(kThreads)
 // - mma_nt: C (16 x NT) += A (16 x D) * M^T for an NT x D tile M stored
 //   row-major (S = Q K^T, dP = dO V^T; in K1 S^T = K Q^T, dP^T = V dO^T);
 // - mma_pv: C (16 x D) += A (16 x NT, the fp32 C fragments of an mma_nt
-//   rounded to bf16) * M for an NT x D tile M stored row-major (dQ = dS K;
+//   rounded to T) * M for an NT x D tile M stored row-major (dQ = dS K;
 //   in K1 dV = P^T dO, dK = dS^T Q).
 
 template <int D>
 struct MmaTile {
   static constexpr int LD = D + 8;                 // tile row stride
-  static constexpr int NT = D == 128 ? 32 : 64;    // rows of a walked tile
+  static constexpr int NT = D == 64 ? 64 : 32;     // rows of a walked tile
   static constexpr int NN = NT / 8;                // 8-wide C tiles of a row
   static constexpr int ND = D / 8;                 // 8-wide C tiles of D
   static constexpr int V8 = D / 8;                 // 16-byte vectors a row
+  static constexpr int DO = D < 128 ? D : 128;     // K1's columns a block
+  static constexpr int SPLIT = D / DO;             // K1 blocks a key tile
 };
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* ptr) {
+__device__ __forceinline__ uint32_t ld_pair(const void* ptr) {
   return *reinterpret_cast<const uint32_t*>(ptr);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+  if constexpr (kIsF16<T>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
@@ -592,10 +651,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [r0, r0 + rows) of a (S, D) bf16 slice into a [rows][LD] tile by
+// rows [r0, r0 + rows) of a (S, D) slice of T into a [rows][LD] tile by
 // cp.async; zeros past `limit`
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long ss, int r0, int rows,
                                           int limit, int tid) {
   constexpr int LD = MmaTile<D>::LD, V8 = MmaTile<D>::V8;
@@ -607,10 +666,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 }
 
 // A fragment of 16-wide chunk kc of 16 tile rows starting at `rows`
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* rows,
+template <int LD, typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* rows,
                                        int kc, int g, int t) {
-  const bf16* base = rows + g * LD + kc * 16 + 2 * t;
+  const T* base = rows + g * LD + kc * 16 + 2 * t;
   a[0] = ld_pair(base);
   a[1] = ld_pair(base + 8 * LD);
   a[2] = ld_pair(base + 8);
@@ -618,9 +677,9 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* rows,
 }
 
 // c += A * M^T: A the 16 rows at `a_rows`, M the NN * 8 rows at `m`
-template <int D, int NN>
-__device__ __forceinline__ void mma_nt(float (&c)[NN][4], const bf16* a_rows,
-                                       const bf16* m, int lane) {
+template <typename T, int D, int NN>
+__device__ __forceinline__ void mma_nt(float (&c)[NN][4], const T* a_rows,
+                                       const T* m, int lane) {
   constexpr int LD = MmaTile<D>::LD;
   const int g = lane / 4, t = lane % 4, lm = lane / 8, lr = lane % 8;
 #pragma unroll
@@ -632,54 +691,53 @@ __device__ __forceinline__ void mma_nt(float (&c)[NN][4], const bf16* a_rows,
     for (int n = 0; n < NN; ++n) {
       uint32_t f[4];  // B fragments of chunks kc and kc + 1
       ldmatrix_x4(f, m + (n * 8 + lr) * LD + kc * 16 + lm * 8);
-      mma_16816(c[n], a0, f[0], f[1]);
-      mma_16816(c[n], a1, f[2], f[3]);
+      mma_16816<T>(c[n], a0, f[0], f[1]);
+      mma_16816<T>(c[n], a1, f[2], f[3]);
     }
   }
 }
 
-// acc += A * M: A the C fragments `x` (16 x NN * 8) rounded to bf16, M the
-// NN * 8 rows at `m`
-template <int D, int NN>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
-                                       const float (&x)[NN][4], const bf16* m,
+// acc += A * M: A the C fragments `x` (16 x NN * 8) rounded to T, M the
+// NN * 8 rows at `m` (of a tile with D + 8 a row), its first DO columns
+template <typename T, int D, int NN, int DO = D>
+__device__ __forceinline__ void mma_pv(float (&acc)[DO / 8][4],
+                                       const float (&x)[NN][4], const T* m,
                                        int lane) {
   constexpr int LD = MmaTile<D>::LD;
   const int lm = lane / 8, lr = lane % 8;
 #pragma unroll
   for (int j = 0; j < NN / 2; ++j) {
-    const uint32_t a[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
-                           pack_bf16(x[2 * j][2], x[2 * j][3]),
-                           pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
-                           pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
+    const uint32_t a[4] = {pack2<T>(x[2 * j][0], x[2 * j][1]),
+                           pack2<T>(x[2 * j][2], x[2 * j][3]),
+                           pack2<T>(x[2 * j + 1][0], x[2 * j + 1][1]),
+                           pack2<T>(x[2 * j + 1][2], x[2 * j + 1][3])};
 #pragma unroll
-    for (int nd = 0; nd < D / 8; nd += 2) {
+    for (int nd = 0; nd < DO / 8; nd += 2) {
       uint32_t f[4];  // B fragments of column tiles nd and nd + 1
       ldmatrix_x4_trans(f, m + (j * 16 + lr + 8 * (lm & 1)) * LD +
                                (nd + lm / 2) * 8);
-      mma_16816(acc[nd], a, f[0], f[1]);
-      mma_16816(acc[nd + 1], a, f[2], f[3]);
+      mma_16816<T>(acc[nd], a, f[0], f[1]);
+      mma_16816<T>(acc[nd + 1], a, f[2], f[3]);
     }
   }
 }
 
-// the 16 x D C fragments `acc` into rows r, r + 8 (r = row0 + g) of a
-// (S, D) bf16 slice with row stride ss; rows at or past `limit` skipped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ss,
-                                           const float (&acc)[D / 8][4],
+// the 16 x DO C fragments `acc` into rows r, r + 8 (r = row0 + g) of a
+// (S, D) slice of T with row stride ss, from its column `dst` points at;
+// rows at or past `limit` skipped
+template <typename T, int DO>
+__device__ __forceinline__ void store_rows(T* dst, long long ss,
+                                           const float (&acc)[DO / 8][4],
                                            int row0, int limit, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
+  for (int nd = 0; nd < DO / 8; ++nd) {
     const int col = nd * 8 + 2 * t;
     if (row0 + g < limit) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + g) * ss + col) =
-          __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
+      store2<T>(dst + (row0 + g) * ss + col, acc[nd][0], acc[nd][1]);
     }
     if (row0 + g + 8 < limit) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + g + 8) * ss + col) =
-          __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
+      store2<T>(dst + (row0 + g + 8) * ss + col, acc[nd][2], acc[nd][3]);
     }
   }
 }
@@ -699,16 +757,16 @@ constexpr size_t mma_dkdv_shared_bytes() {
 
 // K2, tensor-core variant: a warp's 16 query rows against NT-key tiles:
 // S = Q K^T, dP = dO V^T, P and dS in registers, dQ += dS K.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dq_mma_kernel(const Params p) {
   using Tl = MmaTile<D>;
   constexpr int LD = Tl::LD, NT = Tl::NT, NN = Tl::NN, ND = Tl::ND;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* do_s = q_s + kTile * LD;                  // [kTile][LD]
-  bf16* k_s = do_s + kTile * LD;                  // [2][NT][LD]
-  bf16* v_s = k_s + 2 * NT * LD;                  // [2][NT][LD]
+  T* q_s = reinterpret_cast<T*>(smem_raw);  // [kTile][LD]
+  T* do_s = q_s + kTile * LD;                  // [kTile][LD]
+  T* k_s = do_s + kTile * LD;                  // [2][NT][LD]
+  T* v_s = k_s + 2 * NT * LD;                  // [2][NT][LD]
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
@@ -718,12 +776,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* dout =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  bf16* dq = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dout =
+      static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  T* dq = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
   const int* seg = p.seg ? p.seg + static_cast<size_t>(b) * p.Sk : nullptr;
   const float* lse = p.lse + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const float* delta = p.delta + (static_cast<size_t>(b) * p.H + h) * p.Sq;
@@ -731,12 +789,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int n_tiles = (keys_seen(p, len, q0 + kTile) + NT - 1) / NT;
 
   const auto load_kv = [&](int kt, int buf) {
-    load_rows<D>(k_s + buf * NT * LD, k, p.k_ss, kt * NT, NT, p.Sk, tid);
-    load_rows<D>(v_s + buf * NT * LD, v, p.v_ss, kt * NT, NT, p.Sk, tid);
+    load_rows<T, D>(k_s + buf * NT * LD, k, p.k_ss, kt * NT, NT, p.Sk, tid);
+    load_rows<T, D>(v_s + buf * NT * LD, v, p.v_ss, kt * NT, NT, p.Sk, tid);
     cp_async_commit();
   };
-  load_rows<D>(q_s, q, p.q_ss, q0, kTile, p.Sq, tid);
-  load_rows<D>(do_s, dout, p.do_ss, q0, kTile, p.Sq, tid);
+  load_rows<T, D>(q_s, q, p.q_ss, q0, kTile, p.Sq, tid);
+  load_rows<T, D>(do_s, dout, p.do_ss, q0, kTile, p.Sq, tid);
   cp_async_commit();
   if (n_tiles > 0) load_kv(0, 0);
 
@@ -763,15 +821,15 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();
     if (!p.causal || k0 <= q0 + wr + 15 + (p.Sk - p.Sq)) {
-      const bf16* kb = k_s + buf * NT * LD;
+      const T* kb = k_s + buf * NT * LD;
       float s[NN][4], dp[NN][4];
 #pragma unroll
       for (int n = 0; n < NN; ++n) {
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
         dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
       }
-      mma_nt<D, NN>(s, q_s + wr * LD, kb, lane);
-      mma_nt<D, NN>(dp, do_s + wr * LD, v_s + buf * NT * LD, lane);
+      mma_nt<T, D, NN>(s, q_s + wr * LD, kb, lane);
+      mma_nt<T, D, NN>(dp, do_s + wr * LD, v_s + buf * NT * LD, lane);
       const bool full = seg == nullptr && k0 + NT <= len &&
                         q0 + wr + 16 <= p.Sq &&
                         (!p.causal || k0 + NT - 1 <= q0 + wr + (p.Sk - p.Sq));
@@ -787,53 +845,54 @@ __global__ void __launch_bounds__(kMmaThreads)
           dp[n][e] = pv * (dp[n][e] - (e < 2 ? delta_a : delta_b)) * p.scale;
         }
       }
-      mma_pv<D, NN>(acc, dp, kb, lane);  // dQ += dS K
+      mma_pv<T, D, NN>(acc, dp, kb, lane);  // dQ += dS K
     }
     __syncthreads();
   }
   cp_async_wait<0>();
-  store_rows<D>(dq, p.dq_ss, acc, q0 + wr, p.Sq, lane);
+  store_rows<T, D>(dq, p.dq_ss, acc, q0 + wr, p.Sq, lane);
 }
 
 // K1, tensor-core variant: a warp's 16 keys against NT-row query tiles:
 // S^T = K Q^T, dP^T = V dO^T, P^T and dS^T in registers, dV += P^T dO,
 // dK += dS^T Q.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_bwd_dkdv_mma_kernel(const Params p) {
   using Tl = MmaTile<D>;
-  constexpr int LD = Tl::LD, NT = Tl::NT, NN = Tl::NN, ND = Tl::ND;
+  constexpr int LD = Tl::LD, NT = Tl::NT, NN = Tl::NN, DO = Tl::DO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kTile][LD]
-  bf16* v_s = k_s + kTile * LD;                   // [kTile][LD]
-  bf16* q_s = v_s + kTile * LD;                   // [2][NT][LD]
-  bf16* do_s = q_s + 2 * NT * LD;                 // [2][NT][LD]
+  T* k_s = reinterpret_cast<T*>(smem_raw);  // [kTile][LD]
+  T* v_s = k_s + kTile * LD;                   // [kTile][LD]
+  T* q_s = v_s + kTile * LD;                   // [2][NT][LD]
+  T* do_s = q_s + 2 * NT * LD;                 // [2][NT][LD]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * NT * LD);  // [2][NT]
   float* delta_s = lse_s + 2 * NT;                              // [2][NT]
 
   const int b = blockIdx.y / p.H;
   const int h = blockIdx.y % p.H;
   const int k0 = blockIdx.x * kTile;  // the most work first (causal)
+  const int c0 = blockIdx.z * DO;     // the block's first column of dk, dv
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* dout =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  bf16* dk = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  bf16* dv = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dout =
+      static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  T* dk = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  T* dv = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
   const int* seg = p.seg ? p.seg + static_cast<size_t>(b) * p.Sk : nullptr;
   const float* lse = p.lse + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const float* delta = p.delta + (static_cast<size_t>(b) * p.H + h) * p.Sq;
   const int len = key_limit(p, b);
   if (k0 >= len) {  // no query sees these keys
     const int k1 = min(k0 + kTile, p.Sk);
-    zero_rows(dk, p.dk_ss, k0, k1, D, tid, kMmaThreads);
-    zero_rows(dv, p.dv_ss, k0, k1, D, tid, kMmaThreads);
+    zero_rows(dk + c0, p.dk_ss, k0, k1, DO, tid, kMmaThreads);
+    zero_rows(dv + c0, p.dv_ss, k0, k1, DO, tid, kMmaThreads);
     return;
   }
   const int qt0 = first_row(p, k0) / NT;
@@ -841,8 +900,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   const auto load_q = [&](int qt, int buf) {
     const int r0 = qt * NT;
-    load_rows<D>(q_s + buf * NT * LD, q, p.q_ss, r0, NT, p.Sq, tid);
-    load_rows<D>(do_s + buf * NT * LD, dout, p.do_ss, r0, NT, p.Sq, tid);
+    load_rows<T, D>(q_s + buf * NT * LD, q, p.q_ss, r0, NT, p.Sq, tid);
+    load_rows<T, D>(do_s + buf * NT * LD, dout, p.do_ss, r0, NT, p.Sq, tid);
     for (int i = tid; i < NT; i += kMmaThreads) {
       const bool in = r0 + i < p.Sq;
       lse_s[buf * NT + i] = in ? lse[r0 + i] * kLog2e : 0.f;
@@ -850,16 +909,16 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     cp_async_commit();
   };
-  load_rows<D>(k_s, k, p.k_ss, k0, kTile, p.Sk, tid);
-  load_rows<D>(v_s, v, p.v_ss, k0, kTile, p.Sk, tid);
+  load_rows<T, D>(k_s, k, p.k_ss, k0, kTile, p.Sk, tid);
+  load_rows<T, D>(v_s, v, p.v_ss, k0, kTile, p.Sk, tid);
   cp_async_commit();
   load_q(qt0, 0);
 
   const int key_a = k0 + wr + g, key_b = key_a + 8;
   const float scale_log2 = p.scale * kLog2e;
-  float acc_k[ND][4], acc_v[ND][4];
+  float acc_k[DO / 8][4], acc_v[DO / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
+  for (int nd = 0; nd < DO / 8; ++nd) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
   }
@@ -876,8 +935,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     __syncthreads();
     // some row of the tile sees the warp's first key
     if (!p.causal || k0 + wr <= q0 + NT - 1 + (p.Sk - p.Sq)) {
-      const bf16* qb = q_s + buf * NT * LD;
-      const bf16* db = do_s + buf * NT * LD;
+      const T* qb = q_s + buf * NT * LD;
+      const T* db = do_s + buf * NT * LD;
       const float* lse_t = lse_s + buf * NT;
       const float* delta_t = delta_s + buf * NT;
       float s[NN][4], dp[NN][4];
@@ -886,8 +945,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
         dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
       }
-      mma_nt<D, NN>(s, k_s + wr * LD, qb, lane);   // S^T
-      mma_nt<D, NN>(dp, v_s + wr * LD, db, lane);  // dP^T
+      mma_nt<T, D, NN>(s, k_s + wr * LD, qb, lane);   // S^T
+      mma_nt<T, D, NN>(dp, v_s + wr * LD, db, lane);  // dP^T
       const bool full = seg == nullptr && k0 + wr + 16 <= len &&
                         q0 + NT <= p.Sq &&
                         (!p.causal || k0 + wr + 15 <= q0 + (p.Sk - p.Sq));
@@ -903,18 +962,19 @@ __global__ void __launch_bounds__(kMmaThreads)
           dp[n][e] = pv * (dp[n][e] - delta_t[col]) * p.scale;
         }
       }
-      mma_pv<D, NN>(acc_v, s, db, lane);   // dV += P^T dO
-      mma_pv<D, NN>(acc_k, dp, qb, lane);  // dK += dS^T Q
+      mma_pv<T, D, NN, DO>(acc_v, s, db + c0, lane);   // dV += P^T dO
+      mma_pv<T, D, NN, DO>(acc_k, dp, qb + c0, lane);  // dK += dS^T Q
     }
     __syncthreads();  // every warp is done with buffer buf before its reload
   }
   cp_async_wait<0>();
-  store_rows<D>(dk, p.dk_ss, acc_k, k0 + wr, p.Sk, lane);
-  store_rows<D>(dv, p.dv_ss, acc_v, k0 + wr, p.Sk, lane);
+  store_rows<T, DO>(dk + c0, p.dk_ss, acc_k, k0 + wr, p.Sk, lane);
+  store_rows<T, DO>(dv + c0, p.dv_ss, acc_v, k0 + wr, p.Sk, lane);
 }
 
 // ---------------------------------------------------------------------------
-// The Hopper variant (flash_bwd_wgmma_kernel): bf16, D = 64 or 128, q, k,
+// The Hopper variant (flash_bwd_wgmma_kernel): bf16 or fp16 (TE), D = 64
+// or 128, q, k,
 // v, o and dO views that TMA can describe, the forward's lse at hand.
 // FlashAttention-3's backward layout, three launches and a pre-pass:
 //
@@ -938,9 +998,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 //   lse2), zeroed by the mask predicate where the tile is not whole,
 //   while dP^T's products run; dV += P^T dO, issued before dS^T = P^T
 //   (dP^T - delta) * scale is computed, so that it runs meanwhile; then
-//   dK += dS^T Q (P^T and dS^T packed to bf16 as wgmma's register A
+//   dK += dS^T Q (P^T and dS^T packed to TE as wgmma's register A
 //   operand, dO and Q read MN-major through the descriptor's transpose
-//   bit) and dQ_partial = dS K, with dS^T stored to shared memory as bf16
+//   bit) and dQ_partial = dS K, with dS^T stored to shared memory in TE
 //   in the 128-byte swizzle and read back as an MN-major A, K as an
 //   MN-major B. The partial is staged in
 //   shared memory in the fragment's own order and added into the fp32
@@ -1053,16 +1113,11 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t x) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-  return __bfloat1622float2(v);
-}
-
 // K0: one thread per 8 columns of a (B * H, sq_pad) row.
-template <int D>
+template <typename TE, int D>
 __global__ void __launch_bounds__(256)
-    flash_bwd_delta_kernel(const bf16* __restrict__ o,
-                           const bf16* __restrict__ dout,
+    flash_bwd_delta_kernel(const TE* __restrict__ o,
+                           const TE* __restrict__ dout,
                            const float* __restrict__ lse,
                            float* __restrict__ lse2, float* __restrict__ delta,
                            float* __restrict__ dq_acc, long long o_sb,
@@ -1086,8 +1141,8 @@ __global__ void __launch_bounds__(256)
     const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 a = bf16x2_to_float2(ow[j]);
-      const float2 d = bf16x2_to_float2(dw[j]);
+      const float2 a = unpack2<TE>(ow[j]);
+      const float2 d = unpack2<TE>(dw[j]);
       acc += a.x * d.x + a.y * d.y;
     }
   }
@@ -1108,10 +1163,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // K2: one thread per 8 columns of a row of dq.
-template <int D>
+template <typename TE, int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_dq_store_kernel(const float* __restrict__ dq_acc,
-                              bf16* __restrict__ dq, long long dq_sb,
+                              TE* __restrict__ dq, long long dq_sb,
                               long long dq_sh, long long dq_ss, int H, int Sq,
                               int sq_pad, size_t count) {
   constexpr int CH = D / 8;
@@ -1133,19 +1188,20 @@ __global__ void __launch_bounds__(256)
       2 * (128 * j + t));
   const float4 a = src[0], c = src[1];
   uint4 out;
-  out.x = pack_bf16(a.x, a.y);
-  out.y = pack_bf16(a.z, a.w);
-  out.z = pack_bf16(c.x, c.y);
-  out.w = pack_bf16(c.z, c.w);
+  out.x = pack2<TE>(a.x, a.y);
+  out.y = pack2<TE>(a.z, a.w);
+  out.z = pack2<TE>(c.x, c.y);
+  out.w = pack2<TE>(c.z, c.w);
   *reinterpret_cast<uint4*>(dq + (bh / H) * dq_sb + (bh % H) * dq_sh +
                             r * dq_ss + 8 * ch) = out;
 }
 
-template <int D, bool CAUSAL, bool HAS_SEG>
+template <typename TE, int D, bool CAUSAL, bool HAS_SEG>
 __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     flash_bwd_wgmma_kernel(const __grid_constant__ BwdParams p) {
   using T = BwdTile<D>;
   constexpr int NC = T::NC, BN = T::BN, ST = kBwdStages;
+  constexpr bool F16 = kIsF16<TE>;  // the .f16 products, else .bf16
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_addr(smem_raw);
   const uint32_t k_s = (base + 1023u) & ~1023u;
@@ -1349,7 +1405,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wgmma_m64n64k16_ss<1, 1>(
+      wgmma_m64n64k16_ss<1, 1, F16>(
           dq, smem_desc(my_ds + j * 16 * kPanelBytes, 1024, 1024),
           smem_desc(k_s + pn * T::KV_PANEL + (64 * c + 16 * j) * kPanelBytes,
                     1024, 1024),
@@ -1378,7 +1434,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int pn = kk / 4, off = (kk % 4) * 32;
-      wgmma_m64n64k16_ss(
+      wgmma_m64n64k16_ss<0, 0, F16>(
           sacc,
           smem_desc(k_s + pn * T::KV_PANEL + 64 * c * kPanelBytes + off, 16,
                     1024),
@@ -1388,7 +1444,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int pn = kk / 4, off = (kk % 4) * 32;
-      wgmma_m64n64k16_ss(
+      wgmma_m64n64k16_ss<0, 0, F16>(
           pacc,
           smem_desc(v_s + pn * T::KV_PANEL + 64 * c * kPanelBytes + off, 16,
                     1024),
@@ -1432,7 +1488,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
         sacc[idx] = pv;
       }
     }
-    // P^T as bf16 A fragments, 16 queries a step; dV += P^T dO: dO's rows
+    // P^T as A fragments in TE, 16 queries a step; dV += P^T dO: dO's rows
     // of each 16-query step, 2048 bytes a step, MN-major (one 64-column
     // atom along N, so the leading and the stride offsets are both the
     // 8-row step)
@@ -1441,7 +1497,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        pa[j][r] = pack_bf16(sacc[8 * j + 2 * r], sacc[8 * j + 2 * r + 1]);
+        pa[j][r] = pack2<TE>(sacc[8 * j + 2 * r], sacc[8 * j + 2 * r + 1]);
       }
     }
 #pragma unroll
@@ -1451,7 +1507,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
       for (int pn = 0; pn < T::PANELS; ++pn) {
-        wgmma_m64n64k16_rs(
+        wgmma_m64n64k16_rs<F16>(
             dv[pn], pa[j],
             smem_desc(dos + pn * T::Q_PANEL + j * 16 * kPanelBytes, 1024,
                       1024));
@@ -1461,7 +1517,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     fence_regs(pacc);  // dP^T has landed; dV may still run
 
-    // dS^T = P^T (dP^T - delta) * scale, as bf16 A fragments
+    // dS^T = P^T (dP^T - delta) * scale, as A fragments in TE
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const float2 dl =
@@ -1476,7 +1532,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        da[j][r] = pack_bf16(pacc[8 * j + 2 * r], pacc[8 * j + 2 * r + 1]);
+        da[j][r] = pack2<TE>(pacc[8 * j + 2 * r], pacc[8 * j + 2 * r + 1]);
       }
     }
     // dS^T into this consumer's tile, rows of 64 queries in the 128-byte
@@ -1502,7 +1558,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
       for (int pn = 0; pn < T::PANELS; ++pn) {
-        wgmma_m64n64k16_rs(
+        wgmma_m64n64k16_rs<F16>(
             dk[pn], da[j],
             smem_desc(qs + pn * T::Q_PANEL + j * 16 * kPanelBytes, 1024,
                       1024));
@@ -1533,24 +1589,24 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
 
   // dK and dV once, in their inputs' layout (keys past Sk not stored;
   // keys no row saw hold exact zeros)
-  bf16* dk_o = static_cast<bf16*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  bf16* dv_o = static_cast<bf16*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+  TE* dk_o = static_cast<TE*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+  TE* dv_o = static_cast<TE*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
   for (int pn = 0; pn < T::PANELS; ++pn) {
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int col = pn * 64 + n * 8 + 2 * t4;
       if (key_a < p.Sk) {
-        *reinterpret_cast<__nv_bfloat162*>(dk_o + key_a * p.dk_ss + col) =
-            __floats2bfloat162_rn(dk[pn][4 * n], dk[pn][4 * n + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv_o + key_a * p.dv_ss + col) =
-            __floats2bfloat162_rn(dv[pn][4 * n], dv[pn][4 * n + 1]);
+        store2<TE>(dk_o + key_a * p.dk_ss + col, dk[pn][4 * n],
+                   dk[pn][4 * n + 1]);
+        store2<TE>(dv_o + key_a * p.dv_ss + col, dv[pn][4 * n],
+                   dv[pn][4 * n + 1]);
       }
       if (key_b < p.Sk) {
-        *reinterpret_cast<__nv_bfloat162*>(dk_o + key_b * p.dk_ss + col) =
-            __floats2bfloat162_rn(dk[pn][4 * n + 2], dk[pn][4 * n + 3]);
-        *reinterpret_cast<__nv_bfloat162*>(dv_o + key_b * p.dv_ss + col) =
-            __floats2bfloat162_rn(dv[pn][4 * n + 2], dv[pn][4 * n + 3]);
+        store2<TE>(dk_o + key_b * p.dk_ss + col, dk[pn][4 * n + 2],
+                   dk[pn][4 * n + 3]);
+        store2<TE>(dv_o + key_b * p.dv_ss + col, dv[pn][4 * n + 2],
+                   dv[pn][4 * n + 3]);
       }
     }
   }
@@ -1560,33 +1616,39 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, 1)
 
 template <typename Kernel>
 int launch(Kernel kernel, const Params& p, int tiles, int threads,
-           size_t smem, cudaStream_t stream) {
+           size_t smem, cudaStream_t stream, int split = 1) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(tiles, p.B * p.H), threads, smem, stream>>>(p);
+  kernel<<<dim3(tiles, p.B * p.H, split), threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int q_tiles(const Params& p) { return (p.Sq + kTile - 1) / kTile; }
 int k_tiles(const Params& p) { return (p.Sk + kTile - 1) / kTile; }
 
-template <int D>
+template <typename T, int D>
 int run_mma(const Params& p, cudaStream_t s) {
-  int err = launch(flash_bwd_delta_rows_kernel<bf16>, p, q_tiles(p),
+  int err = launch(flash_bwd_delta_rows_kernel<T>, p, q_tiles(p),
                    kThreads, 0, s);
   if (err == 0) {
-    err = launch(flash_bwd_dkdv_mma_kernel<D>, p, k_tiles(p), kMmaThreads,
-                 mma_dkdv_shared_bytes<D>(), s);
+    err = launch(flash_bwd_dkdv_mma_kernel<T, D>, p, k_tiles(p), kMmaThreads,
+                 mma_dkdv_shared_bytes<D>(), s, MmaTile<D>::SPLIT);
   }
   if (err == 0) {
-    err = launch(flash_bwd_dq_mma_kernel<D>, p, q_tiles(p), kMmaThreads,
+    err = launch(flash_bwd_dq_mma_kernel<T, D>, p, q_tiles(p), kMmaThreads,
                  mma_dq_shared_bytes<D>(), s);
   }
   return err;
+}
+
+template <typename T>
+int run_mma_d(const Params& p, cudaStream_t s) {
+  if (p.D == 64) return run_mma<T, 64>(p, s);
+  return p.D == 128 ? run_mma<T, 128>(p, s) : run_mma<T, 256>(p, s);
 }
 
 
@@ -1598,7 +1660,7 @@ int sq_pad_of(int Sq) {
   return (Sq + kBwdBlockM - 1) / kBwdBlockM * kBwdBlockM;
 }
 
-template <int D, bool CAUSAL, bool HAS_SEG>
+template <typename TE, int D, bool CAUSAL, bool HAS_SEG>
 int launch_bwd_wgmma(const Params& p, const float* lse, float* scratch,
                      int* seg_scratch, cudaStream_t stream) {
   using T = BwdTile<D>;
@@ -1608,9 +1670,9 @@ int launch_bwd_wgmma(const Params& p, const float* lse, float* scratch,
   float* delta = lse2 + static_cast<size_t>(bh) * sq_pad;
   float* dq_acc = delta + static_cast<size_t>(bh) * sq_pad;
   const size_t prep = static_cast<size_t>(bh) * sq_pad * (D / 8);
-  flash_bwd_delta_kernel<D><<<static_cast<unsigned>(prep / 256), 256, 0,
-                              stream>>>(
-      static_cast<const bf16*>(p.o), static_cast<const bf16*>(p.dout), lse,
+  flash_bwd_delta_kernel<TE, D><<<static_cast<unsigned>(prep / 256), 256, 0,
+                                  stream>>>(
+      static_cast<const TE*>(p.o), static_cast<const TE*>(p.dout), lse,
       lse2, delta, dq_acc, p.o_sb, p.o_sh, p.o_ss, p.do_sb, p.do_sh, p.do_ss,
       p.H, p.Sq, sq_pad);
   int err = static_cast<int>(cudaGetLastError());
@@ -1656,7 +1718,7 @@ int launch_bwd_wgmma(const Params& p, const float* lse, float* scratch,
   w.H = p.H, w.Sq = p.Sq, w.Sk = p.Sk, w.sq_pad = sq_pad;
   w.scale = p.scale;
   w.scale_log2 = p.scale * kLog2e;
-  const auto kernel = flash_bwd_wgmma_kernel<D, CAUSAL, HAS_SEG>;
+  const auto kernel = flash_bwd_wgmma_kernel<TE, D, CAUSAL, HAS_SEG>;
   err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM)));
@@ -1666,45 +1728,71 @@ int launch_bwd_wgmma(const Params& p, const float* lse, float* scratch,
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const size_t n = static_cast<size_t>(bh) * p.Sq * (D / 8);
-  flash_bwd_dq_store_kernel<D><<<static_cast<unsigned>((n + 255) / 256), 256,
-                                 0, stream>>>(
-      dq_acc, static_cast<bf16*>(p.dq), p.dq_sb, p.dq_sh, p.dq_ss, p.H, p.Sq,
+  flash_bwd_dq_store_kernel<TE, D><<<static_cast<unsigned>((n + 255) / 256),
+                                     256, 0, stream>>>(
+      dq_acc, static_cast<TE*>(p.dq), p.dq_sb, p.dq_sh, p.dq_ss, p.H, p.Sq,
       sq_pad, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename TE, int D>
 int run_wgmma(const Params& p, const float* lse, float* scratch,
               int* seg_scratch, cudaStream_t s) {
   if (p.seg != nullptr) {
-    return p.causal
-               ? launch_bwd_wgmma<D, true, true>(p, lse, scratch, seg_scratch, s)
-               : launch_bwd_wgmma<D, false, true>(p, lse, scratch, seg_scratch,
-                                                 s);
+    return p.causal ? launch_bwd_wgmma<TE, D, true, true>(p, lse, scratch,
+                                                          seg_scratch, s)
+                    : launch_bwd_wgmma<TE, D, false, true>(p, lse, scratch,
+                                                           seg_scratch, s);
   }
-  return p.causal ? launch_bwd_wgmma<D, true, false>(p, lse, scratch, nullptr, s)
-                  : launch_bwd_wgmma<D, false, false>(p, lse, scratch, nullptr,
+  return p.causal
+             ? launch_bwd_wgmma<TE, D, true, false>(p, lse, scratch, nullptr, s)
+             : launch_bwd_wgmma<TE, D, false, false>(p, lse, scratch, nullptr,
                                                      s);
 }
 
-template <typename T, int DC>
+template <typename TE>
+int run_wgmma_d(const Params& p, const float* lse, float* scratch,
+                int* seg_scratch, cudaStream_t s) {
+  return p.D == 64 ? run_wgmma<TE, 64>(p, lse, scratch, seg_scratch, s)
+                   : run_wgmma<TE, 128>(p, lse, scratch, seg_scratch, s);
+}
+
+template <typename T, int DC, int R, int KL>
 int run_scalar(const Params& p, cudaStream_t s) {
+  using Tile = ScalarTile<R, KL>;
+  const int rows = (p.Sq + Tile::BR - 1) / Tile::BR;
+  const int keys = (p.Sk + Tile::BR - 1) / Tile::BR;
   int err = launch(flash_bwd_delta_rows_kernel<T>, p, q_tiles(p), kThreads,
                    0, s);
   if (err == 0) {
-    err = launch(flash_bwd_dkdv_kernel<T, DC>, p, k_tiles(p), kThreads,
-                 dkdv_shared_bytes(p.D), s);
+    err = launch(flash_bwd_dkdv_kernel<T, DC, R, KL>, p, keys, kThreads,
+                 Tile::dkdv_smem(p.D), s);
   }
   if (err == 0) {
-    err = launch(flash_bwd_dq_kernel<T, DC>, p, q_tiles(p), kThreads,
-                 dq_shared_bytes(p.D), s);
+    err = launch(flash_bwd_dq_kernel<T, DC, R, KL>, p, rows, kThreads,
+                 Tile::dq_smem(p.D), s);
   }
   return err;
 }
 
+// the narrow tiles up to D = 128, the medium ones up to 256, the wide ones
+// past it, in chunks of 64 columns (19 chunks of 32 for the last 12)
 template <typename T>
 int run_scalar_d(const Params& p, cudaStream_t s) {
-  return p.D <= 64 ? run_scalar<T, 2>(p, s) : run_scalar<T, 4>(p, s);
+  if (p.D <= 64) return run_scalar<T, 2, 8, 2>(p, s);
+  if (p.D <= kNarrowD) return run_scalar<T, 4, 8, 2>(p, s);
+#define MXT_WIDE(DC, R, KL) \
+  if (p.D <= 32 * (DC)) return run_scalar<T, DC, R, KL>(p, s);
+  MXT_WIDE(6, 4, 2)
+  MXT_WIDE(8, 4, 2)
+  MXT_WIDE(10, 2, 1)
+  MXT_WIDE(12, 2, 1)
+  MXT_WIDE(14, 2, 1)
+  MXT_WIDE(16, 2, 1)
+  MXT_WIDE(18, 2, 1)
+  MXT_WIDE(19, 2, 1)
+#undef MXT_WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The tensor-core variant reads q, k, v and dO in 16-byte vectors and
@@ -1769,13 +1857,13 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-// The variant a call takes, by dtype, D and alignment: 2 the Hopper one,
-// 1 mma.sync, 0 CUDA cores; -1 where route 1 asks for mma.sync and it
-// does not apply.
+// The variant a call takes, by dtype, D and alignment: 2 the Hopper one
+// (D = 64, 128), 1 mma.sync (D = 64, 128, 256), 0 CUDA cores; -1 where
+// route 1 asks for mma.sync and it does not apply.
 int pick_variant(const Params& p, int dtype, int route) {
-  const bool tc = dtype == 1 && (p.D == 64 || p.D == 128);
+  const bool tc = dtype != 0 && (p.D == 64 || p.D == 128);
   if (route == 0 && tc && wgmma_aligned(p)) return 2;
-  if (tc && mma_aligned(p)) return 1;
+  if ((tc || (dtype != 0 && p.D == 256)) && mma_aligned(p)) return 1;
   return route == 0 ? 0 : -1;
 }
 
@@ -1800,9 +1888,10 @@ extern "C" {
 // flash_attention_seg_scratch_ints(B, Sk) int32, 16-byte aligned (the
 // Hopper variant's tile skipping writes it), else null. lengths (B,) and
 // segment_ids (B, Sk) are int32 on the card, or null. dtype: 0 = float32,
-// 1 = bfloat16. route: 0 picks the variant by dtype, D and alignment; 1
-// takes the mma.sync variant wherever it applies (bf16, D = 64 or 128,
-// aligned rows), so that it can be timed beside the Hopper one. *variant
+// 1 = bfloat16, 2 = float16. D: 1 to kMaxD (588). route: 0 picks the
+// variant by dtype, D and alignment; 1 takes the mma.sync variant wherever
+// it applies (bf16 or fp16, D = 64 or 128, aligned rows), so that it can
+// be timed beside the Hopper one. *variant
 // is set to the variant launched: 0 the CUDA-core one, 1 mma.sync, 2
 // wgmma. Returns the cudaError_t of the first launch that failed,
 // kCuBase + a CUresult of the TMA map encoding, or 0.
@@ -1816,7 +1905,7 @@ int flash_attention_backward(const void* q, const void* k, const void* v,
                              int route, int* variant, void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || D < 1 || D > kMaxD ||
       B * H > 65535 || (segment_ids != nullptr && Sq != Sk) || dtype < 0 ||
-      dtype > 1 || (causal != 0 && Sq > Sk) || route < 0 || route > 1 ||
+      dtype > 2 || (causal != 0 && Sq > Sk) || route < 0 || route > 1 ||
       lse == nullptr || scratch == nullptr ||
       reinterpret_cast<uintptr_t>(scratch) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1828,6 +1917,7 @@ int flash_attention_backward(const void* q, const void* k, const void* v,
   p.seg = static_cast<const int*>(segment_ids);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* f = static_cast<float*>(scratch);
+  const bool half = dtype == 2;
   switch (*variant = pick_variant(p, dtype, route)) {
     case 2: {
       int* seg = static_cast<int*>(seg_scratch);
@@ -1835,16 +1925,20 @@ int flash_attention_backward(const void* q, const void* k, const void* v,
           (seg == nullptr || reinterpret_cast<uintptr_t>(seg) % 16)) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      return D == 64 ? run_wgmma<64>(p, p.lse, f, seg, s)
-                     : run_wgmma<128>(p, p.lse, f, seg, s);
+      return half ? run_wgmma_d<__half>(p, p.lse, f, seg, s)
+                  : run_wgmma_d<bf16>(p, p.lse, f, seg, s);
     }
     case 1:
       p.delta = f;
-      return D == 64 ? run_mma<64>(p, s) : run_mma<128>(p, s);
+      return half ? run_mma_d<__half>(p, s) : run_mma_d<bf16>(p, s);
     case 0:
       p.delta = f;
-      return dtype == 0 ? run_scalar_d<float>(p, s)
-                        : run_scalar_d<bf16>(p, s);
+      if (D > kWideD && (WideTile::dkdv_smem(D) > kMaxSharedBytes ||
+                         WideTile::dq_smem(D) > kMaxSharedBytes)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      if (dtype == 0) return run_scalar_d<float>(p, s);
+      return half ? run_scalar_d<__half>(p, s) : run_scalar_d<bf16>(p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,14 +11,22 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kPanelBytes = 128;  // a row of one 64-column bf16 panel
+constexpr int kPanelBytes = 128;  // a row of one 64-column 16-bit panel
+
+// Whether a 16-bit element type is fp16 (else bf16): it picks the .f16 or
+// the .bf16 form of a tensor-core product. Tiles, swizzles and fragments
+// are the same for both.
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -114,42 +122,52 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The wgmma products below, each in two forms: .bf16 and, with F16, .f16
+// inputs (TY), fp32 accumulation.
+#define MXT_ACC64                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+#define MXT_ACC128                                                         \
+  MXT_ACC64, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),           \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),     \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),     \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),     \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),     \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),     \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define MXT_REGS32                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define MXT_REGS64                                                         \
+  MXT_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "   \
+             "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+             "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
 // d (+)= A B for a 64 x 16 A and a 16 x 128 B, both read from shared memory
 // through descriptors (K-major), into a 64 x 128 fp32 accumulator.
+#define MXT_WGMMA_N128_SS(TY)                                              \
+  asm volatile("{\n.reg .pred p;\n"                                        \
+               "setp.ne.b32 p, %66, 0;\n"                                  \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+               " {" MXT_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"          \
+               : MXT_ACC128                                                \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (F16) {
+    MXT_WGMMA_N128_SS("f16");
+  } else {
+    MXT_WGMMA_N128_SS("bf16");
+  }
 }
 
 // d (+)= A B for a 64 x 16 A and a 16 x 64 B, both read from shared memory
@@ -157,58 +175,56 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
 // 0 reads the operand K-major (its 16-wide depth contiguous, as a row-major
 // A or an N x K B is stored), 1 MN-major (the descriptor's transpose bit:
 // rows or columns contiguous, as a K x N B is stored row-major).
-template <int TRANS_A = 0, int TRANS_B = 0>
+#define MXT_WGMMA_N64_SS(TY)                                               \
+  asm volatile("{\n.reg .pred p;\n"                                        \
+               "setp.ne.b32 p, %34, 0;\n"                                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+               " {" MXT_REGS32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"      \
+               : MXT_ACC64                                                 \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),  \
+                 "n"(TRANS_B))
+template <int TRANS_A = 0, int TRANS_B = 0, bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
                                                  int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),
-        "n"(TRANS_B));
+  if constexpr (F16) {
+    MXT_WGMMA_N64_SS("f16");
+  } else {
+    MXT_WGMMA_N64_SS("bf16");
+  }
 }
 
-// d += A B for a 64 x 16 bf16 A in registers (the mma.sync m16n8k16 A
+// d += A B for a 64 x 16 A in registers (the mma.sync m16n8k16 A
 // fragment of each warp's 16 rows) and a 16 x 64 B read from shared
 // memory through a descriptor, MN-major (transposed), into 64 x 64 fp32.
+#define MXT_WGMMA_N64_RS(TY)                                               \
+  asm volatile("{\n.reg .pred p;\n"                                        \
+               "setp.ne.b32 p, %37, 0;\n"                                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+               " {" MXT_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, "   \
+               "1;\n}\n"                                                   \
+               : MXT_ACC64                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),  \
+                 "r"(1))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
+  if constexpr (F16) {
+    MXT_WGMMA_N64_RS("f16");
+  } else {
+    MXT_WGMMA_N64_RS("bf16");
+  }
 }
+
+#undef MXT_WGMMA_N64_RS
+#undef MXT_WGMMA_N64_SS
+#undef MXT_WGMMA_N128_SS
+#undef MXT_REGS64
+#undef MXT_REGS32
+#undef MXT_ACC128
+#undef MXT_ACC64
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -291,9 +307,11 @@ inline size_t seg_scratch_ints(int B, int S) {
 // from cudaError_t's.
 constexpr int kCuBase = 100000;
 
-// A 4-D TMA map over one bf16 operand of (B, H, S, D) shape with element
-// strides sb, sh, ss (the head dim contiguous), boxes of 64 columns (one
-// 128-byte swizzled panel) by `box_rows` rows. The outer dims go to the
+// A 4-D TMA map over one 16-bit operand (bf16 or fp16: a tile load copies
+// the bits as they are, and the zeros of an out-of-range row are zeros in
+// both) of (B, H, S, D) shape with element strides sb, sh, ss (the head dim
+// contiguous), boxes of 64 columns (one 128-byte swizzled panel) by
+// `box_rows` rows. The outer dims go to the
 // map in increasing stride order, a dim of size 1 last with a stride of
 // its own (its coordinate is always 0); `slots` records where S, H and B
 // went. Out-of-range rows of a box read as zeros.
@@ -339,7 +357,7 @@ inline int encode_map(CUtensorMap* map, int* slots, const void* base, int D,
   return r == CUDA_SUCCESS ? 0 : kCuBase + static_cast<int>(r);
 }
 
-// TMA can describe a (B, H, S, D) bf16 operand: a 16-byte aligned base and
+// TMA can describe a (B, H, S, D) 16-bit operand: a 16-byte aligned base and
 // strides of whole 16-byte units (8 bf16) in every dim of more than one
 // element, none of them 0 (a broadcast view).
 inline bool tma_operand(const void* ptr, long long sb, long long sh,

@@ -8,8 +8,17 @@
 //   gates = xproj + h . w_h2h^T, accumulated in fp32, gate order i, f, g, o
 //   c' = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //   h' = sigmoid(o) * tanh(c')
-// with h' and c' cast to the types of h and c, so that in bf16 both states
-// are rounded after every step, as the scan's carry is.
+// with h' and c' cast to the types of h and c, so that in bf16 and fp16
+// both states are rounded after every step, as the scan's carry is.
+//
+// Dtypes (B5). The states h and c are one type T: fp32, bf16 or fp16.
+// _gates casts xproj, h and w_h2h to fp32 whatever their types, so xproj
+// and w_h2h may each be T or fp32 (nd.RNN's bf16 states over fp32
+// parameters give an fp32 xproj and w_h2h): every kernel reads each as it
+// is stored, one bit of `wide` saying which (kWideX, kWideW). w_h2h is
+// read once a launch, into fp32 shared memory or registers, and xproj
+// once a step; the test is warp-uniform. A wider operand is never rounded
+// to T.
 //
 // lstm_cell_kernel: one launch per step (the counterpart of one
 // _cell_pallas call). One block per hidden unit j stages its four gate rows
@@ -55,7 +64,7 @@
 // shared-memory pipe as a full one, so each h value read feeds only two
 // rows' FMAs), and at N = 1 on latency: the L2 round trip for h_{t-1}, four
 // block barriers, the epilogue and the grid barrier (~1 us), each paid 128
-// times. Where the weights do not fit (fp32 and bf16 above H = 1320 on 132
+// times. Where the weights do not fit (any dtype above H = 1320 on 132
 // SMs), the wrapper launches the per-step kernel T times instead:
 // seq_plan states the rule, and ops/cuda/lstm.py:sequence_fits asks it
 // through lstm_sequence_shared_bytes. In training both kernels also keep
@@ -63,6 +72,7 @@
 // the backward reads instead of recomputing h . w_h2h^T.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -80,6 +90,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -91,6 +102,22 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// bits of `wide`: xproj, w_h2h stored as fp32 rather than in the states' T
+constexpr int kWideX = 1;
+constexpr int kWideW = 2;
+
+// element i of an operand stored as fp32 (f32) or as T, as fp32
+template <typename T>
+__device__ __forceinline__ float load_as_float(const void* p, size_t i,
+                                               bool f32) {
+  return f32 ? static_cast<const float*>(p)[i]
+             : to_float(static_cast<const T*>(p)[i]);
+}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -98,16 +125,18 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    lstm_cell_kernel(const T* __restrict__ xproj, const T* __restrict__ h,
-                     const T* __restrict__ c, const T* __restrict__ w,
+    lstm_cell_kernel(const void* __restrict__ xproj, const T* __restrict__ h,
+                     const T* __restrict__ c, const void* __restrict__ w,
                      T* __restrict__ h_out, T* __restrict__ c_out,
-                     float* __restrict__ gates_out, int n_rows, int hidden) {
+                     float* __restrict__ gates_out, int n_rows, int hidden,
+                     int wide) {
   extern __shared__ float w_rows[];  // [4][hidden]
   const int j = blockIdx.x;
+  const bool x32 = wide & kWideX, w32 = wide & kWideW;
   for (int k = 0; k < 4; ++k) {
-    const T* src = w + (static_cast<size_t>(k) * hidden + j) * hidden;
+    const size_t row = (static_cast<size_t>(k) * hidden + j) * hidden;
     for (int i = threadIdx.x; i < hidden; i += kThreads) {
-      w_rows[k * hidden + i] = to_float(src[i]);
+      w_rows[k * hidden + i] = load_as_float<T>(w, row + i, w32);
     }
   }
   __syncthreads();
@@ -135,11 +164,14 @@ __global__ void __launch_bounds__(kThreads)
       acc_o += __shfl_xor_sync(0xffffffffu, acc_o, off);
     }
     if (lane == 0) {
-      const T* x_n = xproj + static_cast<size_t>(n) * 4 * hidden;
-      const float gi = sigmoid(to_float(x_n[j]) + acc_i);
-      const float gf = sigmoid(to_float(x_n[hidden + j]) + acc_f);
-      const float gg = tanhf(to_float(x_n[2 * hidden + j]) + acc_g);
-      const float go = sigmoid(to_float(x_n[3 * hidden + j]) + acc_o);
+      const size_t x_n = static_cast<size_t>(n) * 4 * hidden;
+      const float gi = sigmoid(load_as_float<T>(xproj, x_n + j, x32) + acc_i);
+      const float gf =
+          sigmoid(load_as_float<T>(xproj, x_n + hidden + j, x32) + acc_f);
+      const float gg =
+          tanhf(load_as_float<T>(xproj, x_n + 2 * hidden + j, x32) + acc_g);
+      const float go =
+          sigmoid(load_as_float<T>(xproj, x_n + 3 * hidden + j, x32) + acc_o);
       const size_t at = static_cast<size_t>(n) * hidden + j;
       const float c_new = gf * to_float(c[at]) + gi * gg;
       c_out[at] = from_float<T>(c_new);
@@ -158,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch(const void* xproj, const void* h, const void* c, const void* w,
            void* h_out, void* c_out, void* gates_out, int n_rows, int hidden,
-           cudaStream_t stream) {
+           int wide, cudaStream_t stream) {
   const size_t smem = 4 * static_cast<size_t>(hidden) * sizeof(float);
   if (hidden < 1 || n_rows < 1 || smem > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -170,10 +202,9 @@ int launch(const void* xproj, const void* h, const void* c, const void* w,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   lstm_cell_kernel<T><<<hidden, kThreads, smem, stream>>>(
-      static_cast<const T*>(xproj), static_cast<const T*>(h),
-      static_cast<const T*>(c), static_cast<const T*>(w),
+      xproj, static_cast<const T*>(h), static_cast<const T*>(c), w,
       static_cast<T*>(h_out), static_cast<T*>(c_out),
-      static_cast<float*>(gates_out), n_rows, hidden);
+      static_cast<float*>(gates_out), n_rows, hidden, wide);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,9 +282,17 @@ __device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
   return __uint_as_float(bits << 16);
 }
 
+__device__ __forceinline__ float half_bits_to_float(unsigned bits) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+}
+
 __device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ float load_l2(const __nv_bfloat16* p) {
   return bf16_bits_to_float(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ float load_l2(const __half* p) {
+  return half_bits_to_float(
       __ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
@@ -271,6 +310,15 @@ __device__ __forceinline__ void store_as_float(float* dst, uint4 raw,
   *reinterpret_cast<float4*>(dst + 4) = make_float4(
       bf16_bits_to_float(raw.z & 0xffffu), bf16_bits_to_float(raw.z >> 16),
       bf16_bits_to_float(raw.w & 0xffffu), bf16_bits_to_float(raw.w >> 16));
+}
+__device__ __forceinline__ void store_as_float(float* dst, uint4 raw,
+                                               __half) {
+  *reinterpret_cast<float4*>(dst) = make_float4(
+      half_bits_to_float(raw.x & 0xffffu), half_bits_to_float(raw.x >> 16),
+      half_bits_to_float(raw.y & 0xffffu), half_bits_to_float(raw.y >> 16));
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(
+      half_bits_to_float(raw.z & 0xffffu), half_bits_to_float(raw.z >> 16),
+      half_bits_to_float(raw.w & 0xffffu), half_bits_to_float(raw.w >> 16));
 }
 
 // Rows n0 .. n0+nb-1 of h_prev into h_s [chunk][hp] as fp32, through L2
@@ -310,14 +358,18 @@ __device__ __forceinline__ void load_h_chunk(float* h_s, const T* h_prev,
 // Element idx of a chunk's xproj in shared-memory order [b][gate][unit]:
 // xproj[t][n0 + b][gate * H + j0 + unit], 0 past the block's units.
 template <typename T>
-__device__ __forceinline__ float chunk_xproj(const T* x_t, int idx, int n0,
-                                             int rows, int units, int owned,
-                                             int hidden, int j0) {
+__device__ __forceinline__ float chunk_xproj(const void* x_t, bool x32,
+                                             int idx, int n0, int rows,
+                                             int units, int owned, int hidden,
+                                             int j0) {
   const int b = idx / rows, r = idx - b * rows;
   const int gate = r / units, u = r - gate * units;
-  return u < owned ? to_float(x_t[(static_cast<size_t>(n0 + b) * 4 + gate) *
-                                      hidden + j0 + u])
-                   : 0.f;
+  return u < owned
+             ? load_as_float<T>(
+                   x_t,
+                   (static_cast<size_t>(n0 + b) * 4 + gate) * hidden + j0 + u,
+                   x32)
+             : 0.f;
 }
 
 // xproj (T, N, 4H), h0 and c0 (N, H), w (4H, H), out (T, N, H), h_last and
@@ -330,11 +382,11 @@ __device__ __forceinline__ float chunk_xproj(const T* x_t, int idx, int n0,
 // non-coherent path.
 template <typename T, int kChunk>
 __global__ void __launch_bounds__(kSeqThreads, 1)
-    lstm_seq_kernel(const T* __restrict__ xproj, const T* __restrict__ h0,
-                    const T* __restrict__ c0, const T* __restrict__ w, T* out,
-                    T* h_last, T* c_out, float* __restrict__ gates_out,
+    lstm_seq_kernel(const void* __restrict__ xproj, const T* __restrict__ h0,
+                    const T* __restrict__ c0, const void* __restrict__ w,
+                    T* out, T* h_last, T* c_out, float* __restrict__ gates_out,
                     T* __restrict__ c_all, unsigned* counter, int steps,
-                    int n_rows, int hidden, int units, int reverse) {
+                    int n_rows, int hidden, int units, int reverse, int wide) {
   extern __shared__ __align__(16) float smem[];
   const int rows = 4 * units;  // gate row r = gate * units + unit
   const int lanes = rows / kSeqTile;
@@ -350,6 +402,7 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * units;
   const int owned = min(units, hidden - j0);
+  const bool x32 = wide & kWideX, w32 = wide & kWideW;
 
   // the block's gate rows, once, as fp32: w_s[k / 4][r][k % 4]
   for (int idx = tid; idx < rows * hp; idx += kSeqThreads) {
@@ -357,7 +410,8 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
     const int gate = r / units, u = r - gate * units;
     float v = 0.f;
     if (u < owned && k < hidden) {
-      v = to_float(w[(static_cast<size_t>(gate) * hidden + j0 + u) * hidden + k]);
+      v = load_as_float<T>(
+          w, (static_cast<size_t>(gate) * hidden + j0 + u) * hidden + k, w32);
     }
     w_s[(static_cast<size_t>(k >> 2) * rows + r) * 4 + (k & 3)] = v;
   }
@@ -376,7 +430,11 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
     const T* h_prev =
         s == 0 ? h0 : out + static_cast<size_t>(reverse ? t + 1 : t - 1) * step_elems;
     const T* c_prev = s == 0 ? c0 : c_out;
-    const T* x_t = xproj + static_cast<size_t>(t) * 4 * step_elems;
+    const void* x_t =
+        x32 ? static_cast<const void*>(static_cast<const float*>(xproj) +
+                                       static_cast<size_t>(t) * 4 * step_elems)
+            : static_cast<const void*>(static_cast<const T*>(xproj) +
+                                       static_cast<size_t>(t) * 4 * step_elems);
     T* h_t = out + static_cast<size_t>(t) * step_elems;
     for (int n0 = 0; n0 < n_rows; n0 += kChunk) {
       const int nb = min(kChunk, n_rows - n0);
@@ -386,7 +444,8 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
       // the h loads and stored after them, so that their latencies overlap
       float x_first = 0.f, c_first = 0.f;
       if (tid < nb * rows) {
-        x_first = chunk_xproj(x_t, tid, n0, rows, units, owned, hidden, j0);
+        x_first = chunk_xproj<T>(x_t, x32, tid, n0, rows, units, owned, hidden,
+                                 j0);
       }
       if (tid < nb * units) {
         const int b = tid / units, u = tid - b * units;
@@ -396,7 +455,8 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
       if (tid < nb * rows) x_s[tid] = x_first;
       if (tid < nb * units) c_s[tid] = c_first;
       for (int idx = tid + kSeqThreads; idx < nb * rows; idx += kSeqThreads) {
-        x_s[idx] = chunk_xproj(x_t, idx, n0, rows, units, owned, hidden, j0);
+        x_s[idx] = chunk_xproj<T>(x_t, x32, idx, n0, rows, units, owned,
+                                  hidden, j0);
       }
       for (int idx = tid + kSeqThreads; idx < nb * units; idx += kSeqThreads) {
         const int b = idx / units, u = idx - b * units;
@@ -533,12 +593,12 @@ template <typename T, int kChunk>
 int seq_launch(const SeqPlan& p, const void* xproj, const void* h0,
                const void* c0, const void* w, void* out, void* h_last,
                void* c_out, void* gates_out, void* c_all, void* counter,
-               int steps, int n_rows, int hidden, int reverse,
+               int steps, int n_rows, int hidden, int reverse, int wide,
                cudaStream_t stream) {
-  const T* xproj_t = static_cast<const T*>(xproj);
+  const void* xproj_t = xproj;
   const T* h0_t = static_cast<const T*>(h0);
   const T* c0_t = static_cast<const T*>(c0);
-  const T* w_t = static_cast<const T*>(w);
+  const void* w_t = w;
   T* out_t = static_cast<T*>(out);
   T* h_last_t = static_cast<T*>(h_last);
   T* c_out_t = static_cast<T*>(c_out);
@@ -548,7 +608,8 @@ int seq_launch(const SeqPlan& p, const void* xproj, const void* h0,
   int units = p.units;
   void* args[] = {&xproj_t,  &h0_t,    &c0_t,    &w_t,       &out_t,
                   &h_last_t, &c_out_t, &gates_t, &c_all_t,   &counter_t,
-                  &steps,    &n_rows,  &hidden,  &units,     &reverse};
+                  &steps,    &n_rows,  &hidden,  &units,     &reverse,
+                  &wide};
   return cooperative_launch(lstm_seq_kernel<T, kChunk>, p, args, stream);
 }
 
@@ -556,13 +617,13 @@ template <typename T>
 int seq_dispatch(const SeqPlan& p, const void* xproj, const void* h0,
                  const void* c0, const void* w, void* out, void* h_last,
                  void* c_out, void* gates_out, void* c_all, void* counter,
-                 int steps, int n_rows, int hidden, int reverse,
+                 int steps, int n_rows, int hidden, int reverse, int wide,
                  cudaStream_t stream) {
 #define MXT_SEQ_CHUNK(C)                                                 \
   case C:                                                                \
     return seq_launch<T, C>(p, xproj, h0, c0, w, out, h_last, c_out,     \
                             gates_out, c_all, counter, steps, n_rows,    \
-                            hidden, reverse, stream);
+                            hidden, reverse, wide, stream);
   switch (p.chunk) {
     MXT_SEQ_CHUNK(1)
     MXT_SEQ_CHUNK(2)
@@ -634,17 +695,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 // dh_out = dg_next . w_h2h (the dh0 of the last step).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    lstm_cell_bwd_kernel(const float* dg_next, const T* __restrict__ w_t,
+    lstm_cell_bwd_kernel(const float* dg_next, const void* __restrict__ w_t,
                          const float* __restrict__ gates,
                          const T* __restrict__ c_prev, const T* __restrict__ dy,
                          const T* __restrict__ dh_in, const T* dc_in,
                          float* dg_out, T* dc_out, T* dh_out, int n_rows,
-                         int hidden) {
+                         int hidden, int wide) {
   extern __shared__ float w_col[];  // [4H]
   const int j = blockIdx.x;
   const int k = 4 * hidden;
   for (int i = threadIdx.x; i < k; i += kThreads) {
-    w_col[i] = to_float(w_t[static_cast<size_t>(j) * k + i]);
+    w_col[i] = load_as_float<T>(w_t, static_cast<size_t>(j) * k + i,
+                                wide & kWideW);
   }
   __syncthreads();
   const int warp = threadIdx.x / 32;
@@ -675,7 +737,7 @@ template <typename T>
 int cell_bwd_launch(const void* dg_next, const void* w_t, const void* gates,
                     const void* c_prev, const void* dy, const void* dh_in,
                     const void* dc_in, void* dg_out, void* dc_out,
-                    void* dh_out, int n_rows, int hidden,
+                    void* dh_out, int n_rows, int hidden, int wide,
                     cudaStream_t stream) {
   const size_t smem = 4 * static_cast<size_t>(hidden) * sizeof(float);
   if (hidden < 1 || n_rows < 1 || smem > kMaxSharedBytes) {
@@ -688,11 +750,12 @@ int cell_bwd_launch(const void* dg_next, const void* w_t, const void* gates,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   lstm_cell_bwd_kernel<T><<<hidden, kThreads, smem, stream>>>(
-      static_cast<const float*>(dg_next), static_cast<const T*>(w_t),
+      static_cast<const float*>(dg_next), w_t,
       static_cast<const float*>(gates), static_cast<const T*>(c_prev),
       static_cast<const T*>(dy), static_cast<const T*>(dh_in),
       static_cast<const T*>(dc_in), static_cast<float*>(dg_out),
-      static_cast<T*>(dc_out), static_cast<T*>(dh_out), n_rows, hidden);
+      static_cast<T*>(dc_out), static_cast<T*>(dh_out), n_rows, hidden,
+      wide);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -792,9 +855,9 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
                         const T* __restrict__ dc_last,
                         const float* __restrict__ gates,
                         const T* __restrict__ cs, const T* __restrict__ c0,
-                        const T* __restrict__ w, float* dgates, T* dh0,
+                        const void* __restrict__ w, float* dgates, T* dh0,
                         T* dc0, unsigned* counter, int steps, int n_rows,
-                        int hidden, int chunk, int reverse) {
+                        int hidden, int chunk, int reverse, int wide) {
   constexpr int kMaxChunk = bwd_max_chunk(kUnits);
   constexpr int kWarpsSeq = kSeqThreads / 32;
   extern __shared__ __align__(16) float smem[];
@@ -812,7 +875,9 @@ __global__ void __launch_bounds__(kSeqThreads, 1)
   for (int idx = tid; idx < kUnits * static_cast<int>(krow); idx += kSeqThreads) {
     const int r = idx / kUnits, u = idx - r * kUnits;
     w_s[u * krow + r] =
-        u < owned ? to_float(w[static_cast<size_t>(r) * hidden + j0 + u]) : 0.f;
+        u < owned ? load_as_float<T>(w, static_cast<size_t>(r) * hidden + j0 + u,
+                                     wide & kWideW)
+                  : 0.f;
   }
 
   const size_t step_elems = static_cast<size_t>(n_rows) * hidden;
@@ -900,14 +965,14 @@ int seq_bwd_launch(const SeqPlan& p, const void* dout, const void* dh_last,
                    const void* dc_last, const void* gates, const void* cs,
                    const void* c0, const void* w, void* dgates, void* dh0,
                    void* dc0, void* counter, int steps, int n_rows,
-                   int hidden, int reverse, cudaStream_t stream) {
+                   int hidden, int reverse, int wide, cudaStream_t stream) {
   const T* dout_t = static_cast<const T*>(dout);
   const T* dh_last_t = static_cast<const T*>(dh_last);
   const T* dc_last_t = static_cast<const T*>(dc_last);
   const float* gates_t = static_cast<const float*>(gates);
   const T* cs_t = static_cast<const T*>(cs);
   const T* c0_t = static_cast<const T*>(c0);
-  const T* w_t = static_cast<const T*>(w);
+  const void* w_t = w;
   float* dgates_t = static_cast<float*>(dgates);
   T* dh0_t = static_cast<T*>(dh0);
   T* dc0_t = static_cast<T*>(dc0);
@@ -916,7 +981,7 @@ int seq_bwd_launch(const SeqPlan& p, const void* dout, const void* dh_last,
   void* args[] = {&dout_t,   &dh_last_t, &dc_last_t, &gates_t, &cs_t,
                   &c0_t,     &w_t,       &dgates_t,  &dh0_t,   &dc0_t,
                   &counter_t, &steps,    &n_rows,    &hidden,  &chunk,
-                  &reverse};
+                  &reverse,   &wide};
   return cooperative_launch(lstm_seq_bwd_kernel<T, kUnits>, p, args, stream);
 }
 
@@ -925,12 +990,12 @@ int seq_bwd_dispatch(const SeqPlan& p, const void* dout, const void* dh_last,
                      const void* dc_last, const void* gates, const void* cs,
                      const void* c0, const void* w, void* dgates, void* dh0,
                      void* dc0, void* counter, int steps, int n_rows,
-                     int hidden, int reverse, cudaStream_t stream) {
+                     int hidden, int reverse, int wide, cudaStream_t stream) {
 #define MXT_BWD_UNITS(U)                                                    \
   case U:                                                                   \
     return seq_bwd_launch<T, U>(p, dout, dh_last, dc_last, gates, cs, c0,   \
                                 w, dgates, dh0, dc0, counter, steps,        \
-                                n_rows, hidden, reverse, stream);
+                                n_rows, hidden, reverse, wide, stream);
   switch (p.units) {
     MXT_BWD_UNITS(1)
     MXT_BWD_UNITS(2)
@@ -1117,10 +1182,10 @@ __global__ void __launch_bounds__(kRegThreads, 1)
                             const float* __restrict__ gates,
                             const T* __restrict__ cs,
                             const T* __restrict__ c0,
-                            const T* __restrict__ w, float* dgates, T* dh0,
+                            const void* __restrict__ w, float* dgates, T* dh0,
                             T* dc0, unsigned* tile_done, int steps,
                             int n_rows, int hidden, int reverse,
-                            int stages) {
+                            int stages, int wide) {
   constexpr int kRows = reg_rows(kUnits);
   constexpr int kSlices = reg_slices(kUnits);
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1303,7 +1368,9 @@ __global__ void __launch_bounds__(kRegThreads, 1)
         if (k4 < hidden && u < owned) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            v[q] = to_float(w[static_cast<size_t>(4 * k4 + q) * hidden + j0 + u]);
+            v[q] = load_as_float<T>(
+                w, static_cast<size_t>(4 * k4 + q) * hidden + j0 + u,
+                wide & kWideW);
           }
         }
         wr[i][u] = make_float4(v[0], v[1], v[2], v[3]);
@@ -1427,7 +1494,7 @@ int reg_bwd_launch(const RegPlan& p, const void* dout, const void* dh_last,
                    const void* dc_last, const void* gates, const void* cs,
                    const void* c0, const void* w, void* dgates, void* dh0,
                    void* dc0, void* counter, int steps, int n_rows,
-                   int hidden, int reverse, cudaStream_t stream) {
+                   int hidden, int reverse, int wide, cudaStream_t stream) {
   const auto kernel = lstm_seq_bwd_reg_kernel<T, kUnits>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1439,7 +1506,7 @@ int reg_bwd_launch(const RegPlan& p, const void* dout, const void* dh_last,
   const float* gates_t = static_cast<const float*>(gates);
   const T* cs_t = static_cast<const T*>(cs);
   const T* c0_t = static_cast<const T*>(c0);
-  const T* w_t = static_cast<const T*>(w);
+  const void* w_t = w;
   float* dgates_t = static_cast<float*>(dgates);
   T* dh0_t = static_cast<T*>(dh0);
   T* dc0_t = static_cast<T*>(dc0);
@@ -1448,7 +1515,7 @@ int reg_bwd_launch(const RegPlan& p, const void* dout, const void* dh_last,
   void* args[] = {&dout_t,    &dh_last_t, &dc_last_t, &gates_t, &cs_t,
                   &c0_t,      &w_t,       &dgates_t,  &dh0_t,   &dc0_t,
                   &counter_t, &steps,     &n_rows,    &hidden,  &reverse,
-                  &stages};
+                  &stages,    &wide};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.blocks);
   cfg.blockDim = dim3(kRegThreads);
@@ -1473,12 +1540,12 @@ int reg_bwd_dispatch(const RegPlan& p, const void* dout, const void* dh_last,
                      const void* dc_last, const void* gates, const void* cs,
                      const void* c0, const void* w, void* dgates, void* dh0,
                      void* dc0, void* counter, int steps, int n_rows,
-                     int hidden, int reverse, cudaStream_t stream) {
+                     int hidden, int reverse, int wide, cudaStream_t stream) {
 #define MXT_REG_UNITS(U)                                                    \
   case U:                                                                   \
     return reg_bwd_launch<T, U>(p, dout, dh_last, dc_last, gates, cs, c0,   \
                                 w, dgates, dh0, dc0, counter, steps,        \
-                                n_rows, hidden, reverse, stream);
+                                n_rows, hidden, reverse, wide, stream);
   switch (p.units) {
     MXT_REG_UNITS(1)
     MXT_REG_UNITS(2)
@@ -1528,20 +1595,25 @@ int bwd_choose(int n_rows, int hidden, int sm_count, int variant,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
-// gates_out: (N, 4H) fp32 for the activated gates, or null.
+// dtype: the states' type, 0 = float32, 1 = bfloat16, 2 = float16. wide:
+// kWideX if xproj, kWideW if w is float32 rather than the states' type.
+// Returns the cudaError_t of the launch. gates_out: (N, 4H) fp32 for the
+// activated gates, or null.
 int lstm_cell_forward(const void* xproj, const void* h, const void* c,
                       const void* w, void* h_out, void* c_out,
                       void* gates_out, int n_rows, int hidden, int dtype,
-                      void* stream) {
+                      int wide, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(xproj, h, c, w, h_out, c_out, gates_out, n_rows,
-                         hidden, s);
-  }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(xproj, h, c, w, h_out, c_out, gates_out,
-                                 n_rows, hidden, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(xproj, h, c, w, h_out, c_out, gates_out, n_rows,
+                           hidden, 0, s);
+    case 1:
+      return launch<__nv_bfloat16>(xproj, h, c, w, h_out, c_out, gates_out,
+                                   n_rows, hidden, wide, s);
+    case 2:
+      return launch<__half>(xproj, h, c, w, h_out, c_out, gates_out, n_rows,
+                            hidden, wide, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1557,28 +1629,32 @@ int lstm_sequence_shared_bytes(int n_rows, int hidden, int sm_count) {
 // One layer and direction over T steps in one cooperative launch planned on
 // sm_count SMs; counter is one zeroed uint32 for the grid barrier. In
 // training gates_out (T, N, 4H) fp32 and c_all (T, N, H) keep what the
-// backward reads; inference passes null for both. dtype: 0 = float32,
-// 1 = bfloat16. Returns the cudaError_t of the launch.
+// backward reads; inference passes null for both. dtype and wide: as
+// lstm_cell_forward's. Returns the cudaError_t of the launch.
 int lstm_sequence_forward(const void* xproj, const void* h0, const void* c0,
                           const void* w, void* out, void* h_last, void* c_last,
                           void* gates_out, void* c_all, void* counter,
                           int steps, int n_rows, int hidden, int dtype,
-                          int reverse, int sm_count, void* stream) {
+                          int wide, int reverse, int sm_count, void* stream) {
   SeqPlan p;
   if (steps < 1 || !seq_plan(n_rows, hidden, sm_count, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rev = reverse ? 1 : 0;
-  if (dtype == 0) {
-    return seq_dispatch<float>(p, xproj, h0, c0, w, out, h_last, c_last,
-                               gates_out, c_all, counter, steps, n_rows,
-                               hidden, rev, s);
-  }
-  if (dtype == 1) {
-    return seq_dispatch<__nv_bfloat16>(p, xproj, h0, c0, w, out, h_last,
-                                       c_last, gates_out, c_all, counter,
-                                       steps, n_rows, hidden, rev, s);
+  switch (dtype) {
+    case 0:
+      return seq_dispatch<float>(p, xproj, h0, c0, w, out, h_last, c_last,
+                                 gates_out, c_all, counter, steps, n_rows,
+                                 hidden, rev, 0, s);
+    case 1:
+      return seq_dispatch<__nv_bfloat16>(p, xproj, h0, c0, w, out, h_last,
+                                         c_last, gates_out, c_all, counter,
+                                         steps, n_rows, hidden, rev, wide, s);
+    case 2:
+      return seq_dispatch<__half>(p, xproj, h0, c0, w, out, h_last, c_last,
+                                  gates_out, c_all, counter, steps, n_rows,
+                                  hidden, rev, wide, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1600,23 +1676,28 @@ int lstm_sequence_barriers(void* counter, int steps, int n_rows, int hidden,
 // One step of the backward (lstm_cell_bwd_kernel): dg_next (N, 4H) fp32 or
 // null at the first step, w_t = w_h2h^T (H, 4H), gates (N, 4H) fp32 or null
 // to write only dh_out, c_prev, dy, dh_in, dc_in, dc_out, dh_out (N, H),
-// dg_out (N, 4H) fp32. dc_in and dc_out may be one buffer. dtype: 0 =
-// float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dg_out (N, 4H) fp32. dc_in and dc_out may be one buffer. dtype: the
+// states' type, as lstm_cell_forward's; wide: kWideW if w_t is float32
+// rather than that type. Returns the cudaError_t of the launch.
 int lstm_cell_backward(const void* dg_next, const void* w_t, const void* gates,
                        const void* c_prev, const void* dy, const void* dh_in,
                        const void* dc_in, void* dg_out, void* dc_out,
                        void* dh_out, int n_rows, int hidden, int dtype,
-                       void* stream) {
+                       int wide, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return cell_bwd_launch<float>(dg_next, w_t, gates, c_prev, dy, dh_in,
-                                  dc_in, dg_out, dc_out, dh_out, n_rows,
-                                  hidden, s);
-  }
-  if (dtype == 1) {
-    return cell_bwd_launch<__nv_bfloat16>(dg_next, w_t, gates, c_prev, dy,
-                                          dh_in, dc_in, dg_out, dc_out,
-                                          dh_out, n_rows, hidden, s);
+  switch (dtype) {
+    case 0:
+      return cell_bwd_launch<float>(dg_next, w_t, gates, c_prev, dy, dh_in,
+                                    dc_in, dg_out, dc_out, dh_out, n_rows,
+                                    hidden, 0, s);
+    case 1:
+      return cell_bwd_launch<__nv_bfloat16>(dg_next, w_t, gates, c_prev, dy,
+                                            dh_in, dc_in, dg_out, dc_out,
+                                            dh_out, n_rows, hidden, wide, s);
+    case 2:
+      return cell_bwd_launch<__half>(dg_next, w_t, gates, c_prev, dy, dh_in,
+                                     dc_in, dg_out, dc_out, dh_out, n_rows,
+                                     hidden, wide, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1645,15 +1726,16 @@ int lstm_sequence_backward_plan(int n_rows, int hidden, int sm_count,
 // the training forward, w (4H, H); writes dgates (T, N, 4H) fp32, dh0 and
 // dc0 (N, H). counter: N zeroed uint32s (the register kernel counts each
 // tile's writers in one; the shared-memory kernel's grid barrier takes the
-// first). dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
+// first). dtype: the states' type, as lstm_cell_forward's; wide: kWideW if
+// w is float32 rather than that type. Returns the cudaError_t of the
 // launch (cudaErrorInvalidValue when no kernel takes the shape).
 int lstm_sequence_backward(const void* dout, const void* dh_last,
                            const void* dc_last, const void* gates,
                            const void* cs, const void* c0, const void* w,
                            void* dgates, void* dh0, void* dc0, void* counter,
                            int steps, int n_rows, int hidden, int dtype,
-                           int reverse, int variant, int sm_count, int* plan,
-                           void* stream) {
+                           int wide, int reverse, int variant, int sm_count,
+                           int* plan, void* stream) {
   if (variant < 0 || variant > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1662,31 +1744,25 @@ int lstm_sequence_backward(const void* dout, const void* dh_last,
   const int err = bwd_choose(n_rows, hidden, sm_count, variant, &reg, &shared,
                              plan);
   if (err != 0) return err;
-  if (steps < 1 || plan[0] == 0 || (dtype != 0 && dtype != 1)) {
+  if (steps < 1 || plan[0] == 0 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rev = reverse ? 1 : 0;
+  const int wd = dtype == 0 ? 0 : wide;
+#define MXT_BWD_CALL(DISPATCH, PLAN, T)                                    \
+  return DISPATCH<T>(PLAN, dout, dh_last, dc_last, gates, cs, c0, w,       \
+                     dgates, dh0, dc0, counter, steps, n_rows, hidden, rev, \
+                     wd, s)
   if (plan[0] == 2) {
-    if (dtype == 0) {
-      return reg_bwd_dispatch<float>(reg, dout, dh_last, dc_last, gates, cs,
-                                     c0, w, dgates, dh0, dc0, counter, steps,
-                                     n_rows, hidden, rev, s);
-    }
-    return reg_bwd_dispatch<__nv_bfloat16>(reg, dout, dh_last, dc_last, gates,
-                                           cs, c0, w, dgates, dh0, dc0,
-                                           counter, steps, n_rows, hidden,
-                                           rev, s);
+    if (dtype == 0) MXT_BWD_CALL(reg_bwd_dispatch, reg, float);
+    if (dtype == 1) MXT_BWD_CALL(reg_bwd_dispatch, reg, __nv_bfloat16);
+    MXT_BWD_CALL(reg_bwd_dispatch, reg, __half);
   }
-  if (dtype == 0) {
-    return seq_bwd_dispatch<float>(shared, dout, dh_last, dc_last, gates, cs,
-                                   c0, w, dgates, dh0, dc0, counter, steps,
-                                   n_rows, hidden, rev, s);
-  }
-  return seq_bwd_dispatch<__nv_bfloat16>(shared, dout, dh_last, dc_last,
-                                         gates, cs, c0, w, dgates, dh0, dc0,
-                                         counter, steps, n_rows, hidden, rev,
-                                         s);
+  if (dtype == 0) MXT_BWD_CALL(seq_bwd_dispatch, shared, float);
+  if (dtype == 1) MXT_BWD_CALL(seq_bwd_dispatch, shared, __nv_bfloat16);
+  MXT_BWD_CALL(seq_bwd_dispatch, shared, __half);
+#undef MXT_BWD_CALL
 }
 
 const char* lstm_cell_error_string(int err) {

@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/ops/attention_ops.py`` and of the
 ``_contrib_flash_attention`` registration in
 ``mxnet_tpu/ops/pallas/attention.py``. The JAX ``MultiHeadAttention`` is
 plain jnp (``parallel/sequence.py:_full_attn``); the port's runs its core
-through the flash-attention kernels in bf16 where the kernels take the
-head dim and the masks agree, else as the JAX op does, on one device:
+through the flash-attention kernels in bf16 and fp16 where the masks
+agree, else as the JAX op does, on one device:
 the port has no mesh yet, so a nonempty ``seq_axis`` runs the local
 attention, as the JAX op does when no ambient mesh carries that axis.
 Sequence-parallel attention comes with the mesh.
@@ -53,13 +53,14 @@ def _full_attn(q, k, v, causal, scale):
 
 
 def _flash_route(q, k, causal):
-    """Whether the op's core runs :func:`flash_attention`: bf16 heads of
-    a dim the kernels take (up to ``MAX_HEAD_DIM``), and a mask that is
-    the kernels' (not causal, or Sq = Sk; over Sq != Sk this op's causal
-    mask is top-left aligned and the kernels' diagonal is not). fp32
-    keeps :func:`_full_attn`'s cuBLAS products, and fp16 and wider heads,
-    which the kernels do not take, keep it too."""
-    return (q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_HEAD_DIM
+    """Whether the op's core runs :func:`flash_attention`: bf16 or fp16
+    heads of a dim the kernels take (up to ``MAX_HEAD_DIM``), and a mask
+    that is the kernels' (not causal, or Sq = Sk; over Sq != Sk this op's
+    causal mask is top-left aligned and the kernels' diagonal is not).
+    fp32 keeps :func:`_full_attn`'s cuBLAS products: it was never timed
+    through the kernels, which run it on CUDA cores."""
+    return (q.dtype in (torch.bfloat16, torch.float16)
+            and q.shape[-1] <= MAX_HEAD_DIM
             and not (causal and q.shape[2] != k.shape[2]))
 
 

@@ -7,13 +7,17 @@ dispatch: with neither ``lengths`` nor ``segment_ids`` it is the dense core
 ``_masked_attention``). On CUDA tensors both launch the hand-written Hopper
 kernel in ``csrc/flash_attention.cu`` (counted in
 ``flash_attention.launches`` and ``flash_attention.masked_launches``) or
-raise. The library picks the variant by dtype, head dim and alignment:
-the dense and the masked core in bf16 at D = 64 or 128 over views TMA can
-describe take the wgmma/TMA variant (also counted in
-``flash_attention.wgmma_launches``; with segment ids it first sums up the
-ids of each 64 positions into a scratch tensor, so that it skips tiles
-whose ids cannot meet), other aligned bf16 views the mma.sync one, fp32
-and unaligned views the CUDA-core one. On CPU and ``meta`` tensors
+raise. Every dtype and head dim the JAX kernels take runs there, up to
+``MAX_HEAD_DIM``: fp32, bf16 and fp16, D from 1 to 588. The library picks
+the variant by dtype, head dim and alignment: the dense and the masked
+core in bf16 or fp16 at D = 64 or 128 over views TMA can describe take
+the wgmma/TMA variant (also counted in ``flash_attention.wgmma_launches``;
+with segment ids it first sums up the ids of each 64 positions into a
+scratch tensor, so that it skips tiles whose ids cannot meet), other
+aligned 16-bit views at D = 64, 128 or 256 the mma.sync one (counted in
+``flash_attention.mma_launches``), fp32, other head dims and unaligned
+views the CUDA-core one. A head dim whose stride is not 1 is copied
+contiguous before the launch. On CPU and ``meta`` tensors
 they run :func:`attention_plain` and
 :func:`masked_attention_plain`, the torch transcriptions of
 ``_attn_reference`` and ``_masked_reference``.
@@ -28,7 +32,7 @@ counted in ``flash_attention.backward_launches`` and
 :func:`masked_attention_backward_plain`. When a gradient is asked for, the
 forward kernel also keeps each row's logsumexp (:func:`attention_lse_plain`
 is its plain version), which every backward variant reads. The backward's
-wgmma/TMA variant (bf16, D = 64 or 128, TMA-able views; counted in
+wgmma/TMA variant (bf16 or fp16, D = 64 or 128, TMA-able views; counted in
 ``flash_attention.wgmma_backward_launches``) adds dq's partial
 sums by TMA bulk reduce-adds, atomic per element and in no fixed order, so
 dq may differ in its last bits from one call to the next; dk and dv are
@@ -50,10 +54,14 @@ __all__ = ["flash_attention", "attention_plain", "masked_attention_plain",
 
 _NEG = -1e30
 
-# the kernel holds a head's D values of a row in registers, up to 128
-MAX_HEAD_DIM = 128
+# the largest head dim the kernel library takes (``kMaxD`` of
+# csrc/flash_attention.cu and csrc/flash_attention_bwd.cu): past it the
+# CUDA-core variants' fp32 tiles no longer fit in a block's 227 KB of
+# shared memory (ROADMAP.md B5)
+MAX_HEAD_DIM = 588
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtypes the kernels take (the library's dtype codes)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _default_scale(d, scale):
@@ -219,9 +227,30 @@ def _check(q, k, v, causal, lengths, segment_ids):
                          f"{devices}")
 
 
-# the variant number the library reports for the wgmma/TMA kernel (0 is
-# the CUDA-core one, 1 mma.sync)
+# the variant numbers the library reports: the mma.sync kernel and the
+# wgmma/TMA one (0 is the CUDA-core one)
+_MMA_SYNC = 1
 _WGMMA = 2
+
+
+def _kernel_operands(tensors):
+    """The tensors as a kernel reads them: one dtype of _KERNEL_DTYPES, a
+    head dim up to MAX_HEAD_DIM, and a contiguous head dim (a view whose
+    head dim is strided is copied with ``.contiguous()`` first: a layout
+    copy decided before the launch, as the JAX function takes such
+    views)."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or tensors[0].dtype not in _KERNEL_DTYPES:
+        raise MXNetError(f"flash_attention kernel takes one dtype of "
+                         f"{sorted(map(str, _KERNEL_DTYPES))} for all its "
+                         f"inputs, got {sorted(map(str, dtypes))}")
+    d = tensors[0].shape[3]
+    if d > MAX_HEAD_DIM:
+        raise MXNetError(f"flash_attention kernel takes a head dim up to "
+                         f"{MAX_HEAD_DIM}, got {d}: wider heads are still to "
+                         f"port (ROADMAP.md B5)")
+    return tuple(t if t.stride(3) == 1 or t.shape[3] == 1 else t.contiguous()
+                 for t in tensors)
 
 
 def _int32_on(device, *ids):
@@ -236,20 +265,9 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0, lse=None):
     variant (see :func:`_mma_sync`). ``lse``: None, or a contiguous fp32
     (B, H, Sq) tensor on q's card that the kernel fills with each row's
     logsumexp."""
-    tensors = (q, k, v)
-    dtypes = {t.dtype for t in tensors}
-    if len(dtypes) != 1 or q.dtype not in _KERNEL_DTYPES:
-        raise MXNetError(f"flash_attention kernel takes one dtype of "
-                         f"{sorted(map(str, _KERNEL_DTYPES))} for q, k and "
-                         f"v, got {sorted(map(str, dtypes))}")
+    q, k, v = _kernel_operands((q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise MXNetError(f"flash_attention kernel takes a head dim up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
-    if any(t.stride(3) != 1 for t in tensors):
-        raise MXNetError("flash_attention kernel takes inputs whose last "
-                         "(head) dim is contiguous")
     # the output keeps q's layout, so a (B, S, H, D) view stays one
     out = torch.empty_like(q)
     if min(b, h, sq, sk, d) == 0:  # no keys: zeros, as the plain version
@@ -287,16 +305,18 @@ def _launch(q, k, v, causal, scale, lengths, segment_ids, route=0, lse=None):
         flash_attention.launches += 1
     if variant.value == _WGMMA:
         flash_attention.wgmma_launches += 1
+    elif variant.value == _MMA_SYNC:
+        flash_attention.mma_launches += 1
     return out
 
 
 def _mma_sync(q, k, v, causal=False, scale=None, lengths=None,
               segment_ids=None):
     """The dense or masked core through the mma.sync variant, which bf16
-    no longer takes where TMA applies: for timing the two side by side,
-    never on a model's path. Counted as :func:`flash_attention` counts.
-    Raises where that variant does not apply (not bf16, D not 64 or 128,
-    unaligned rows)."""
+    and fp16 no longer take where TMA applies: for timing the two side by
+    side, never on a model's path. Counted as :func:`flash_attention`
+    counts. Raises where that variant does not apply (not bf16 or fp16, D
+    not 64, 128 or 256, unaligned rows)."""
     _check(q, k, v, causal, lengths, segment_ids)
     if q.device.type != "cuda":
         raise MXNetError("_mma_sync takes CUDA tensors")
@@ -318,9 +338,17 @@ def _lib():
         lib.flash_attention_seg_scratch_ints.restype = ctypes.c_size_t
         lib.flash_attention_wgmma_smem_bytes.argtypes = [ctypes.c_int]
         lib.flash_attention_wgmma_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_attention_max_head_dim.argtypes = []
+        lib.flash_attention_max_head_dim.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def library_max_head_dim():
+    """The largest head dim the kernel library takes (its ``kMaxD``), which
+    :data:`MAX_HEAD_DIM` states for the CPU's checks."""
+    return int(_lib().flash_attention_max_head_dim())
 
 
 def wgmma_shared_bytes(d):
@@ -443,21 +471,21 @@ def _backward_launch(q, k, v, out, do, causal, scale, lengths, segment_ids,
     """dq, dk, dv from ``csrc/flash_attention_bwd.cu`` on the current
     stream. ``lse``: the forward's (B, H, Sq) fp32 row logsumexps
     (:func:`_lse_for`), which every variant reads. The library picks the
-    variant by dtype, head dim and alignment: bf16 at D = 64 or 128 over
-    views TMA can describe takes the wgmma/TMA one (K0 delta = rowsum(dO *
-    O); the main kernel, a block per 64 or 128 keys, writing dk and dv
-    once and adding dq's partial sums into an fp32 accumulator by bulk
-    reduce-adds; K2 that accumulator into dq), other aligned bf16 views
-    the mma.sync one (three launches, no atomics: delta, dk and dv, dq),
-    fp32 and the rest the CUDA-core one (the same three). The fp32
+    variant by dtype, head dim and alignment: bf16 or fp16 at D = 64 or 128
+    over views TMA can describe takes the wgmma/TMA one (K0 delta =
+    rowsum(dO * O); the main kernel, a block per 64 or 128 keys, writing dk
+    and dv once and adding dq's partial sums into an fp32 accumulator by
+    bulk reduce-adds; K2 that accumulator into dq), other aligned 16-bit
+    views at those D and at D = 256 the mma.sync one (three launches, no
+    atomics: delta, dk and dv, dq; at D = 256 two K1 blocks a key tile,
+    each summing half the columns), fp32, every other D up to
+    ``MAX_HEAD_DIM`` and the rest the CUDA-core one (the same three). The fp32
     scratch is sized for the variant the library will take. ``route`` 1 takes the
     mma.sync variant wherever it applies (:func:`_mma_sync_backward`). A
     head dim that is not contiguous (an expanded cotangent, say) is copied
     with ``.contiguous()`` first; the gradients keep their input's
     layout."""
-    do = do.to(q.dtype)
-    q, k, v, out, do = (t if t.stride(3) == 1 else t.contiguous()
-                        for t in (q, k, v, out, do))
+    q, k, v, out, do = _kernel_operands((q, k, v, out, do.to(q.dtype)))
     grads = [torch.empty_like(t) for t in (q, k, v)]
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -515,19 +543,14 @@ def _mma_sync_backward(q, k, v, out, do, causal=False, scale=None,
     two side by side, or checking that variant, never on a model's path.
     ``lse``: the forward's (B, H, Sq) fp32 row logsumexps, as
     :func:`_launch` fills them. Counted as the backward counts. Raises
-    where that variant does not apply (not bf16, D not 64 or 128,
-    unaligned rows) and on tensors off the card."""
+    where that variant does not apply (not bf16 or fp16, D not 64, 128 or
+    256, unaligned rows) and on tensors off the card."""
     _check(q, k, v, causal, lengths, segment_ids)
     if q.device.type != "cuda":
         raise MXNetError("_mma_sync_backward takes CUDA tensors")
     return _backward_launch(q, k, v, out, do, causal,
                             _default_scale(q.shape[-1], scale), lengths,
                             segment_ids, lse, route=1)
-
-
-# the variant number the backward library reports for its mma.sync
-# kernels (0 is the CUDA-core one, 2 the wgmma/TMA one)
-_MMA_SYNC = 1
 
 
 def _bwd_lib():
@@ -556,6 +579,7 @@ def _bwd_lib():
 flash_attention.launches = 0         # dense core (B2) launches
 flash_attention.masked_launches = 0  # masked core (B3) launches
 flash_attention.wgmma_launches = 0   # of those, the wgmma/TMA variant's
+flash_attention.mma_launches = 0     # and the mma.sync variant's
 flash_attention.backward_launches = 0         # dense core (B2) backwards
 flash_attention.masked_backward_launches = 0  # masked core (B3) backwards
 flash_attention.mma_backward_launches = 0     # of those, the mma.sync one's

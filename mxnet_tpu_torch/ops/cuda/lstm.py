@@ -9,7 +9,11 @@ their dtypes after every step. On CUDA tensors each launches a hand-written
 Hopper kernel in ``csrc/lstm_cell.cu`` or raises; on CPU and ``meta``
 tensors each runs its plain version (:func:`lstm_cell_plain`, the torch
 transcription of the JAX package's ``_cell_jnp``, and
-:func:`lstm_sequence_plain`, its loop).
+:func:`lstm_sequence_plain`, its loop). The kernels take the dtypes the
+JAX cell takes: states (h, c) in fp32, bf16 or fp16, and xproj and w_h2h
+each in the states' dtype or in fp32, read as they are (nd.RNN gives an
+fp32 xproj and w_h2h over bf16 states); gates stay fp32 and h and c are
+rounded to their dtype once a step. States of two dtypes and fp64 raise.
 
 Training goes through one ``torch.autograd.Function`` over a layer and
 direction, ``(xproj, h0, c0, w_h2h) -> (out, hT, cT)``: whenever a tensor
@@ -45,7 +49,11 @@ __all__ = ["lstm_cell_fused", "lstm_cell_plain", "lstm_sequence_fused",
 # kernels stage their gate rows of w_h2h there as fp32
 MAX_SHARED_BYTES = 232448
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the states' dtypes the kernels take (the library's dtype codes)
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# bits of the library's `wide` argument: xproj, w_h2h stored as fp32 over
+# narrower states
+_WIDE_X, _WIDE_W = 1, 2
 
 
 def _cell_train_plain(xproj, h, c, w_h2h):
@@ -107,35 +115,67 @@ def _check_shapes(xproj, h, c, w_h2h):
         raise MXNetError(f"lstm_cell: inputs on several devices {devices}")
 
 
-def _check_kernel_inputs(name, tensors, gates=()):
-    """The kernels take one dtype of _KERNEL_DTYPES for every state and
-    weight tensor, fp32 for the gate tensors, and contiguous tensors."""
+def _check_kernel_inputs(name, tensors, gates=(), operands=()):
+    """The kernels take one dtype of _KERNEL_DTYPES for every state tensor,
+    fp32 for the gate tensors, the states' dtype or fp32 for each of the
+    ``operands`` (xproj, w_h2h), and contiguous tensors."""
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or tensors[0].dtype not in _KERNEL_DTYPES:
         raise MXNetError(f"{name} kernel takes one dtype of "
                          f"{sorted(map(str, _KERNEL_DTYPES))} for all "
-                         f"{len(tensors)} inputs, got "
+                         f"{len(tensors)} state inputs, got "
                          f"{sorted(map(str, dtypes))}")
+    if any(t.dtype not in (tensors[0].dtype, torch.float32)
+           for t in operands):
+        raise MXNetError(f"{name} kernel takes xproj and w_h2h in the "
+                         f"states' dtype {tensors[0].dtype} or float32, got "
+                         f"{[str(t.dtype) for t in operands]}")
     if any(g.dtype != torch.float32 for g in gates):
         raise MXNetError(f"{name} kernel keeps the gates in float32")
-    if not all(t.is_contiguous() for t in tuple(tensors) + tuple(gates)):
+    if not all(t.is_contiguous()
+               for t in tuple(tensors) + tuple(gates) + tuple(operands)):
         raise MXNetError(f"{name} kernel takes contiguous tensors")
 
 
-def _widened(xproj, h0, c0, w_h2h):
-    """(xproj, w_h2h) in the states' dtype, the one dtype the kernels take.
-    The JAX package's cell computes its gates in fp32 whatever xproj's
-    and w_h2h's dtypes (``_gates``); a narrower xproj or w_h2h (bf16 over
-    fp32 states) is widened exactly. A wider one, or states of two
-    dtypes, would round where that cell does not: no kernel takes them."""
+def _wide_bits(states_dtype, xproj=None, w_h2h=None):
+    """The library's ``wide`` argument: which of xproj and w_h2h it reads as
+    fp32 rather than in the states' dtype."""
+    bits = 0
+    if xproj is not None and xproj.dtype != states_dtype:
+        bits |= _WIDE_X
+    if w_h2h is not None and w_h2h.dtype != states_dtype:
+        bits |= _WIDE_W
+    return bits
+
+
+# the operand dtypes that fp32 holds exactly
+_EXACT_IN_FP32 = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _operand(t, dt):
+    """xproj or w_h2h as a kernel reads it over states of dtype ``dt``: as
+    it is in ``dt``, else in fp32. The JAX package's cell computes its
+    gates in fp32 whatever xproj's and w_h2h's dtypes (``_gates``), so an
+    operand of another 16-bit type (bf16 over fp16 states, or over fp32
+    ones) is widened to fp32 exactly, and an fp32 one over 16-bit states
+    is read as it is, never rounded to the states' dtype. fp64 (the JAX
+    cell takes it with x64 on) has no kernel (ROADMAP.md B5)."""
+    if t.dtype == dt:
+        return t
+    if t.dtype not in _EXACT_IN_FP32:
+        raise MXNetError(f"lstm kernels: no kernel for a {t.dtype} xproj or "
+                         f"w_h2h over {dt} states")
+    return t.float()
+
+
+def _operands(xproj, h0, c0, w_h2h):
+    """(xproj, w_h2h) as the kernels read them (:func:`_operand`). States
+    of two dtypes raise: the JAX cell never produces them."""
     dt = h0.dtype
-    if c0.dtype != dt or any(torch.promote_types(t.dtype, dt) != dt
-                             for t in (xproj, w_h2h)):
-        raise MXNetError(
-            f"lstm kernels: no kernel for xproj {xproj.dtype}, states "
-            f"{h0.dtype}/{c0.dtype}, w_h2h {w_h2h.dtype}: xproj and w_h2h "
-            "must be the states' dtype or narrower")
-    return xproj.to(dt), w_h2h.to(dt)
+    if c0.dtype != dt:
+        raise MXNetError(f"lstm kernels: no kernel for states of two dtypes, "
+                         f"h {h0.dtype} and c {c0.dtype}")
+    return _operand(xproj, dt), _operand(w_h2h, dt)
 
 
 def _ptr(t):
@@ -149,8 +189,8 @@ def _stream(device):
 def _launch(xproj, h, c, w_h2h, gates=None):
     """One launch of the per-step kernel; ``gates`` (N, 4H) fp32, when
     given, receives the activated gates."""
-    _check_kernel_inputs("lstm_cell", (xproj, h, c, w_h2h),
-                         () if gates is None else (gates,))
+    _check_kernel_inputs("lstm_cell", (h, c),
+                         () if gates is None else (gates,), (xproj, w_h2h))
     n, hdim = h.shape
     if 4 * hdim * 4 > MAX_SHARED_BYTES:
         raise MXNetError(f"lstm_cell kernel stages 4*H fp32 weights in shared "
@@ -162,7 +202,8 @@ def _launch(xproj, h, c, w_h2h, gates=None):
         err = lib.lstm_cell_forward(
             xproj.data_ptr(), h.data_ptr(), c.data_ptr(), w_h2h.data_ptr(),
             h_out.data_ptr(), c_out.data_ptr(), _ptr(gates), n, hdim,
-            _KERNEL_DTYPES[h.dtype], _stream(h.device))
+            _KERNEL_DTYPES[h.dtype], _wide_bits(h.dtype, xproj, w_h2h),
+            _stream(h.device))
     _raise_on(lib, err, "lstm_cell")
     lstm_cell_fused.launches += 1
     return h_out, c_out
@@ -172,16 +213,16 @@ def _lib():
     lib = _build.load("lstm_cell")
     if lib.lstm_cell_forward.argtypes is None:
         c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-        lib.lstm_cell_forward.argtypes = [c_ptr] * 7 + [c_int] * 3 + [c_ptr]
+        lib.lstm_cell_forward.argtypes = [c_ptr] * 7 + [c_int] * 4 + [c_ptr]
         lib.lstm_cell_forward.restype = c_int
-        lib.lstm_sequence_forward.argtypes = [c_ptr] * 10 + [c_int] * 6 + [
+        lib.lstm_sequence_forward.argtypes = [c_ptr] * 10 + [c_int] * 7 + [
             c_ptr]
         lib.lstm_sequence_forward.restype = c_int
         lib.lstm_sequence_shared_bytes.argtypes = [c_int] * 3
         lib.lstm_sequence_shared_bytes.restype = c_int
-        lib.lstm_cell_backward.argtypes = [c_ptr] * 10 + [c_int] * 3 + [c_ptr]
+        lib.lstm_cell_backward.argtypes = [c_ptr] * 10 + [c_int] * 4 + [c_ptr]
         lib.lstm_cell_backward.restype = c_int
-        lib.lstm_sequence_backward.argtypes = [c_ptr] * 11 + [c_int] * 7 + [
+        lib.lstm_sequence_backward.argtypes = [c_ptr] * 11 + [c_int] * 8 + [
             c_ptr] * 2
         lib.lstm_sequence_backward.restype = c_int
         lib.lstm_sequence_backward_plan.argtypes = [c_int] * 4 + [c_ptr]
@@ -214,7 +255,7 @@ def lstm_cell_fused(xproj, h, c, w_h2h):
         _, h_new, c_new = _Sequence.apply(xproj[None], h, c, w_h2h, False)
         return h_new, c_new
     if h.device.type == "cuda":
-        xproj, w_h2h = _widened(xproj, h, c, w_h2h)
+        xproj, w_h2h = _operands(xproj, h, c, w_h2h)
         return _launch(xproj, h, c, w_h2h)
     if h.device.type in ("cpu", "meta"):
         return lstm_cell_plain(xproj, h, c, w_h2h)
@@ -257,7 +298,7 @@ def sequence_fits(n, hdim, device):
     >= min(N, 16), halved while the block's bytes exceed the 232,448 a
     Hopper block may use; N is walked in chunks. The layer does not fit
     when even a 1-row chunk does not, or when ``4 * units`` exceeds the
-    block's 512 threads: on 132 SMs, fp32 and bf16 alike (bf16 weights are
+    block's 512 threads: on 132 SMs, in every dtype (16-bit weights are
     staged as fp32), H up to 1320 fits and H from 1321 does not."""
     return _lib().lstm_sequence_shared_bytes(n, hdim, _sm_count(device)) >= 0
 
@@ -320,8 +361,8 @@ def _sequence_launch(xproj, h0, c0, w_h2h, reverse, gates=None, cs=None):
     """One launch of the sequence kernel; in training ``gates`` (T, N, 4H)
     fp32 and ``cs`` (T, N, H) receive what the backward reads."""
     _check_kernel_inputs(
-        "lstm_sequence", (xproj, h0, c0, w_h2h) + (() if cs is None else (cs,)),
-        () if gates is None else (gates,))
+        "lstm_sequence", (h0, c0) + (() if cs is None else (cs,)),
+        () if gates is None else (gates,), (xproj, w_h2h))
     steps = xproj.shape[0]
     n, hdim = h0.shape
     lib = _lib()
@@ -334,8 +375,8 @@ def _sequence_launch(xproj, h0, c0, w_h2h, reverse, gates=None, cs=None):
             xproj.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_h2h.data_ptr(),
             out.data_ptr(), h_last.data_ptr(), c_last.data_ptr(),
             _ptr(gates), _ptr(cs), scratch.data_ptr(), steps, n, hdim,
-            _KERNEL_DTYPES[h0.dtype], int(reverse), _sm_count(h0.device),
-            _stream(h0.device))
+            _KERNEL_DTYPES[h0.dtype], _wide_bits(h0.dtype, xproj, w_h2h),
+            int(reverse), _sm_count(h0.device), _stream(h0.device))
     _raise_on(lib, err, "lstm_sequence")
     lstm_sequence_fused.launches += 1
     return out, h_last, c_last
@@ -360,7 +401,7 @@ def lstm_sequence_fused(xproj, h0, c0, w_h2h, reverse=False):
     if _needs_grad(xproj, h0, c0, w_h2h):
         return _Sequence.apply(xproj, h0, c0, w_h2h, reverse)
     if h0.device.type == "cuda":
-        xproj, w_h2h = _widened(xproj, h0, c0, w_h2h)
+        xproj, w_h2h = _operands(xproj, h0, c0, w_h2h)
         if not sequence_fits(h0.shape[0], h0.shape[1], h0.device):
             return lstm_sequence_plain(xproj, h0, c0, w_h2h, reverse,
                                        cell=lstm_cell_fused)
@@ -429,7 +470,7 @@ def lstm_sequence_train(xproj, h0, c0, w_h2h, reverse=False):
         return lstm_sequence_train_plain(xproj, h0, c0, w_h2h, reverse)
     if h0.device.type != "cuda":
         raise MXNetError(f"lstm_sequence: no kernel for device {h0.device}")
-    xproj, w_h2h = _widened(xproj, h0, c0, w_h2h)
+    xproj, w_h2h = _operands(xproj, h0, c0, w_h2h)
     steps, n, hdim = xproj.shape[0], h0.shape[0], h0.shape[1]
     if not sequence_fits(n, hdim, h0.device):
         return lstm_sequence_train_plain(xproj, h0, c0, w_h2h, reverse,
@@ -515,10 +556,10 @@ def lstm_cell_backward(dg_next, w_t, gates, c_prev, dy, dh_in, dc_in, dg_out,
     in ``lstm_cell_backward.launches``."""
     hdim = w_t.shape[0]
     n = dg_out.shape[0] if dg_out is not None else dh_out.shape[0]
-    states = [t for t in (w_t, c_prev, dy, dh_in, dc_in, dc_out, dh_out)
+    states = [t for t in (c_prev, dy, dh_in, dc_in, dc_out, dh_out)
               if t is not None]
     floats = [t for t in (dg_next, gates, dg_out) if t is not None]
-    _check_kernel_inputs("lstm_cell_backward", states, floats)
+    _check_kernel_inputs("lstm_cell_backward", states, floats, (w_t,))
     if 4 * hdim * 4 > MAX_SHARED_BYTES:
         raise MXNetError(f"lstm_cell_backward kernel stages a column of "
                          f"w_h2h (4*H fp32): H={hdim} does not fit")
@@ -527,8 +568,8 @@ def lstm_cell_backward(dg_next, w_t, gates, c_prev, dy, dh_in, dc_in, dg_out,
         err = lib.lstm_cell_backward(
             _ptr(dg_next), w_t.data_ptr(), _ptr(gates), _ptr(c_prev),
             _ptr(dy), _ptr(dh_in), _ptr(dc_in), _ptr(dg_out), _ptr(dc_out),
-            _ptr(dh_out), n, hdim, _KERNEL_DTYPES[w_t.dtype],
-            _stream(w_t.device))
+            _ptr(dh_out), n, hdim, _KERNEL_DTYPES[states[0].dtype],
+            _wide_bits(states[0].dtype, w_h2h=w_t), _stream(w_t.device))
     _raise_on(lib, err, "lstm_cell_backward")
     lstm_cell_backward.launches += 1
 
@@ -587,7 +628,7 @@ def lstm_sequence_backward(dout, dh_last, dc_last, gates, cs, out, h0, c0,
     # take them
     dout, dh_last, dc_last = (x.to(h0.dtype).contiguous()
                               for x in (dout, dh_last, dc_last))
-    w_k = w_h2h.to(h0.dtype)  # widened, as the forward took it
+    w_k = _operand(w_h2h, h0.dtype)  # as the forward read it
     if backward_fits(h0.shape[0], h0.shape[1], h0.device):
         dgates, dh0, dc0 = _sequence_backward_launch(
             dout, dh_last, dc_last, gates, cs, h0, c0, w_k, reverse)
@@ -605,7 +646,8 @@ def _sequence_backward_launch(dout, dh_last, dc_last, gates, cs, h0, c0,
     register kernel also in ``lstm_sequence_backward.register_launches``.
     """
     _check_kernel_inputs("lstm_sequence_backward",
-                         (dout, dh_last, dc_last, cs, h0, c0, w_h2h), (gates,))
+                         (dout, dh_last, dc_last, cs, h0, c0), (gates,),
+                         (w_h2h,))
     steps, n, hdim = cs.shape
     lib = _lib()
     dgates = torch.empty_like(gates)
@@ -620,7 +662,8 @@ def _sequence_backward_launch(dout, dh_last, dc_last, gates, cs, h0, c0,
             gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), w_h2h.data_ptr(),
             dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             scratch.data_ptr(), steps, n, hdim, _KERNEL_DTYPES[h0.dtype],
-            int(reverse), _BWD_VARIANTS[variant], _sm_count(h0.device),
+            _wide_bits(h0.dtype, w_h2h=w_h2h), int(reverse),
+            _BWD_VARIANTS[variant], _sm_count(h0.device),
             ctypes.addressof(plan), _stream(h0.device))
     _raise_on(lib, err, "lstm_sequence_backward")
     lstm_sequence_backward.launches += 1

@@ -179,17 +179,17 @@ def test_hybridized_layers_match_imperative(port_runs):
 @pytest.mark.parametrize("dtype, d, sk, want", [
     ("bfloat16", 64, 8, True),
     ("bfloat16", 128, 8, True),
-    ("bfloat16", 256, 8, False),
+    ("bfloat16", 256, 8, True),
     ("bfloat16", 64, 5, False),
-    ("float16", 64, 8, False),
+    ("float16", 64, 8, True),
     ("float32", 64, 8, False),
 ], ids=["bf16-d64", "bf16-d128", "bf16-d256", "bf16-causal-sk5",
         "fp16-d64", "fp32-d64"])
 def test_attention_core_route(dtype, d, sk, want):
-    """The attention op's core is the flash kernels for bf16 heads of a
-    dim they take and their causal mask (Sq = Sk), and the plain products
-    otherwise: fp32, fp16, heads wider than ``MAX_HEAD_DIM``, a causal
-    mask over Sq != Sk."""
+    """The attention op's core is the flash kernels for bf16 and fp16
+    heads of a dim they take (up to ``MAX_HEAD_DIM``) and their causal
+    mask (Sq = Sk), and the plain products otherwise: fp32, a causal mask
+    over Sq != Sk."""
     import torch
     from mxnet_tpu_torch.ops.attention_ops import _flash_route
     q = torch.zeros((1, 2, 8, d), dtype=getattr(torch, dtype))
@@ -236,17 +236,15 @@ def _mha_op(mx, dtype, d, ctx=None, weights=None):
                               "fp32-d64"])
 def test_attention_op_on_card_matches_cpu(card, dtype, d):
     """nn.MultiHeadAttention on the card, forward and backward, against
-    the CPU from the same weights: bf16 at D=64 through one flash forward
-    and one flash backward launch, the others (bf16 at D=256 above
-    ``MAX_HEAD_DIM``, fp16, fp32) through the plain products with no
-    launch."""
+    the CPU from the same weights: bf16 at D=64 and 256 and fp16 at D=64
+    through one flash forward and one flash backward launch, fp32 through
+    the plain products with no launch."""
     from mxnet_tpu_torch.ops.cuda.attention import flash_attention as fa
     before = (fa.launches, fa.backward_launches)
     with card:
         got, weights = _mha_op(mxt, dtype, d)
     launched = (fa.launches - before[0], fa.backward_launches - before[1])
-    assert launched == ((1, 1) if (dtype, d) == ("bfloat16", 64)
-                        else (0, 0)), launched
+    assert launched == ((0, 0) if dtype == "float32" else (1, 1)), launched
     with mxt.cpu():
         want, _ = _mha_op(mxt, dtype, d, weights=weights)
     rel, floor = (REL, 1e-6) if dtype == "float32" else (LOW_REL, LOW_FLOOR)

@@ -189,7 +189,7 @@ def load_probe(probe):
     argument types of its ``lstm_sequence_backward``."""
     lib = ctypes.CDLL(str(build_probe(probe)))
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-    lib.lstm_sequence_backward.argtypes = [c_ptr] * 11 + [c_int] * 7 + [
+    lib.lstm_sequence_backward.argtypes = [c_ptr] * 11 + [c_int] * 8 + [
         c_ptr] * 2
     lib.lstm_sequence_backward.restype = c_int
     lib.lstm_cell_error_string.argtypes = [c_int]
@@ -218,7 +218,7 @@ def probe_backward(lib, dout, dh_last, dc_last, gates, cs, h0, c0, w_h2h,
             gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), w_h2h.data_ptr(),
             dgates.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
             scratch.data_ptr(), steps, n, hdim, L._KERNEL_DTYPES[h0.dtype],
-            int(reverse), register, L._sm_count(h0.device),
+            0, int(reverse), register, L._sm_count(h0.device),
             ctypes.addressof(plan), L._stream(h0.device))
     if err != 0 or plan[0] != register:
         raise RuntimeError(
