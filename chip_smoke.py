@@ -275,11 +275,29 @@ no ``mxnet_tpu_torch`` package beside it. Every failure raises. Phases:
    ``record()``/``backward()``/``Trainer.step()`` steps, each 2
    ``lstm_seq_kernel`` and 2 register-kernel backward launches at fp16,
    the losses finite; (e) ``nd.RNN`` (2 x 1024, T=64, N=16) with bf16
-   states over fp32 data and parameters, card against the CPU path.
+   states over fp32 data and parameters, card against the CPU path;
+19. B4's body language (``phase_rtc_language``): (a) each form at
+   moderate sizes ((4096, 1024) and full sums of 2**24 elements): views,
+   partial stores, row, column and split full reductions, max/min/argmax
+   with NaNs, softmax, fp32/bf16/fp16/int32 and batched products, int8,
+   uint8 and bool, library functions and unrolled loops, each output
+   against the plain version on the card's tensors within its stated
+   tolerance and each stage kind's launches held to the stage plan; (b)
+   B1's own Pallas body (``_gates`` and ``_lstm_kernel``) as an Rtc at
+   N=64, H=1024, fp32 and with bf16 states over fp32 xproj, against
+   ``lstm_cell_plain`` and B1's kernel and timed beside them; (c) the
+   transformer LM's logits on (4, 2048) tokens through one body writing
+   logp (8192, 32000) and lse (8192,), against ``F.log_softmax`` and the
+   plain version, timed beside ``torch.log_softmax``; (d) the head product
+   (8192, 512) x (512, 32000) in fp32 and bf16 beside ``torch.matmul``;
+   (e) global-norm clipping of the LM's 49.5 M gradients on phase 10's
+   SGD-momentum path (a sum-of-squares body a parameter, a fold into the
+   scale, the update reading it as a 0-d Ref) against the same steps in
+   torch, the norm beside ``torch.linalg.vector_norm``.
 
 Each path (4 and its wide LSTM, 5, 6, 10, 11 and its wide LM, 12's masked
 training path, 12c, 13c, 14a, 15's served bursts, 16's Gluon LM (each
-mode) and attention layer, 17a's epoch, and 18a-e) sets its kernels' launch
+mode) and attention layer, 17a's epoch, 18a-e, and 19b-e) sets its kernels' launch
 counts to 0 (13c and 16c: read them) just before it runs and reads them
 just after, and fails if a kernel of the path was not launched (13c and
 16c: if any hand-written kernel was). Its last lines are a ``{"kernels": [...]}`` JSON line, the card's
@@ -1341,12 +1359,14 @@ def profile_device(label, fn, keep_all=False, expect=None):
     (kernels, copies) are summed: a CPU op's device time repeats its
     kernels'. ``keep_all`` also returns every kernel's row
     (``top_all``). ``expect`` ({kernel name: launches}, with ``keep_all``):
-    a window whose record falls short of those counts is taken again, up
-    to three windows, as one with no device time is; CUPTI now and then
-    drops a kernel's record (PERF.md section 7), and the caller's check
-    reads the last window's counts."""
+    the window is opened one call of ``fn`` early, a warm-up call that
+    runs with the profiler's activities on and whose records are thrown
+    away (a cold window may keep no record of its first launches, PERF.md
+    section 7); a window whose record still falls short of those counts is
+    taken again, up to three windows, and the caller's check reads the
+    last window's counts."""
     for window in range(3):
-        out = profile_window(label, fn, keep_all)
+        out = profile_window(label, fn, keep_all, warmup=expect is not None)
         if expect is None:
             return out
         counts = replay_counts(out, list(expect))
@@ -1357,21 +1377,31 @@ def profile_device(label, fn, keep_all=False, expect=None):
     return out
 
 
-def profile_window(label, fn, keep_all):
-    """One profiled call of ``fn`` (see :func:`profile_device`)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_window(label, fn, keep_all, warmup=False):
+    """One profiled call of ``fn`` (see :func:`profile_device`), after a
+    warm-up call of ``fn`` whose records are dropped when ``warmup``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(3):
         torch.cuda.synchronize()
+        plan = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup \
+            else None
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=plan) as prof:
+            if warmup:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        # a schedule adds a device-side span for each of its steps
         events = [(e.key, e.self_device_time_total, e.count)
                   for e in prof.key_averages()
-                  if e.device_type == cuda and e.self_device_time_total > 0]
+                  if e.device_type == cuda and e.self_device_time_total > 0
+                  and not e.key.startswith("ProfilerStep")]
         events.sort(key=lambda k: -k[1])
         busy_us = sum(k[1] for k in events)
         if busy_us:
@@ -2643,7 +2673,7 @@ def train_records(kerrs, plans, grad_errs, bench, wide_launches, timing,
     return [seq, cell_rec]
 
 
-def rtc_record(rtc_k, imp):
+def rtc_record(rtc_k, imp, lang):
     t = imp["timing"]
     return {
         "name": "rtc",
@@ -2681,6 +2711,19 @@ def rtc_record(rtc_k, imp):
                     "rtc_host": t["rtc_step_host_ms"]},
         "axpy": t["axpy"],
         "step_profiles": t["profiles"],
+        # phase 19: the body language's map, reduce and product stages
+        "stage_launches": lang["stage_launches"],
+        "stage_launches_path": "phase 19b-19e: B1's Pallas body, the "
+                               "transformer LM's log-softmax, head product "
+                               "and clipped SGD step, each an Rtc body",
+        "language": {
+            "lstm_body_n64_h1024": lang["lstm_body"],
+            "log_softmax_8192x32000": lang["log_softmax"],
+            "head_product_8192x512x32000": lang["head_product"],
+            "clip_norm_49.5M": lang["clip"],
+            "forms": lang["kernels"]["cases"],
+            "max_err_by_tolerance": lang["kernels"]["max_abs_err"],
+            "seconds": lang["seconds"]},
     }
 
 
@@ -6247,6 +6290,524 @@ def b5_records(records, errs, timing, b5):
     by_name["lstm_sequence_mixed"]["phase_18e"] = b5["rnn_mixed"]
 
 
+# -- rtc: the rest of B4's body language (phase 19) -----------------------------
+
+# 19a's tolerances, each output against the plain version on the same card
+# tensors: "bits" bit for bit (NaN equal to NaN): arithmetic, indexing,
+# views, casts, max/min/argmax/argmin, any/all; "ulp2" within 2 fp32 ulps
+# (library functions: NVRTC's and torch's differ by an ulp); ("sum", n):
+# sums, means, products and dots over n terms, which add in another order,
+# within n * 2**-24 of the largest magnitude of the plain output; ("bf16",
+# n) and ("f16", n) within one ulp of the type (2**-7 and 2**-10 of the
+# value) plus, for a value summed over n terms in fp32 before its one
+# rounding, that sum's n * 2**-24 of the largest magnitude
+LANG_ROWS, LANG_COLS = 4096, 1024
+# B1's Pallas body (mxnet_tpu/ops/pallas/lstm.py:25-48): _gates as written
+# there, then _lstm_kernel's statements, run as one Rtc body
+LSTM_BODY = '''
+def _gates(xproj, h, w_h2h):
+    g = xproj.astype(jnp.float32) + jax.lax.dot_general(
+        h.astype(jnp.float32), w_h2h.astype(jnp.float32),
+        (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32)
+    H = h.shape[-1]
+    return (jax.nn.sigmoid(g[:, 0 * H:1 * H]),
+            jax.nn.sigmoid(g[:, 1 * H:2 * H]),
+            jnp.tanh(g[:, 2 * H:3 * H]),
+            jax.nn.sigmoid(g[:, 3 * H:4 * H]))
+i, f, g, o = _gates(xproj_ref[:], h_ref[:], w_ref[:])
+c_new = f * c_ref[:].astype(jnp.float32) + i * g
+h_new = o * jnp.tanh(c_new)
+hn_ref[:] = h_new.astype(hn_ref.dtype)
+cn_ref[:] = c_new.astype(cn_ref.dtype)
+'''
+LSTM_N, LSTM_H = 64, 1024
+# the transformer LM's row log-softmax over its logits at (4, 2048) tokens:
+# one body, outputs of two shapes
+LOGSOFTMAX_BODY = ("m = jnp.max(x[:], axis=1, keepdims=True)\n"
+                   "s = x[:] - m\n"
+                   "l = jnp.log(jnp.sum(jnp.exp(s), axis=1, keepdims=True))\n"
+                   "logp[:] = s - l\n"
+                   "lse[:] = (m + l)[:, 0]")
+LOGSOFTMAX_TOKENS = (4, 2048)
+HEAD_BODY = "o[:] = jnp.dot(h[:], w[:])"
+# global-norm clipping on phase 10's SGD-momentum path: each parameter's
+# sum of squares, their fold into the scale, then the update reading the
+# scale as a 0-d Ref
+CLIP_NORM = 1.0
+SUMSQ_BODY = "ss[...] = jnp.sum(g[:] * g[:])"
+CLIP_SGD_BODY = ("mom[:] = 0.9 * m[:] - 0.01 * (g[:] * scale[...] + 0.0001 * "
+                 "w[:])\nwout[:] = w[:] + mom[:]")
+# the sums of squares add up to 16.4 M positive terms: each thread of the
+# reduce stage adds ~120 in order and a tree of depth ~17 folds them, and
+# torch adds in another order; both within (120 + 17) * 2**-24 = 8.2e-6
+# of the true sum, so the scale and the sums are held within 2e-5
+CLIP_TOL = 2e-5
+
+
+def rtc_language_cases():
+    """(label, inputs [(name, shape, dtype, kind)], outputs [(name, shape,
+    dtype, tolerance)], body). Kinds: "n" a normal draw, "nan" one with a
+    NaN every 97 elements, "i" int32 in [-1000, 1000), "i8"/"u8" int8/
+    uint8 draws, "b" bool."""
+    f32, rows, cols = "float32", LANG_ROWS, LANG_COLS
+    mat, half = (rows, cols), LANG_ROWS // 2
+    return [
+        ("views and stores", [("x", mat, f32, "n"), ("y", (cols,), f32, "n")],
+         [("a", (cols, rows), f32, "bits"), ("b", mat, f32, "bits"),
+          ("c", (rows // 2, cols // 4), f32, "bits")],
+         f"a[:] = x[:].T * 2.0 + y[:][:, None]\n"
+         f"b[0:{half}] = x[{half}:{rows}] - y[:]\nb[-1] = y[:]\n"
+         f"b[{half}:{rows - 1}, ::2] = x[0:{half - 1}, 1::2]\n"
+         f"b[:, 1::2] *= 0.5\n"
+         f"c[:] = x[:].reshape({half}, 2, {cols})[:, 1, ::4]"),
+        ("row and column sums", [("x", mat, f32, "n")],
+         [("r", (rows,), f32, ("sum", cols)), ("c", (cols,), f32, ("sum", rows)),
+          ("m", (rows, 1), f32, ("sum", cols)), ("p", (rows,), f32, ("sum", cols))],
+         "r[:] = jnp.sum(x[:], axis=1)\nc[:] = x[:].sum(axis=0)\n"
+         "m[:] = jnp.mean(x[:], axis=-1, keepdims=True)\n"
+         "p[:] = jnp.prod(1.0 + x[:] * 0.001, axis=1)"),
+        ("full sums (split)", [("g", (2 ** 24 + 3,), f32, "n"),
+                               ("b", (2 ** 20,), "bfloat16", "n"),
+                               ("i", (2 ** 22,), "int32", "i")],
+         [("s", (), f32, ("sum", 2 ** 24)), ("t", (), "bfloat16", ("bf16", 2 ** 20)),
+          ("w", (), "int32", "bits"), ("q", (), f32, ("sum", 2 ** 22))],
+         "s[...] = jnp.sum(g[:] * g[:])\nt[...] = jnp.sum(b[:])\n"
+         "w[...] = jnp.sum(i[:] * 1000003)\nq[...] = jnp.mean(i[:])"),
+        ("max min arg", [("x", mat, f32, "nan"), ("z", mat, f32, "n")],
+         [("a", (rows,), f32, "bits"), ("b", (cols,), f32, "bits"),
+          ("c", (rows,), "int32", "bits"), ("d", (cols,), "int32", "bits"),
+          ("e", (), "int32", "bits"), ("f", (rows,), "int32", "bits")],
+         "a[:] = jnp.max(x[:], axis=1)\nb[:] = z[:].min(axis=0)\n"
+         "c[:] = jnp.argmax(x[:], axis=1)\nd[:] = jnp.argmin(z[:], axis=0)\n"
+         "e[...] = jnp.argmax(z[:])\nf[:] = jnp.argmin(x[:], axis=-1)"),
+        ("softmax", [("x", mat, f32, "n")],
+         [("s", mat, f32, ("sum", cols)), ("l", mat, f32, ("sum", cols))],
+         "s[:] = jax.nn.softmax(x[:], axis=1)\n"
+         "l[:] = jax.nn.log_softmax(x[:])"),
+        ("products", [("a", (512, cols), f32, "n"), ("w", (cols, 768), f32, "n"),
+                      ("x3", (8, 256, 128), f32, "n"),
+                      ("b3", (8, 128, 256), f32, "n")],
+         [("o", (512, 768), f32, ("sum", cols)),
+          ("g", (512, 512), f32, ("sum", cols)),
+          ("bm", (8, 256, 256), f32, ("sum", 128)),
+          ("v", (768,), f32, ("sum", cols))],
+         "o[:] = a[:] @ w[:]\n"
+         "g[:] = jax.lax.dot_general(a[:], a[:], (((1,), (1,)), ((), ())))\n"
+         "bm[:] = jnp.matmul(x3[:], b3[:])\nv[:] = jnp.dot(a[0], w[:])"),
+        ("16-bit and int products", [("a", (512, cols), f32, "n"),
+                                     ("w", (cols, 768), f32, "n"),
+                                     ("i", (256, 512), "int32", "i")],
+         [("b", (512, 768), "bfloat16", ("bf16", cols)),
+          ("h", (512, 768), "float16", ("f16", cols)),
+          ("p", (512, 768), f32, ("sum", cols)),
+          ("ii", (256, 256), "int32", "bits")],
+         "b[:] = jnp.dot(a[:].astype(jnp.bfloat16), w[:].astype(jnp.bfloat16))\n"
+         "h[:] = a[:].astype(jnp.float16) @ (w[:] * 0.1).astype(jnp.float16)\n"
+         "p[:] = jax.lax.dot_general(a[:].astype(jnp.bfloat16), "
+         "w[:].astype(jnp.bfloat16), (((1,), (0,)), ((), ())), "
+         "preferred_element_type=jnp.float32)\n"
+         "ii[:] = i[:] @ i[:].T"),
+        ("small dtypes", [("u", mat, "uint8", "u8"), ("s", mat, "int8", "i8"),
+                          ("q", mat, "bool", "b"), ("x", mat, f32, "n")],
+         [("a", mat, "int32", "bits"), ("b", mat, "uint8", "bits"),
+          ("c", mat, "int8", "bits"), ("d", mat, "bool", "bits"),
+          ("e", mat, f32, "bits"), ("n", (rows,), "int32", "bits"),
+          ("k", (cols,), "bool", "bits")],
+         "a[:] = (u[:] + s[:]).astype(jnp.int32) * 7 + (u[:] * s[:]).astype(jnp.int32)\n"
+         "b[:] = u[:] // 3 + u[:] % 7 + (u[:] >> 1) + q[:].astype(jnp.uint8)\n"
+         "c[:] = s[:] * 3 - s[:] // -4 + (s[:] << 2) + (x[:] * 50.0).astype(jnp.int8)\n"
+         "d[:] = (q[:] ^ (u[:] > 128)) | ~(s[:] < 0)\n"
+         "e[:] = u[:] / 3 + s[:] * 0.5 + q[:]\n"
+         "n[:] = jnp.sum(s[:], axis=1) + jnp.sum(q[:], axis=1)\n"
+         "k[:] = jnp.any(q[:] & (u[:] > 250), axis=0)"),
+        ("functions and control flow", [("x", mat, f32, "n"), ("y", mat, f32, "n")],
+         [("a", mat, f32, "ulp2"), ("b", mat, f32, "bits"),
+          ("c", mat, "bfloat16", ("bf16", 0))],
+         "z = x[:] * 0.3\n"
+         "a[:] = jax.lax.erf(x[:]) + jnp.tan(z) + jnp.arcsin(jnp.tanh(z)) + "
+         "jax.nn.gelu(y[:]) + jnp.log2(jnp.abs(x[:]) + 1.0) + jax.nn.softplus(y[:])\n"
+         "t = x[:]\nfor k in range(3):\n    t = t * 0.5 + y[:] * k\n"
+         "b[:] = jax.lax.fori_loop(0, 2, lambda k, v: v - x[:], t) if "
+         "x.shape[0] > 1 else t\n"
+         "c[:] = (x[:].astype(jnp.bfloat16) * 3.0 + jnp.round(y[:]).astype(jnp.bfloat16))"),
+    ]
+
+
+def lang_arrays(mx, ins, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    arrays = []
+    for name, shape, dtype, kind in ins:
+        if kind == "i":
+            t = torch.randint(-1000, 1000, shape, generator=gen, device="cuda",
+                              dtype=torch.int32)
+        elif kind in ("i8", "u8", "b"):
+            lo, hi = {"i8": (-128, 128), "u8": (0, 256), "b": (0, 2)}[kind]
+            t = torch.randint(lo, hi, shape, generator=gen, device="cuda")
+            t = t.to(getattr(torch, dtype))
+        else:
+            t = torch.randn(shape, generator=gen, device="cuda")
+            if kind == "nan":
+                t.view(-1)[::97] = float("nan")
+            t = t.to(getattr(torch, dtype))
+        arrays.append((name, mx.nd.NDArray(t)))
+    return arrays
+
+
+def lang_compare(kernel, plain, tol):
+    """(within tolerance, largest absolute difference)."""
+    if kernel.dtype != plain.dtype or kernel.shape != plain.shape:
+        return False, f"{kernel.dtype}{tuple(kernel.shape)} against " \
+                      f"{plain.dtype}{tuple(plain.shape)}"
+    k, p = kernel.double(), plain.double()
+    nan = torch.isnan(k) & torch.isnan(p)
+    diff = (k - p).abs().masked_fill(nan, 0.0)
+    err = float(diff.nan_to_num(float("inf")).max()) if diff.numel() else 0.0
+    if tol == "bits":
+        same = (kernel == plain) | nan if kernel.is_floating_point() else \
+            kernel == plain
+        return bool(same.all()), err
+    if tol == "ulp2":
+        return max_ulp(kernel.masked_fill(nan, 0), plain.masked_fill(nan, 0)) \
+            <= 2, err
+    kind, n = tol
+    scale = max(float(p.abs().nan_to_num(0.0).max()), 1e-30)
+    bound = n * 2.0 ** -24 * scale
+    if kind in ("bf16", "f16"):
+        rel = 2.0 ** -7 if kind == "bf16" else 2.0 ** -10
+        return bool((diff <= rel * p.abs() + bound + 1e-30).all()), err
+    return bool((diff <= bound).all()), err
+
+
+def stage_counts():
+    from mxnet_tpu_torch.ops.cuda.rtc import rtc_launch
+    return dict(rtc_launch.stage_launches)
+
+
+def stage_moved(before):
+    now = stage_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_rtc_language_kernels():
+    """19a: each form of the language at moderate sizes, the NVRTC stages
+    against the plain version on the same card tensors, each stage kind's
+    counter held to the stage plan."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.cuda.rtc import STATS
+    cases, worst = [], {}
+    for i, (label, ins, outs, body) in enumerate(rtc_language_cases()):
+        arrays = lang_arrays(mx, ins, seed=1900 + i)
+        targets = [(n, mx.nd.zeros(s, ctx=mx.gpu(0), dtype=dt))
+                   for n, s, dt, _ in outs]
+        t0 = time.perf_counter()
+        k = mx.rtc.Rtc(label.split()[0], arrays, targets, body)
+        tensors = [a._data for _, a in arrays]
+        plain = k._run_plain(tensors, tensors[0].device)
+        compiles, before = STATS["compiles"], stage_counts()
+        k.push([a for _, a in arrays], [t for _, t in targets])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        moved = stage_moved(before)
+        kinds = [s.kind for s in k._program.stages.stages] \
+            if not k._program.simple else ["map"]
+        for kind in ("map", "product"):
+            if moved[kind] != kinds.count(kind):
+                raise RuntimeError(f"rtc {label}: {moved} launches for the "
+                                   f"stages {kinds}")
+        if moved["reduce"] < kinds.count("reduce"):
+            raise RuntimeError(f"rtc {label}: {moved} launches for {kinds}")
+        errs = {}
+        for (n, s, dt, tol), (_, t), p in zip(outs, targets, plain):
+            ok, err = lang_compare(t._data, p, tol)
+            log(f"[rtc19a] {label} {n} {tuple(s)} {dt} {tol}: max abs "
+                f"{err}")
+            if not ok:
+                raise RuntimeError(f"rtc {label} output {n} disagrees with "
+                                   f"the plain version ({tol}): {err}")
+            errs[n] = err
+            key = tol if isinstance(tol, str) else tol[0]
+            worst[key] = max(worst.get(key, 0.0), err)
+        cases.append({"label": label, "stages": kinds, "launches": moved,
+                      "compiled": STATS["compiles"] - compiles,
+                      "first_push_ms": first_ms, "max_abs_err": errs})
+        log(f"[rtc19a] {label}: stages {kinds}, launches {moved}, first push "
+            f"{first_ms:.3f} ms")
+    return {"cases": cases, "max_abs_err": worst}
+
+
+def lstm_body_bound_ms(n, hdim):
+    """The cell's product (2 N 4H H operations at the fp32 peak) or
+    w_h2h's bytes at 3.35 TB/s, the larger."""
+    by_ops = 2 * n * 4 * hdim * hdim / FP32_FLOPS
+    by_bytes = 4 * 4 * hdim * hdim / HBM_BYTES_PER_S
+    return max(by_ops, by_bytes) * 1e3, ("operations" if by_ops >= by_bytes
+                                         else "bytes")
+
+
+def phase_rtc_lstm_body(mx):
+    """19b: B1's own Pallas body as an Rtc at the LSTM LM's width, fp32 and
+    with bf16 states over fp32 xproj, against lstm_cell_plain and B1's
+    lstm_cell_kernel (lstm_cell_fused on CUDA tensors) on the same
+    tensors, and timed beside them."""
+    from mxnet_tpu_torch.ops.cuda.lstm import lstm_cell_fused, lstm_cell_plain
+    n, hdim = LSTM_N, LSTM_H
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    xp = torch.randn(n, 4 * hdim, generator=gen, device="cuda")
+    w = torch.randn(4 * hdim, hdim, generator=gen, device="cuda") * hdim ** -0.5
+    out = {}
+    for state in ("float32", "bfloat16"):
+        sdt = getattr(torch, state)
+        h = torch.randn(n, hdim, generator=gen, device="cuda").to(sdt)
+        c = torch.randn(n, hdim, generator=gen, device="cuda").to(sdt)
+        ins = [("xproj_ref", xp), ("h_ref", h), ("c_ref", c), ("w_ref", w)]
+        arrays = [(k_, mx.nd.NDArray(t)) for k_, t in ins]
+        targets = [(k_, mx.nd.zeros((n, hdim), ctx=mx.gpu(0), dtype=state))
+                   for k_ in ("hn_ref", "cn_ref")]
+        k = mx.rtc.Rtc("lstm_cell", arrays, targets, LSTM_BODY)
+        push = lambda: k.push([a for _, a in arrays], [t for _, t in targets])
+        push()
+        torch.cuda.synchronize()
+        got = [t._data for _, t in targets]
+        plain = lstm_cell_plain(xp, h, c, w)
+        before = lstm_cell_fused.launches
+        kern = lstm_cell_fused(xp, h, c, w)
+        if lstm_cell_fused.launches != before + 1:
+            raise RuntimeError("19b: B1's kernel did not launch")
+        tol = ("sum" if state == "float32" else "bf16", 4 * hdim)
+        errs = {}
+        for name, g, p, q in zip(("hn", "cn"), got, plain, kern):
+            for ref_name, ref in (("plain", p), ("b1_kernel", q)):
+                ok, err = lang_compare(g, ref.to(g.dtype), tol)
+                if not ok:
+                    raise RuntimeError(f"19b {state} {name} against "
+                                       f"{ref_name}: {err}")
+                errs[f"{name}_vs_{ref_name}"] = err
+        rtc_ms = time_on_stream(push, iters=50)
+        b1_ms = time_on_stream(lambda: lstm_cell_fused(xp, h, c, w), iters=50)
+        plain_ms = time_on_stream(lambda: lstm_cell_plain(xp, h, c, w), iters=50)
+        bound, by = lstm_body_bound_ms(n, hdim)
+        out[state] = {"ms": rtc_ms, "b1_kernel_ms": b1_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": by, "max_abs_err": errs,
+                      "stages": [s.kind for s in k._program.stages.stages]}
+        log(f"[rtc19b] LSTM body N={n} H={hdim} {state} states: rtc "
+            f"{rtc_ms:.4f} ms, B1 kernel {b1_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); errors {errs}")
+    return out
+
+
+def phase_rtc_log_softmax(mx, lm):
+    """19c: the transformer LM's logits on (4, 2048) tokens, (8192, 32000)
+    fp32, through one body writing logp (8192, 32000) and lse (8192,),
+    held to F.log_softmax (as lm_loss takes it) and to the plain version,
+    and timed beside torch.log_softmax."""
+    import torch.nn.functional as F
+    b, s = LOGSOFTMAX_TOKENS
+    rng = np.random.RandomState(19)
+    tokens = rng.randint(0, lm.cfg.vocab_size, (b, s))
+    logits = lm.logits(tokens).reshape(b * s, -1).float().contiguous()
+    rows, vocab = logits.shape
+    x = mx.nd.NDArray(logits)
+    logp = mx.nd.zeros((rows, vocab), ctx=mx.gpu(0))
+    lse = mx.nd.zeros((rows,), ctx=mx.gpu(0))
+    k = mx.rtc.Rtc("log_softmax", [("x", x)], [("logp", logp), ("lse", lse)],
+                   LOGSOFTMAX_BODY)
+    push = lambda: k.push([x], [logp, lse])
+    push()
+    torch.cuda.synchronize()
+    plain = k._run_plain([logits], logits.device)
+    lib = F.log_softmax(logits, dim=-1)
+    errs = {}
+    for name, got, ref, tol in (("logp_vs_plain", logp._data, plain[0],
+                                 ("sum", vocab)),
+                                ("lse_vs_plain", lse._data, plain[1],
+                                 ("sum", vocab)),
+                                ("logp_vs_F.log_softmax", logp._data, lib,
+                                 ("sum", vocab))):
+        ok, err = lang_compare(got, ref, tol)
+        if not ok:
+            raise RuntimeError(f"19c {name}: {err}")
+        errs[name] = err
+    del plain, lib
+    rtc_ms = time_on_stream(push, iters=20)
+    lib_ms = time_on_stream(lambda: torch.log_softmax(logits, dim=-1), iters=20)
+    plain_ms = time_on_stream(lambda: k._run_plain([logits], logits.device),
+                              iters=5)
+    bound = 2 * logits.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out = {"ms": rtc_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "shape": [rows, vocab],
+           "max_abs_err": errs,
+           "stages": [st.kind for st in k._program.stages.stages]}
+    log(f"[rtc19c] log-softmax ({rows}, {vocab}): rtc {rtc_ms:.4f} ms, "
+        f"torch.log_softmax {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms; errors {errs}")
+    return out
+
+
+def phase_rtc_head(mx, lm):
+    """19d: the head product o = h @ w at (8192, 512) x (512, 32000), fp32
+    and bf16, against the plain version and timed beside torch.matmul."""
+    rows = LOGSOFTMAX_TOKENS[0] * LOGSOFTMAX_TOKENS[1]
+    head = lm.params["head"].float().contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    hidden = torch.randn(rows, head.shape[0], generator=gen, device="cuda")
+    out = {}
+    for dtype, peak in (("float32", FP32_FLOPS), ("bfloat16", BF16_TENSOR_FLOPS)):
+        h = hidden.to(getattr(torch, dtype))
+        w = head.to(getattr(torch, dtype))
+        hn, wn = mx.nd.NDArray(h), mx.nd.NDArray(w)
+        o = mx.nd.zeros((rows, w.shape[1]), ctx=mx.gpu(0), dtype=dtype)
+        k = mx.rtc.Rtc("head", [("h", hn), ("w", wn)], [("o", o)], HEAD_BODY)
+        push = lambda: k.push([hn, wn], [o])
+        push()
+        torch.cuda.synchronize()
+        plain = k._run_plain([h, w], h.device)[0]
+        tol = ("sum" if dtype == "float32" else "bf16", h.shape[1])
+        ok, err = lang_compare(o._data, plain, tol)
+        if not ok:
+            raise RuntimeError(f"19d {dtype}: {err}")
+        del plain
+        rtc_ms = time_on_stream(push, iters=5)
+        lib_ms = time_on_stream(lambda: torch.matmul(h, w), iters=20)
+        plain_ms = time_on_stream(lambda: k._run_plain([h, w], h.device),
+                                  iters=5)
+        flops = 2 * rows * h.shape[1] * w.shape[1]
+        nbytes = (h.numel() + w.numel() + rows * w.shape[1]) * h.element_size()
+        bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+        out[dtype] = {"ms": rtc_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": "operations",
+                      "max_abs_err": err, "tflops": flops / rtc_ms / 1e9}
+        log(f"[rtc19d] head product {dtype} ({rows}, {h.shape[1]}) x "
+            f"({w.shape[0]}, {w.shape[1]}): rtc {rtc_ms:.4f} ms "
+            f"({flops / rtc_ms / 1e9:.2f} TFLOP/s), torch.matmul {lib_ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms; max abs {err}")
+    return out
+
+
+def phase_rtc_clip(mx, lm):
+    """19e: global-norm clipping on phase 10's imperative SGD-momentum path
+    over the transformer LM's 49.5 M gradients: one reduction body per
+    parameter, one body folding the sums into the scale, the update reading
+    the scale as a 0-d Ref; against the same steps in plain torch on the
+    card, the norm timed beside torch.linalg.vector_norm."""
+    from mxnet_tpu_torch.models.transformer import lm_loss_and_grads
+    rng = np.random.RandomState(190)
+    tokens = torch.as_tensor(rng.randint(0, lm.cfg.vocab_size, (2, 129)),
+                             device="cuda")
+    _, grads = lm_loss_and_grads(lm.params, tokens, lm.cfg)
+    names = sorted(grads)
+    gs = [grads[n_].float().contiguous() for n_ in names]
+    n_elems = sum(g.numel() for g in gs)
+    g_nd = [mx.nd.NDArray(g) for g in gs]
+    ss = [mx.nd.zeros((), ctx=mx.gpu(0)) for _ in gs]
+    sumsq = {}
+    for g in g_nd:
+        if g.shape not in sumsq:
+            sumsq[g.shape] = mx.rtc.Rtc("sumsq", [("g", g)], [("ss", ss[0])],
+                                        SUMSQ_BODY)
+    parts = [f"s{j}" for j in range(len(gs))]
+    fold_body = (f"n = jnp.sqrt({' + '.join(p + '[...]' for p in parts)})\n"
+                 f"scale[...] = jnp.minimum(1.0, {CLIP_NORM} / (n + 1e-6))")
+    scale = mx.nd.zeros((), ctx=mx.gpu(0))
+    fold = mx.rtc.Rtc("clip_scale", list(zip(parts, ss)), [("scale", scale)],
+                      fold_body)
+    gen = torch.Generator(device="cuda").manual_seed(192)
+    w0 = [torch.randn(g.shape, generator=gen, device="cuda") for g in gs]
+    wr = [mx.nd.NDArray(w.clone()) for w in w0]
+    mr = [mx.nd.zeros(tuple(g.shape), ctx=mx.gpu(0)) for g in gs]
+    sgd = {}
+    for w, g, m in zip(wr, g_nd, mr):
+        if w.shape not in sgd:
+            sgd[w.shape] = mx.rtc.Rtc("clip_sgd", [("w", w), ("g", g), ("m", m),
+                                                   ("scale", scale)],
+                                      [("wout", w), ("mom", m)], CLIP_SGD_BODY)
+
+    def norm_rtc():
+        for g, s_ in zip(g_nd, ss):
+            sumsq[g.shape].push([g], [s_])
+        fold.push(ss, [scale])
+
+    def step_rtc():
+        norm_rtc()
+        for w, g, m in zip(wr, g_nd, mr):
+            sgd[w.shape].push([w, g, m, scale], [w, m])
+
+    def norm_plain():
+        total = torch.zeros((), device="cuda")
+        sums = [torch.sum(g * g) for g in gs]
+        for s_ in sums:
+            total = total + s_
+        n_ = torch.sqrt(total)
+        return sums, torch.clamp(CLIP_NORM / (n_ + 1e-6), max=1.0)
+
+    before = stage_counts()
+    step_rtc()
+    torch.cuda.synchronize()
+    moved = stage_moved(before)
+    sums, scale_p = norm_plain()
+    wp, mp = [w.clone() for w in w0], [torch.zeros_like(w) for w in w0]
+    for w, g, m in zip(wp, gs, mp):
+        m.copy_(0.9 * m - 0.01 * (g * scale_p + 0.0001 * w))
+        w.add_(m)
+    errs = {"sumsq_rel": max(float(((s_._data - p).abs() / p).item())
+                             for s_, p in zip(ss, sums)),
+            "scale_rel": float(((scale._data - scale_p).abs() / scale_p).item())}
+    errs["weights_max_abs"] = max(float((w._data - p).abs().max())
+                                  for w, p in zip(wr, wp))
+    if errs["sumsq_rel"] > CLIP_TOL or errs["scale_rel"] > CLIP_TOL:
+        raise RuntimeError(f"19e: the clip norm disagrees with torch: {errs}")
+    wmax = max(float(p.abs().max()) for p in wp)
+    if errs["weights_max_abs"] > CLIP_TOL * wmax:
+        raise RuntimeError(f"19e: the clipped update disagrees: {errs}")
+    flat = torch.cat([g.reshape(-1) for g in gs])
+    rtc_ms = time_on_stream(norm_rtc, iters=20)
+    lib_ms = time_on_stream(lambda: torch.linalg.vector_norm(flat), iters=20)
+    plain_ms = time_on_stream(norm_plain, iters=20)
+    step_ms_ = time_on_stream(step_rtc, iters=5)
+    bound = n_elems * 4 / HBM_BYTES_PER_S * 1e3
+    out = {"ms": rtc_ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": "bytes", "parameters": n_elems,
+           "tensors": len(gs), "clipped_step_ms": step_ms_,
+           "launches_one_step": moved, "max_err": errs,
+           "scale": float(scale._data)}
+    log(f"[rtc19e] clip norm over {len(gs)} gradients ({n_elems} fp32): rtc "
+        f"{rtc_ms:.4f} ms, torch.linalg.vector_norm {lib_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms; clipped step {step_ms_:.4f}"
+        f" ms; launches {moved}; errors {errs}")
+    return out
+
+
+def phase_rtc_language():
+    """Phase 19: 19a's forms against the plain version, then the path: B1's
+    body (19b), the log-softmax (19c), the head product (19d) and the
+    clipped SGD step (19e), each stage kind's launch count zeroed just
+    before and read just after."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from mxnet_tpu_torch.ops.cuda.rtc import rtc_launch
+    t0 = time.perf_counter()
+    kernels = phase_rtc_language_kernels()
+    lm = TransformerLM(TransformerConfig(), seed=0)
+    for kind in rtc_launch.stage_launches:  # the path's run starts here
+        rtc_launch.stage_launches[kind] = 0
+    launches0 = rtc_launch.launches
+    lstm = phase_rtc_lstm_body(mx)
+    logsm = phase_rtc_log_softmax(mx, lm)
+    head = phase_rtc_head(mx, lm)
+    clip = phase_rtc_clip(mx, lm)
+    path = dict(rtc_launch.stage_launches)  # and ends here
+    if not all(path.values()):
+        raise RuntimeError(f"phase 19: a stage kind never launched: {path}")
+    out = {"kernels": kernels, "lstm_body": lstm, "log_softmax": logsm,
+           "head_product": head, "clip": clip, "stage_launches": path,
+           "launches": rtc_launch.launches - launches0,
+           "seconds": time.perf_counter() - t0}
+    del lm
+    torch.cuda.empty_cache()
+    log(f"[rtc19] phase 19 on {nvidia_smi_name_and_limit()}: stage launches "
+        f"{path}, {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     phase_device()
     wgmma_build, wgmma_bwd_build, reg_build, probe_builds = phase_build()
@@ -6295,6 +6856,7 @@ def main():
     gluon = phase_gluon(bench)
     sequences = phase_seq()
     b5 = phase_b5()
+    lang = phase_rtc_language()
     main_n = max(BUCKETS)
     layer = seq[main_n]
     lstm_sequence = {
@@ -6412,7 +6974,7 @@ def main():
                 "path": "the transformer LM through InferenceServer "
                         "(phase 15b), counted after the warm-up"}
         records.append(record)
-    records.append(rtc_record(rtc_k, imp))
+    records.append(rtc_record(rtc_k, imp, lang))
     records += train_records(train_kerrs, bwd_plans, grad_errs, bench,
                              wide_train_launches, train_timing, reg_build)
     next(r for r in records if r["name"] == "lstm_sequence_backward")[

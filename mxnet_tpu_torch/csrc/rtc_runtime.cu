@@ -17,7 +17,12 @@
 // synchronizes. Error codes: 0 is success, a positive code below
 // kNvrtcBase a CUresult, kNvrtcBase + r an nvrtcResult r.
 //
-// Bound: the kernels are elementwise, so device-memory bytes bound them:
+// The module of a body outside the elementwise subset holds one kernel a
+// stage (map, reduce, product; rtc_codegen.py:emit_stages); the launcher
+// takes each by name (rtc_module_function) and launches them in order on
+// one stream, so this interface serves both.
+//
+// Bound of the elementwise kernels: device-memory bytes bound them:
 // each input read once and each output written once (the SGD-momentum
 // body on the transformer's 16,384,000-element embedding moves 327.7 MB:
 // 97.8 us at 3.35 TB/s). To come near that rate an SM needs tens of KB of

@@ -21,9 +21,16 @@ when its pointers are aligned for it (:func:`~.rtc_codegen.vector_aligned`,
 checked per push since the plan is kept per layout, not per pointer) and
 the scalar kernel otherwise, with the same bits either way. Launches are
 counted in ``rtc_launch.launches``, the vector kernel's also in
-``rtc_launch.vector_launches``. There is no fallback: a compile or launch
-that fails raises :class:`MXNetError` with NVRTC's log or the driver's
-error.
+``rtc_launch.vector_launches``. A program outside that elementwise
+subset (``Program.simple`` false) compiles into one module of stages
+(:func:`~.rtc_codegen.plan_stages`, :func:`~.rtc_codegen.emit_stages`):
+its sizes are in the source, the inputs' strides are launch arguments,
+values that cross stages go to scratch from ``torch.empty`` on the
+current stream, and the stages launch in order, each counted in
+``rtc_launch.launches`` and by kind in ``rtc_launch.stage_launches``. Map
+stages take the caller's launch shape; reduce and product stages choose
+their own. There is no fallback: a compile or launch that fails raises
+:class:`MXNetError` with NVRTC's log or the driver's error.
 """
 from __future__ import annotations
 
@@ -37,8 +44,9 @@ import torch
 from ... import _build
 from ...base import MXNetError
 from ...dtypes import torch_dtype
-from .rtc_codegen import (Program, emit, layout, vector_aligned,
-                          vector_kernel_name, vector_width)
+from .rtc_codegen import (Program, buffer_spec, emit, emit_stages, layout,
+                          plan_stages, vector_aligned, vector_kernel_name,
+                          vector_width)
 
 __all__ = ["rtc_launch", "compile_source", "check_launch_dims", "STATS",
            "ARCH"]
@@ -214,12 +222,114 @@ def _plan(prog: Program, reads, device, grid, block) -> _Plan:
                  vector_grid, flat, access)
 
 
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "int32": torch.int32,
+          "int16": torch.int16, "int8": torch.int8, "uint8": torch.uint8,
+          "bool": torch.bool}
+
+
+class _StagedPlan(NamedTuple):
+    kernel: CompiledKernel  # the module (its first stage's kernel)
+    launches: Tuple[tuple, ...]  # (function, grid, block, kind) per kernel
+    params: ctypes.Array  # RtcArgs: the inputs' strides
+    scratch: Tuple[tuple, ...]  # (buffer, shape, dtype) of scratch buffers
+    slots: int  # partial-sum slots of split reductions
+
+
+def _staged_plan(prog: Program, inputs, device, grid, block) -> _StagedPlan:
+    """The module and launches of a staged program for this layout of the
+    inputs: the inputs' strides are launch arguments, so the module is
+    compiled once per program and index width."""
+    stages = getattr(prog, "stages", None)
+    if stages is None:
+        stages = prog.stages = plan_stages(prog)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sizes = [math.prod(buffer_spec(prog, b)[0]) for b in stages.buffers]
+    wide = (max(sizes) >= 2 ** 31 or any(_span(t) >= 2 ** 31 for t in inputs))
+    source, launches, slots = emit_stages(prog, stages, wide, sms)
+    kernel = compile_source(source, launches[0][0], device.index)
+    block = block or (THREADS, 1, 1)
+    threads = math.prod(block)
+    out = []
+    for (name, g, b, kind), st in zip(launches, _stage_of(stages, launches)):
+        function = kernel.function if name == kernel.name else \
+            module_function(kernel, name)
+        if kind == "map":
+            n = math.prod(st.nodes[0].shape)
+            g = grid or (min(-(-n // threads), sms * BLOCKS_PER_SM), 1, 1)
+            b = block
+        out.append((function, g, b, kind))
+    maxr = max([len(s) for _, s, _ in prog.inputs] + [1])
+    packed = []
+    for t in inputs:
+        st = list(t.stride()) + [0] * (maxr - t.dim())
+        packed += st
+    packed += [0] * (max(len(prog.inputs), 1) * maxr - len(packed))
+    scratch = tuple((j, *buffer_spec(prog, b)) for j, b in
+                    enumerate(stages.buffers) if b[0] == "scratch")
+    return _StagedPlan(kernel, tuple(out),
+                       (ctypes.c_longlong * len(packed))(*packed), scratch,
+                       slots)
+
+
+def _stage_of(stages, launches):
+    """The stage of each launch (a split reduction's fold is its stage's)."""
+    it = iter(stages.stages)
+    st = None
+    for name, *_ in launches:
+        if not name.endswith("f"):
+            st = next(it)
+        yield st
+
+
+def _staged_launch(prog: Program, inputs, device, grid, block):
+    key = ("staged", device.index, grid, block,
+           tuple((tuple(t.shape), t.stride()) for t in inputs))
+    plan = prog.plans.get(key)
+    if plan is None:
+        plan = prog.plans[key] = _staged_plan(prog, inputs, device, grid,
+                                              block)
+    else:
+        STATS["cache_hits"] += 1
+    outputs = [torch.empty(s, dtype=_TORCH[dt], device=device)
+               for _, s, dt in prog.outputs]
+    buffers = {}
+    for j, shape, dt in plan.scratch:
+        buffers[j] = torch.empty(shape, dtype=_TORCH[dt], device=device)
+    for j, b in enumerate(prog.stages.buffers):
+        if b[0] == "out":
+            buffers[j] = outputs[b[1]]
+    part_f = torch.empty(max(plan.slots, 1), dtype=torch.float32,
+                         device=device)
+    part_i = torch.empty(max(plan.slots, 1), dtype=torch.int32, device=device)
+    tensors = list(inputs) + [buffers[j] for j in range(len(buffers))] + [
+        part_f, part_i]
+    pointers = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+    argv = (ctypes.c_void_p * (1 + len(pointers)))(
+        ctypes.addressof(plan.params), *(ctypes.addressof(p) for p in pointers))
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for function, g, b, kind in plan.launches:
+            err = lib.rtc_launch(function, *g, *b, stream, argv)
+            if err != 0:
+                raise MXNetError(f"Rtc kernel {plan.kernel.name} ({kind} "
+                                 f"stage) launch (grid {g}, block {b}) "
+                                 f"failed: {lib.rtc_error_string(err).decode()}"
+                                 f" ({err})")
+            rtc_launch.launches += 1
+            rtc_launch.stage_launches[kind] += 1
+    return outputs
+
+
 def rtc_launch(prog: Program, inputs: Sequence[torch.Tensor],
                grid_dims=None, block_dims=None,
                force_scalar: bool = False) -> List[torch.Tensor]:
     """Run ``prog`` on ``inputs`` (CUDA tensors on one card, in the Rtc's
-    input order) and return its outputs as new tensors. Counts the launch
-    in ``rtc_launch.launches``. ``force_scalar`` takes the scalar kernel
+    input order) and return its outputs as new tensors. Counts each kernel
+    launch in ``rtc_launch.launches`` and by stage kind in
+    ``rtc_launch.stage_launches`` (the layout-collapsed kernel of a simple
+    program is a map stage). ``force_scalar`` takes the scalar kernel
     where the vector one would run, to time the two side by side."""
     device = inputs[0].device if inputs else torch.device(
         "cuda", torch.cuda.current_device())
@@ -227,6 +337,8 @@ def rtc_launch(prog: Program, inputs: Sequence[torch.Tensor],
         raise MXNetError(f"Rtc kernel: inputs on {[str(t.device) for t in inputs]}"
                          "; the kernel takes tensors on one CUDA card")
     grid, block = check_launch_dims(grid_dims, block_dims)
+    if not prog.simple:
+        return _staged_launch(prog, list(inputs), device, grid, block)
     by_name = {n: t for (n, _, _), t in zip(prog.inputs, inputs)}
     reads = [by_name[n] for n in prog.reads]
     outputs = [torch.empty(s, dtype=torch_dtype(dt), device=device)
@@ -258,10 +370,13 @@ def rtc_launch(prog: Program, inputs: Sequence[torch.Tensor],
                          f"{grid}, block {plan.block}) failed: "
                          f"{lib.rtc_error_string(err).decode()} ({err})")
     rtc_launch.launches += 1
+    rtc_launch.stage_launches["map"] += 1
     rtc_launch.vector_launches += int(vector)
     return outputs
 
 
 rtc_launch.launches = 0
 rtc_launch.vector_launches = 0  # of those, the vector kernel's
+# launches by stage kind; a split reduction's fold counts as a reduce
+rtc_launch.stage_launches = {"map": 0, "reduce": 0, "product": 0}
 

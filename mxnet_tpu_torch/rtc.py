@@ -3,14 +3,63 @@
 The reference MXNet's ``mxrtc`` compiled CUDA C strings with NVRTC. The JAX
 package kept its API but takes a Python body over input/output Refs, run
 in ``pl.pallas_call``. The port keeps the JAX package's body language and
-compiles it with NVRTC again: on CUDA tensors ``push`` translates the body
-to one CUDA C kernel (``ops/cuda/rtc_codegen.py``), compiles it at the
-first push (cached by source) and launches it, or raises. On CPU tensors it
-runs the plain version: the body itself, over Refs that wrap torch tensors,
-with ``jnp`` and ``jax`` as small namespaces of torch functions carrying
-jnp's dtype rules (weak Python numbers, per-operation rounding, floor
-``//`` and ``%``). Both paths take the same elementwise subset, checked at
-construction; see ``rtc_codegen`` for it.
+compiles it with NVRTC again. ``Rtc(...)`` runs the body once over symbolic
+Refs (``ops/cuda/rtc_analyze.py``): that checks it and gives its program,
+each output's final value as a typed graph. On CUDA tensors ``push``
+compiles the program into one NVRTC module of map, reduce and product
+stages (``ops/cuda/rtc_codegen.py``) at the first push (cached by source)
+and launches it, or raises. On CPU tensors it runs the plain version: the
+same program evaluated with torch ops, with jnp's rules (weak Python
+numbers, per-operation rounding, floor ``//`` and ``%``, integer
+wrapping, 16-bit float reductions in fp32 rounded once).
+
+The language, as in the JAX package's interpret mode with x64 off:
+
+* **Refs**: float32, bfloat16, float16, int32, int8, uint8 and bool, each
+  output of its own shape. ``ref.shape``, ``ref.ndim``, ``ref.dtype``,
+  ``len(ref)`` are Python values; Python arithmetic on them folds.
+  ``jnp.pi``, ``np.pi``, ``jnp.inf`` and ``jnp.nan`` are numbers.
+* **Indexing** on Ref reads, values and stores: static ints (negative
+  too), slices with static bounds and a positive step, ``...``, and
+  ``None`` on values. A store writes its region, whose shape the value
+  must have, and leaves the rest of the Ref as it was (an earlier store or
+  the fill: NaN, the least integer, False); a read of an output after a
+  store gives the stored value. ``o[:] += e`` and ``a *= 2.0`` work.
+* **Views**: ``.T``, ``jnp.transpose``, ``.reshape``/``jnp.reshape``,
+  ``jnp.expand_dims``, ``jnp.squeeze``, ``jnp.broadcast_to``.
+* **Reductions**: ``jnp.{sum, mean, max, min, prod, argmax, argmin, any,
+  all}`` and their methods, with ``axis`` (an int, negative, or a tuple)
+  and ``keepdims``; ``jax.nn.softmax`` and ``jax.nn.log_softmax`` as JAX
+  expands them. Sums of ints give int32 (wrapping), means of ints fp32,
+  argmax/argmin int32 (the first index; NaN wins), max/min keep NaN.
+* **Products**: ``jnp.dot``, ``jnp.matmul`` and ``@`` on 1-D and 2-D
+  operands and ``matmul`` with one leading batch dim;
+  ``jax.lax.dot_general`` in the contractions ``(((1,), (0,)), ((), ()))``
+  and ``(((1,), (1,)), ((), ()))`` with ``preferred_element_type``. 16-bit
+  floats accumulate in fp32 and round once; int32 wraps.
+* **Static control flow**, unrolled at ``Rtc(...)``: ``for i in
+  range(...)``, ``jax.lax.fori_loop`` with static bounds and a lambda or
+  local ``def``, ``if``/``elif``/``else`` and ``a if c else b`` on Python
+  values. The truth value of an array (``if`` on one, a chained
+  comparison of arrays) raises, as in JAX; so does a body that unrolls
+  past 4096 statements.
+* **Elementwise**: ``+ - * / // % **`` (integer powers with array
+  exponents too), comparisons, bitwise ``& | ^ ~ << >>``,
+  ``jnp.{exp, log, log1p, expm1, sqrt, tanh, sin, cos, tan, arcsin,
+  arccos, arctan, arctan2, sinh, cosh, log2, log10, exp2, abs, square,
+  sign, floor, ceil, round, trunc, maximum, minimum, where, clip, power,
+  reciprocal, negative, isnan, isinf, isfinite, logical_and, logical_or,
+  logical_not, mod, floor_divide, zeros, ones, full and their _like}``,
+  ``jax.lax.{rsqrt, erf}``, ``jax.nn.{sigmoid, relu, gelu (approximate),
+  silu, softplus, log_sigmoid, leaky_relu, elu}``, ``.astype`` to any Ref
+  dtype, int16 or a Ref's ``dtype``. Promotion is jnp's lattice with x64
+  off (``uint8 + int8`` is int16).
+
+Still refused, with :class:`MXNetError` naming the construct and
+``ROADMAP.md``'s "B4 remaining body language": gathers and advanced
+indexing, scans, ``lax.while_loop``/``cond``/``scan``, sorting, ``einsum``,
+products of rank above 3, fp64 (``.astype(jnp.float64)`` too) and complex
+types, random numbers, and ``np`` functions of array values.
 
     rtc = mx.rtc.Rtc('axpy', [('x', x), ('y', y)], [('out', out)], '''
     out[:] = x[:] * 2.0 + y[:]
@@ -18,15 +67,13 @@ construction; see ``rtc_codegen`` for it.
     rtc.push([x, y], [out])
 
 ``grid_dims``/``block_dims``, ignored by the JAX package, are the launch
-shape on the card when given (the kernel's grid-stride loop makes the
-result independent of them); both paths reject a zero dim or more than
-1024 threads a block.
+shape of the map stages on the card when given (their grid-stride loops
+make the result independent of them); reduce and product stages choose
+their own. Both paths reject a zero dim or more than 1024 threads a block.
 """
 from __future__ import annotations
 
-import textwrap
-import types
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,134 +81,52 @@ import torch
 from .base import MXNetError
 from .dtypes import dtype_name, torch_dtype
 from .ops.cuda import rtc_codegen as _cg
+from .ops.cuda.rtc_analyze import FLOATS, IINFO, INTS, WEAK_FLOAT, WEAK_INT
 from .ops.cuda.rtc import check_launch_dims, rtc_launch
 
 __all__ = ["Rtc"]
 
 
-# -- the plain version: jnp's semantics over torch tensors -----------------
+# -- the plain version: the program evaluated with torch --------------------
+
+_TT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+       "float16": torch.float16, "int32": torch.int32, "int16": torch.int16,
+       "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
+       WEAK_INT: torch.int32, WEAK_FLOAT: torch.float32}
+_CANON = {WEAK_INT: "int32", WEAK_FLOAT: "float32"}
 
 
-def _dt(v) -> str:
-    """The subset dtype of a value: a Val's dtype or a weak Python number."""
-    if isinstance(v, _Val):
-        return v.dtype
-    return _cg.WEAK_FLOAT if isinstance(v, float) else _cg.WEAK_INT
+def _conv(t: torch.Tensor, src: str, dst: str) -> torch.Tensor:
+    """``t`` held for dtype ``src`` converted to ``dst`` as the kernel
+    converts: float to integer truncates, saturates and takes NaN to 0;
+    integers wrap; integers reach 16-bit floats through fp32."""
+    src, dst = _CANON.get(src, src), _CANON.get(dst, dst)
+    if src == dst:
+        return t
+    if dst == "bool":
+        return t != 0
+    if dst in INTS:
+        if src in FLOATS:
+            lo, hi = IINFO[dst]
+            x = t.float()
+            big, small = x >= float(hi) + 1.0, x < float(lo)
+            out = torch.where(big | small | torch.isnan(x), 0.0,
+                              torch.trunc(x)).to(torch.int64)
+            out = torch.where(big, hi, torch.where(small, lo, out))
+            return out.to(_TT[dst])
+        return t.to(torch.int64).to(_TT[dst]) if src != "bool" else \
+            t.to(_TT[dst])
+    if src not in FLOATS and dst != "float32":
+        return t.float().to(_TT[dst])
+    return t.to(_TT[dst])
 
 
-def _tt(dtype: str) -> torch.dtype:
-    return torch.bool if dtype == "bool" else torch_dtype(dtype)
-
-
-class _Val:
-    """A value of the body: a tensor and its subset dtype."""
-
-    def __init__(self, t: torch.Tensor, dtype: str):
-        self.t, self.dtype = t, dtype
-
-    def to(self, dtype: str) -> torch.Tensor:
-        if dtype == self.dtype:
-            return self.t
-        if dtype == "int32" and self.dtype in _cg.FLOATS:
-            # truncate toward zero, saturate, NaN -> 0 (the kernel's
-            # __float2int_rz)
-            t = self.t.float()
-            hi, lo = t >= 2.0 ** 31, t < -2.0 ** 31
-            out = torch.where(hi | lo | torch.isnan(t), 0.0, t).to(torch.int32)
-            return torch.where(hi, _cg.INT_MAX, torch.where(lo, _cg.INT_MIN, out))
-        if self.dtype == "int32" and dtype in ("bfloat16", "float16"):
-            return self.t.float().to(_tt(dtype))  # as the kernel: via fp32
-        return self.t.to(_tt(dtype))
-
-    # arithmetic
-    def __add__(self, o):
-        return _binop("+", self, o)
-
-    def __radd__(self, o):
-        return _binop("+", o, self)
-
-    def __sub__(self, o):
-        return _binop("-", self, o)
-
-    def __rsub__(self, o):
-        return _binop("-", o, self)
-
-    def __mul__(self, o):
-        return _binop("*", self, o)
-
-    def __rmul__(self, o):
-        return _binop("*", o, self)
-
-    def __truediv__(self, o):
-        return _binop("/", self, o)
-
-    def __rtruediv__(self, o):
-        return _binop("/", o, self)
-
-    def __floordiv__(self, o):
-        return _binop("//", self, o)
-
-    def __rfloordiv__(self, o):
-        return _binop("//", o, self)
-
-    def __mod__(self, o):
-        return _binop("%", self, o)
-
-    def __rmod__(self, o):
-        return _binop("%", o, self)
-
-    def __pow__(self, o):
-        return _binop("**", self, o)
-
-    def __rpow__(self, o):
-        return _binop("**", o, self)
-
-    def __neg__(self):
-        return _Val(torch.neg(self.t), self.dtype)
-
-    def __pos__(self):
-        return self
-
-    # comparisons
-    def __lt__(self, o):
-        return _cmp(torch.lt, self, o)
-
-    def __le__(self, o):
-        return _cmp(torch.le, self, o)
-
-    def __gt__(self, o):
-        return _cmp(torch.gt, self, o)
-
-    def __ge__(self, o):
-        return _cmp(torch.ge, self, o)
-
-    def __eq__(self, o):
-        return _cmp(torch.eq, self, o)
-
-    def __ne__(self, o):
-        return _cmp(torch.ne, self, o)
-
-    def astype(self, dtype: str) -> "_Val":
-        return _Val(self.to(dtype), dtype)
-
-
-def _as(v, dtype: str, device) -> torch.Tensor:
-    """``v`` as a tensor of ``dtype``: a Python number converts as torch
-    converts it (double -> float -> bf16/f16), as the kernel's literals."""
-    if isinstance(v, _Val):
-        return v.to(dtype)
-    return torch.tensor(v, dtype=_tt(dtype), device=device)
-
-
-def _device(*vals):
-    return next(v.t.device for v in vals if isinstance(v, _Val))
-
-
-def _where_int_div(a, b):
+def _where_int_div(a, b, dtype):
     """XLA's integer division and remainder: x / 0 = -1, x % 0 = x,
-    INT_MIN / -1 = INT_MIN (torch raises or traps on these)."""
+    MIN / -1 = MIN (torch raises or traps on these)."""
+    lo = IINFO[dtype][0]
     zero = b == 0
-    ovf = (a == _cg.INT_MIN) & (b == -1)
+    ovf = (a == lo) & (b == -1)
     safe = torch.where(zero | ovf, torch.ones_like(b), b)
     q = torch.div(a, safe, rounding_mode="trunc")
     r = torch.fmod(a, safe)
@@ -178,147 +143,263 @@ def _round_away(x):
     return torch.where(tie, tr + torch.sign(x), r)
 
 
-def _binop(op: str, a, b) -> _Val:
-    if not isinstance(a, _Val) and not isinstance(b, _Val):
-        return _cg.PY_OPS[op](a, b)
-    dev = _device(a, b)
-    ta, tb = _dt(a), _dt(b)
-    if op == "**":
-        if not isinstance(b, _Val) and isinstance(b, int):
-            return _ipow(a, b)
-        t = _cg.promote(ta, tb)
-        return _Val(torch.pow(_as(a, t, dev), _as(b, t, dev)), t)
-    t = _cg.promote(ta, tb)
-    if op == "/" and t in ("int32", "bool"):
-        t = "float32"
-    x, y = _as(a, t, dev), _as(b, t, dev)
-    if op in "+-*/":
-        fn = {"+": torch.add, "-": torch.sub, "*": torch.mul,
-              "/": torch.div}[op]
-        return _Val(fn(x, y), t)
-    if t == "int32":
-        if op == "%":  # jnp.remainder: a divisor of 0 counts as 1
-            y = torch.where(y == 0, torch.ones_like(y), y)
-            _, r = _where_int_div(x, y)
-            plus = ((r < 0) != (y < 0)) & (r != 0)
-            return _Val(torch.where(plus, r + y, r), t)
-        q, r = _where_int_div(x, y)
-        sel = (torch.sign(x) != torch.sign(y)) & (r != 0)
-        return _Val(torch.where(sel, q - 1, q), t)
-    mod = torch.fmod(x, y)
-    if op == "%":
-        plus = ((mod < 0) != (y < 0)) & (mod != 0)
-        return _Val(torch.where(plus, mod + y, mod), t)
-    div = (x - mod) / y  # _float_divmod, each op in the dtype
-    ind = (mod != 0) & (_sign(y) != _sign(mod))
-    div = torch.where(ind, div - 1, div)
-    return _Val(_round_away(div), t)
-
-
 def _sign(x):
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return torch.where(x > 0, one, torch.where(x < 0, -one, x))
 
 
-def _ipow(a: _Val, k: int) -> _Val:
-    """lax.integer_pow: binary exponentiation, each product rounded."""
-    x = a.t
-    if k == 0:
-        return _Val(torch.ones_like(x), a.dtype)
-    recip, k, acc = k < 0, abs(k), None
-    while k > 0:
-        if k & 1:
-            acc = x if acc is None else acc * x
-        k >>= 1
-        if k > 0:
+_FN = {"exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
+       "expm1": torch.expm1, "sqrt": torch.sqrt, "tanh": torch.tanh,
+       "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+       "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+       "sinh": torch.sinh, "cosh": torch.cosh, "exp2": torch.exp2,
+       "rsqrt": torch.rsqrt, "erf": torch.erf, "abs": torch.abs,
+       "floor": torch.floor, "ceil": torch.ceil, "trunc": torch.trunc,
+       "round": torch.round, "square": lambda x: x * x, "sign": _sign,
+       "isnan": torch.isnan, "isinf": torch.isinf,
+       "isfinite": torch.isfinite}
+
+
+class _Plain:
+    """Evaluates a program's values with torch on one device."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], device):
+        self.inputs, self.device = inputs, device
+        self.memo: Dict[int, torch.Tensor] = {}
+
+    def val(self, e, dtype: str) -> torch.Tensor:
+        """``e`` as a tensor of ``dtype``: a weak literal converts as torch
+        converts a Python number."""
+        if e.kind == "const" and e.dtype in (WEAK_INT, WEAK_FLOAT):
+            return torch.tensor(e.info["value"], dtype=_TT[dtype],
+                                device=self.device)
+        return _conv(self.ev(e), e.dtype, dtype)
+
+    def ev(self, e) -> torch.Tensor:
+        r = self.memo.get(id(e))
+        if r is None:
+            r = self.memo[id(e)] = getattr(self, "_" + e.kind)(e)
+        return r
+
+    def _const(self, e):
+        return torch.tensor(e.info["value"], dtype=_TT[e.dtype],
+                            device=self.device)
+
+    def _in(self, e):
+        return self.inputs[e.info["name"]]
+
+    def _fill(self, e):
+        return torch.full(e.shape, _cg.nan_fill(e.dtype), dtype=_TT[e.dtype],
+                          device=self.device)
+
+    def _neg(self, e):
+        return torch.neg(self.val(e.args[0], e.dtype))
+
+    def _bin(self, e):
+        t, op = _CANON.get(e.dtype, e.dtype), e.info["op"]
+        x, y = (self.val(a, t) for a in e.args)
+        if t == "bool":
+            return {"&": torch.logical_and, "|": torch.logical_or,
+                    "^": torch.logical_xor}[op](x, y)
+        if op in ("&", "|", "^"):
+            return {"&": torch.bitwise_and, "|": torch.bitwise_or,
+                    "^": torch.bitwise_xor}[op](x, y)
+        if op in ("<<", ">>"):
+            bits = {"int32": 32, "int16": 16, "int8": 8, "uint8": 8}[t]
+            out = (y < 0) | (y >= bits)
+            s = torch.where(out, torch.zeros_like(y), y).to(torch.int64)
+            x64 = x.to(torch.int64)
+            if op == "<<":
+                r = torch.where(out, torch.zeros_like(x64), x64 << s)
+                return r.to(_TT[t])  # wraps
+            fill = torch.where(x64 < 0, -1, 0)
+            return torch.where(out, fill, x64 >> s).to(_TT[t])
+        if op in "+-*/":
+            return {"+": torch.add, "-": torch.sub, "*": torch.mul,
+                    "/": torch.div}[op](x, y)
+        if t == "uint8":
+            zero = y == 0
+            safe = torch.where(zero, torch.ones_like(y), y)
+            if op == "//":
+                return torch.where(zero, torch.full_like(x, 255),
+                                   torch.div(x, safe, rounding_mode="trunc"))
+            return torch.where(zero, torch.zeros_like(x), torch.remainder(x, safe))
+        if t in INTS:
+            if op == "%":  # jnp.remainder: a divisor of 0 counts as 1
+                y = torch.where(y == 0, torch.ones_like(y), y)
+                _, r = _where_int_div(x, y, t)
+                plus = ((r < 0) != (y < 0)) & (r != 0)
+                return torch.where(plus, r + y, r)
+            q, r = _where_int_div(x, y, t)
+            sel = (torch.sign(x) != torch.sign(y)) & (r != 0)
+            return torch.where(sel, q - 1, q)
+        mod = torch.fmod(x, y)
+        if op == "%":
+            plus = ((mod < 0) != (y < 0)) & (mod != 0)
+            return torch.where(plus, mod + y, mod)
+        div = (x - mod) / y  # _float_divmod, each op in the dtype
+        ind = (mod != 0) & (_sign(y) != _sign(mod))
+        div = torch.where(ind, div - 1, div)
+        return _round_away(div)
+
+    def _ipow(self, e):
+        """lax.integer_pow: binary exponentiation, each product rounded."""
+        x = self.val(e.args[0], e.dtype)
+        k = e.info["k"]
+        if k == 0:
+            return torch.ones_like(x)
+        recip, k, acc = k < 0, abs(k), None
+        while k > 0:
+            if k & 1:
+                acc = x if acc is None else acc * x
+            k >>= 1
+            if k > 0:
+                x = x * x
+        return 1.0 / acc if recip else acc
+
+    def _ipowa(self, e):
+        """jnp's _pow_int_int: six bits of the exponent."""
+        x, y = (self.val(a, e.dtype) for a in e.args)
+        x, y = torch.broadcast_tensors(x, y)
+        acc = torch.where((x == 0) & (y != 0), torch.zeros_like(x),
+                          torch.ones_like(x))
+        y64 = y.to(torch.int64)
+        for k in range(6):
+            acc = torch.where(((y64 >> k) & 1) != 0, acc * x, acc)
             x = x * x
-    return _Val(1.0 / acc if recip else acc, a.dtype)
+        return acc
+
+    def _pow(self, e):
+        x, y = (self.val(a, e.dtype) for a in e.args)
+        return torch.pow(x, y)
+
+    def _cmp(self, e):
+        ct = e.info["ctype"]
+        ct = {WEAK_INT: "int32", WEAK_FLOAT: "float32"}.get(ct, ct)
+        x, y = (self.val(a, ct) for a in e.args)
+        return {"<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge,
+                "==": torch.eq, "!=": torch.ne}[e.info["op"]](x, y)
+
+    def _max(self, e):
+        return torch.maximum(*(self.val(a, e.dtype) for a in e.args))
+
+    def _min(self, e):
+        return torch.minimum(*(self.val(a, e.dtype) for a in e.args))
+
+    def _where(self, e):
+        c = self.val(e.args[0], "bool")
+        a, b = (self.val(x, e.dtype) for x in e.args[1:])
+        return torch.where(c, a, b)
+
+    def _cast(self, e):
+        return self.val(e.args[0], e.dtype)
+
+    def _sigmoid(self, e):
+        """lax.logistic: 1 / (1 + exp(-x)), each op in x's dtype."""
+        x = self.val(e.args[0], e.dtype)
+        one = torch.ones((), dtype=x.dtype, device=x.device)
+        return one / (one + torch.exp(-x))
+
+    def _not(self, e):
+        x = self.val(e.args[0], e.dtype)
+        return torch.logical_not(x) if e.dtype == "bool" else \
+            torch.bitwise_not(x)
+
+    def _fn(self, e):
+        a = e.args[0]
+        dt = a.dtype if e.info["fn"] in ("isnan", "isinf", "isfinite") \
+            else e.dtype
+        return _FN[e.info["fn"]](self.val(a, dt))
+
+    def _fn2(self, e):
+        return torch.atan2(*(self.val(a, e.dtype) for a in e.args))
+
+    def _view(self, e):
+        src = self.ev(e.args[0])
+        start, dims = e.info["start"], e.info["dims"]
+        driven = {d: (k, step) for k, (d, step) in enumerate(dims)
+                  if d is not None}
+        index = []
+        for d in range(src.dim()):
+            if d in driven:
+                k, step = driven[d]
+                n = e.shape[k]
+                index.append(slice(start[d], start[d] + step * (n - 1) + 1, step))
+            else:
+                index.append(start[d])
+        t = src[tuple(index)] if index else src
+        ks = [k for d, (k, _) in sorted(driven.items())]
+        order = sorted(range(len(ks)), key=lambda i: ks[i])
+        t = t.permute(order) if len(order) > 1 else t
+        for k, (d, _) in enumerate(dims):
+            if d is None:
+                t = t.unsqueeze(k)
+        return t.expand(e.shape)
+
+    def _reshape(self, e):
+        return self.ev(e.args[0]).reshape(e.shape)
+
+    def _store(self, e):
+        old, val = self.ev(e.args[0]), self.ev(e.args[1])
+        out = old.clone()
+        index = tuple(slice(s, s + step * (n - 1) + 1, step) if kept else s
+                      for s, step, n, kept in e.info["region"])
+        out[index] = val
+        return out
+
+    def _reduce(self, e):
+        src = e.args[0]
+        op, axes, acc = e.info["op"], e.info["axes"], e.info["acc"]
+        R = int(np.prod([src.shape[d] for d in axes]))
+        if op in ("sum", "mean", "prod"):
+            if acc == "float32":
+                s = self.val(src, "float32")
+                r = torch.sum(s, axes) if op != "prod" else _prod(s, axes)
+                if op == "mean":
+                    r = r / torch.tensor(float(R), dtype=torch.float32)
+                return _conv(r, "float32", e.dtype).reshape(e.shape)
+            s = self.val(src, "int32").to(torch.int64)
+            r = torch.sum(s, axes) if op == "sum" else _prod(s, axes)
+            return r.to(torch.int32).reshape(e.shape)  # wraps
+        s = self.val(src, acc)
+        if op in ("max", "min"):
+            f = torch.amax if op == "max" else torch.amin
+            return f(s, axes).reshape(e.shape)
+        if op in ("any", "all"):
+            f = torch.any if op == "any" else torch.all
+            r = s
+            for d in sorted(axes, reverse=True):
+                r = f(r, d)
+            return r.reshape(e.shape)
+        # argmax / argmin over one axis: NaN wins, then the first index
+        (axis,) = axes
+        x = s.to(torch.uint8) if acc == "bool" else s
+        if x.is_floating_point():
+            nan = torch.isnan(x)
+            big = float("-inf") if op == "argmax" else float("inf")
+            idx = (torch.argmax if op == "argmax" else torch.argmin)(
+                torch.where(nan, big, x.float()), axis)
+            first_nan = torch.argmax(nan.to(torch.uint8), axis)
+            idx = torch.where(nan.any(axis), first_nan, idx)
+        else:
+            idx = (torch.argmax if op == "argmax" else torch.argmin)(x, axis)
+        return idx.to(torch.int32).reshape(e.shape)
+
+    def _dot(self, e):
+        a, b = (self.val(x, e.args[0].dtype) for x in e.args)
+        if e.info["acc"] == "float32":
+            r = torch.matmul(a.float(), b.float())
+            return _conv(r, "float32", e.dtype)
+        r = (a.to(torch.int64).unsqueeze(-1) * b.to(torch.int64).unsqueeze(-3)
+             ).sum(-2)
+        return r.to(_TT[e.dtype])
 
 
-def _cmp(fn, a, b) -> _Val:
-    t = _cg.promote(_dt(a), _dt(b))
-    dev = _device(a, b)
-    return _Val(fn(_as(a, t, dev), _as(b, t, dev)), "bool")
-
-
-def _float_val(v: _Val) -> _Val:
-    return v if v.dtype in _cg.FLOATS else v.astype("float32")
-
-
-def _unary(fn):
-    return lambda x: (lambda v: _Val(fn(v.t), v.dtype))(_float_val(x))
-
-
-def _maximum(a, b):
-    t = _cg.promote(_dt(a), _dt(b))
-    dev = _device(a, b)
-    return _Val(torch.maximum(_as(a, t, dev), _as(b, t, dev)), t)
-
-
-def _minimum(a, b):
-    t = _cg.promote(_dt(a), _dt(b))
-    dev = _device(a, b)
-    return _Val(torch.minimum(_as(a, t, dev), _as(b, t, dev)), t)
-
-
-def _where(c, a, b):
-    dev = _device(c, a, b)
-    if not isinstance(c, _Val):
-        cond = torch.tensor(c != 0, device=dev)
-    else:
-        cond = c.t if c.dtype == "bool" else c.t != 0
-    t = _cg.promote(_dt(a), _dt(b))
-    return _Val(torch.where(cond, _as(a, t, dev), _as(b, t, dev)), t)
-
-
-def _clip(x, min=None, max=None, a_min=None, a_max=None):
-    lo = min if min is not None else a_min
-    hi = max if max is not None else a_max
-    if lo is not None:
-        x = _maximum(lo, x)
-    if hi is not None:
-        x = _minimum(hi, x)
-    return x
-
-
-def _sigmoid(x: _Val) -> _Val:
-    """lax.logistic: 1 / (1 + exp(-x)), each op in x's dtype."""
-    one = torch.ones((), dtype=x.t.dtype, device=x.t.device)
-    return _Val(one / (one + torch.exp(-x.t)), x.dtype)
-
-
-def _floor_like(fn):
-    return lambda x: x if x.dtype == "int32" else _Val(fn(x.t), x.dtype)
-
-
-_JNP = types.SimpleNamespace(
-    exp=_unary(torch.exp), log=_unary(torch.log), log1p=_unary(torch.log1p),
-    expm1=_unary(torch.expm1), sqrt=_unary(torch.sqrt),
-    tanh=_unary(torch.tanh), sin=_unary(torch.sin), cos=_unary(torch.cos),
-    abs=lambda x: _Val(torch.abs(x.t), x.dtype),
-    square=lambda x: _Val(x.t * x.t, x.dtype),
-    sign=lambda x: _Val(_sign(x.t), x.dtype),
-    floor=_floor_like(torch.floor), ceil=_floor_like(torch.ceil),
-    maximum=_maximum, minimum=_minimum, where=_where, clip=_clip,
-    float32="float32", bfloat16="bfloat16", float16="float16",
-    int32="int32")
-_JAX = types.SimpleNamespace(nn=types.SimpleNamespace(
-    sigmoid=_sigmoid, relu=lambda x: _maximum(x, 0)))
-
-
-class _Ref:
-    """A whole-array Ref over a torch tensor, read and written as x[:] or
-    x[...]."""
-
-    def __init__(self, t: torch.Tensor, dtype: str):
-        self.t, self.dtype = t, dtype
-
-    def __getitem__(self, key):
-        return _Val(self.t, self.dtype)
-
-    def __setitem__(self, key, value):
-        # the subset check at construction holds shape and dtype already
-        self.t = value.t
+def _prod(s: torch.Tensor, axes) -> torch.Tensor:
+    r = s
+    for d in sorted(axes, reverse=True):
+        r = torch.prod(r, d)
+    return r
 
 
 def _spec(arrays) -> List[Tuple[str, tuple, str]]:
@@ -331,7 +412,7 @@ class Rtc:
         """name: kernel name; inputs/outputs: (name, NDArray) pairs fixing
         the argument names, shapes and dtypes; kernel: python source whose
         statements read/write the named Refs (``x[:]``-style). A body
-        outside the compiled subset raises MXNetError here."""
+        outside the language raises MXNetError here."""
         self.name = name
         self.input_names = [n for n, _ in inputs]
         self.output_names = [n for n, _ in outputs]
@@ -339,31 +420,32 @@ class Rtc:
             raise MXNetError("Rtc needs at least one output")
         self._in_templates = [(s, d) for _, s, d in _spec(inputs)]
         self._out_templates = [(s, d) for _, s, d in _spec(outputs)]
-        body = textwrap.dedent(kernel)
-        args = ", ".join(self.input_names + self.output_names)
-        src = (f"def _rtc_kernel({args}):\n"
-               + textwrap.indent(body.strip() + "\n", "    "))
-        scope = {"jnp": _JNP, "jax": _JAX, "np": np}
-        try:
-            exec(compile(src, f"<rtc:{name}>", "exec"), scope)
-        except SyntaxError as e:
-            raise MXNetError(f"Rtc kernel {name!r} failed to parse: {e}")
-        self._kernel = scope["_rtc_kernel"]
-        self._program = _cg.analyze(name, _spec(inputs), _spec(outputs), body)
+        self._program = _cg.analyze(name, _spec(inputs), _spec(outputs),
+                                    kernel)
 
     def _run_plain(self, tensors: List[torch.Tensor], device):
-        refs = [_Ref(t, d) for t, (_, d) in zip(tensors, self._in_templates)]
-        outs = [_Ref(torch.full(s, _cg.nan_fill(d), dtype=torch_dtype(d),
-                                device=device), d)
-                for s, d in self._out_templates]
-        self._kernel(*refs, *outs)
-        return [o.t for o in outs]
+        """The plain version: the program over ``tensors`` with torch ops on
+        ``device``, into new tensors."""
+        prog = self._program
+        plain = _Plain({n: t for (n, _, _), t in zip(prog.inputs, tensors)},
+                       device)
+        # outputs are new tensors, as the JAX interpreter's are: a value
+        # that is (a view of) an input is copied
+        storages = {t.untyped_storage().data_ptr() for t in tensors}
+        outs = []
+        for n, _, dt in prog.outputs:
+            r = plain.val(prog.finals[n], dt)
+            shared = r.untyped_storage().data_ptr() in storages
+            outs.append(r.clone(memory_format=torch.contiguous_format)
+                        if shared else r.contiguous())
+        return outs
 
     def push(self, inputs: List, outputs: List, grid_dims=None,
              block_dims=None):
-        """Run the kernel: on the card the NVRTC-compiled kernel with the
-        given launch shape, on the CPU the plain version. Each output gets a
-        new tensor behind its handle (its version bumps)."""
+        """Run the kernel: on the card the NVRTC-compiled stages with the
+        given launch shape for map stages, on the CPU the plain version.
+        Each output gets a new tensor behind its handle (its version
+        bumps)."""
         if len(inputs) != len(self.input_names) or \
                 len(outputs) != len(self.output_names):
             raise MXNetError(
